@@ -1,0 +1,12 @@
+"""repro_torch — the PyTorch/CUDA port of the ``repro`` FFT/DVFS system.
+
+Same subpackage layout as the JAX reference (``repro.X.Y`` ->
+``repro_torch.X.Y``); imports torch and numpy, never JAX and never
+``repro``.  Hand-written Hopper kernels (``csrc``) replace the
+reference's Pallas TPU kernels; each has a plain torch twin that runs on
+CPU tensors.
+
+Ported so far: planned batched 1-D C2C FFTs (single pass, four-step,
+Bluestein) on three CUDA kernels, priced by the paper's DVFS model
+(``repro_torch.core``).
+"""

@@ -1,0 +1,20 @@
+"""The paper's DVFS energy model, as numpy copies of ``repro.core``.
+
+Layers:
+  hardware     device specs + DVFS frequency/voltage tables (paper Tables 1-2)
+  power_model  P(f) = static(V) + dynamic(f, V) + memory
+  perf_model   t(f) with the paper's three regimes (Fig. 6)
+  energy       Eqs. (3)-(7): energy, GFLOPS/W, I_ef
+  workloads    the 1-D FFT plan model
+  dvfs         optimal & mean-optimal frequency search (Table 3)
+"""
+from repro_torch.core.dvfs import MeanOptimal, SweepResult, mean_optimal, sweep
+from repro_torch.core.energy import (OperatingPoint, efficiency_increase,
+                                     evaluate)
+from repro_torch.core.hardware import (JETSON_NANO, TESLA_V100, TITAN_V,
+                                       DeviceSpec)
+from repro_torch.core.perf_model import WorkloadProfile
+from repro_torch.core.power_model import PowerModel
+from repro_torch.core.workloads import FFTCase, fft_workload
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,0 +1,65 @@
+"""Energy and efficiency metrics — Eqs. (3)-(7) of the paper (numpy copy of
+``repro.core.energy``, limited to what the FFT sweep needs).
+
+  E_f   = sum_i P_i * t_i                       (3)  energy of a run
+  E_ef  = C_p * t / E_f = C_p / P_avg           (4)  energy efficiency
+  I_ef  = E_ef,o / E_ef,d                       (7)  efficiency increase
+
+The model is analytic, so (3) collapses to E(f) = P(f) * t(f).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.hardware import DeviceSpec
+from repro_torch.core.perf_model import WorkloadProfile
+from repro_torch.core.power_model import PowerModel
+
+
+@dataclasses.dataclass(frozen=True)
+class OperatingPoint:
+    """Everything the paper reports about running a workload at a clock f."""
+
+    f: float                 # core clock [MHz]
+    time: float              # execution time [s]
+    power: float             # average power [W]
+    energy: float            # E(f) = P * t [J]
+    gflops: float            # C_p / 1e9
+    gflops_per_watt: float   # E_ef / 1e9  (Eq. 4 with C_p in FLOPS)
+
+
+def evaluate(
+    profile: WorkloadProfile,
+    device: DeviceSpec,
+    power_model: PowerModel,
+    f: np.ndarray | float,
+) -> OperatingPoint | list[OperatingPoint]:
+    """Evaluate a workload at one or many core-clock frequencies."""
+    f_arr = np.atleast_1d(np.asarray(f, dtype=np.float64))
+    t = profile.time(f_arr, device)
+    p = power_model.power(
+        f_arr,
+        u_core=profile.core_utilisation(device),
+        u_mem=profile.mem_utilisation(device),
+    )
+    e = p * t
+    c_p = profile.flops / t if profile.flops else np.zeros_like(t)
+    pts = [
+        OperatingPoint(
+            f=float(fi), time=float(ti), power=float(pi), energy=float(ei),
+            gflops=float(ci) / 1e9,
+            gflops_per_watt=(float(ci) / float(pi)) / 1e9 if pi > 0 else 0.0,
+        )
+        for fi, ti, pi, ei, ci in zip(f_arr, t, p, e, c_p)
+    ]
+    return pts[0] if np.isscalar(f) or np.asarray(f).ndim == 0 else pts
+
+
+def efficiency_increase(opt: OperatingPoint, ref: OperatingPoint) -> float:
+    """Eq. (7): I_ef = E_ef(optimal) / E_ef(reference clock)."""
+    if ref.gflops_per_watt > 0:
+        return opt.gflops_per_watt / ref.gflops_per_watt
+    # Workloads without a FLOP count: efficiency ratio reduces to E_d/E_o.
+    return ref.energy / opt.energy

@@ -1,0 +1,311 @@
+"""FFT planning — pick the algorithm and kernel route per length.
+
+The counterpart of ``repro.fft.plan`` for C2C transforms:
+
+  pow2, fits one kernel   -> one fused Stockham pass (``fft_c2c`` kernel)
+  pow2, long              -> four-step decomposition: two fused passes
+                             (``fft_c2c_axis1`` with the inter-pass
+                             twiddle, then ``fft_c2c_t``)
+  non-pow2                -> Bluestein (two routed pow2 FFTs, cached
+                             chirp/filter)
+
+``MAX_SINGLE_PASS`` is the reference's, so ``algorithm`` and ``passes``
+(the DVFS model's HBM pass count) agree between the two packages.
+
+**Routing**: every power-of-two pass of every plan launches a CUDA kernel
+on a CUDA tensor, or runs that kernel's plain torch version on a CPU
+tensor (``repro_torch.kernels.fft``).  Unlike the reference there is no
+``try``/``except`` fallback: a kernel that fails raises through the plan.
+The pure-torch engine runs only inside an explicit :func:`kernels_disabled`
+block (the serving layer's bottom degradation rung); nothing enters it by
+itself.  Tests monkeypatch the module-level ``_kernel_*`` hooks to count
+or fail kernel invocations.
+
+**Tuning**: plan construction consults the active
+:class:`repro_torch.tune.TuningContext` for a tuned
+:class:`repro_torch.tune.KernelConfig` (transforms per block, radix
+schedule, four-step split); with no context the heuristic plans apply.
+
+The R2C/C2R plans (``kind="r2c"``/``"c2r"``) arrive with the next slice
+of the port, with their kernels.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import functools
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.fft.bluestein import bluestein_fft
+from repro_torch.fft.radix import DEFAULT_RADICES, radix_schedule, stage_count
+from repro_torch.fft.stockham import _as_complex, _stockham_pow2
+from repro_torch.kernels.fft.ops import (MAX_KERNEL_N, fft_kernel_c2c,
+                                         fft_kernel_c2c_axis1,
+                                         fft_kernel_c2c_t)
+from repro_torch.tune.config import KernelConfig
+from repro_torch.tune.context import plan_config as _tuned_plan_config
+
+# Longest transform a single fused pass keeps resident (complex64 in shared
+# memory; 2^13 c64 = 64 KiB per transform — the paper's single-kernel range).
+MAX_SINGLE_PASS = 2**13
+
+# ---------------------------------------------------------------------------
+# Kernel routing (monkeypatchable hooks + explicit disable switch)
+# ---------------------------------------------------------------------------
+
+_kernel_fft: Callable = fft_kernel_c2c
+_kernel_fft_t: Callable = fft_kernel_c2c_t
+_kernel_fft_axis1: Callable = fft_kernel_c2c_axis1
+
+_KERNELS_OFF = contextvars.ContextVar("repro_torch_kernels_off",
+                                      default=False)
+
+
+def _kernels_enabled() -> bool:
+    return not _KERNELS_OFF.get()
+
+
+@contextlib.contextmanager
+def kernels_disabled():
+    """Run plans on the pure-torch engine inside the block.
+
+    The counterpart of the reference's ``pallas_disabled``: the serving
+    layer's bottom degradation rung runs its fallback under it, with zero
+    hand-written kernel launches.
+    """
+    token = _KERNELS_OFF.set(True)
+    try:
+        yield
+    finally:
+        _KERNELS_OFF.reset(token)
+
+
+def _kernel_overrides(config: KernelConfig | None) -> dict:
+    """Kwargs a tuned config contributes to a kernel entry-point call."""
+    if config is None:
+        return {}
+    kw = {}
+    if config.tile_b:
+        kw["tile_b"] = config.tile_b
+    if config.radices:
+        kw["radices"] = config.radices
+    return kw
+
+
+def _resolve_split(n: int, config: KernelConfig | None) -> tuple[int, int]:
+    """The four-step (n1, n2) cut: the tuned one when valid, else balanced."""
+    if config is not None and config.split:
+        n1, n2 = config.split
+        if n1 * n2 == n and _is_pow2(n1) and _is_pow2(n2):
+            return n1, n2
+    return _four_step_split(n)
+
+
+def pow2_fft(x: torch.Tensor, *, inverse: bool = False,
+             config: KernelConfig | None = None) -> torch.Tensor:
+    """C2C FFT of a pow2 length, routed through the kernels.
+
+    Single-pass lengths run ``fft_c2c``; longer lengths recurse through
+    the four-step decomposition so every pow2 pass lands on a kernel.
+    The inverse of a long length is the conjugate of the forward
+    transform of the conjugate, scaled by 1/N.
+    """
+    n = x.shape[-1]
+    if n > MAX_SINGLE_PASS:
+        if inverse:
+            return torch.conj_physical(
+                pow2_fft(torch.conj_physical(x), config=config)) / n
+        n1, n2 = _resolve_split(n, config)
+        return four_step_fft(x, n1, n2, config=config)
+    if n <= MAX_KERNEL_N and _kernels_enabled():
+        return _kernel_fft(x, inverse=inverse, **_kernel_overrides(config))
+    return _stockham_pow2(x, inverse=inverse)
+
+
+def _is_pow2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+# ---------------------------------------------------------------------------
+# Fused-epilogue pass primitives
+# ---------------------------------------------------------------------------
+
+def fft_transposed(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
+                   config: KernelConfig | None = None) -> torch.Tensor:
+    """C2C FFT along the last axis with the last two axes swapped on write.
+
+    One fused kernel pass: (..., R, C) -> (..., C, R).  ``twiddle`` (an
+    (R, C) complex table) is multiplied in the kernel's epilogue.  With
+    kernels disabled (or a length no kernel takes): routed FFT + multiply
+    + transpose in torch.
+    """
+    x = _as_complex(x)
+    n = x.shape[-1]
+    if (_is_pow2(n) and 1 < n <= MAX_KERNEL_N and _kernels_enabled()):
+        return _kernel_fft_t(x, twiddle=twiddle, inverse=inverse,
+                             **_kernel_overrides(config))
+    y = _routed_1d(x, n, inverse, config)
+    if twiddle is not None:
+        y = y * torch.as_tensor(twiddle, device=y.device).to(y.dtype)
+    return y.transpose(-1, -2).contiguous()
+
+
+def _routed_1d(x: torch.Tensor, n: int, inverse: bool,
+               config: KernelConfig | None = None) -> torch.Tensor:
+    """Last-axis C2C of any length, honouring ``inverse`` (conj trick for
+    the non-pow2 plans, which only run forward)."""
+    if _is_pow2(n):
+        return pow2_fft(x, inverse=inverse, config=config)
+    plan = plan_for_length(n)
+    if inverse:
+        return torch.conj_physical(plan(torch.conj_physical(x))) / n
+    return plan(x)
+
+
+def fft_column(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
+               config: KernelConfig | None = None) -> torch.Tensor:
+    """C2C FFT over axis -2, layout preserved: (..., R, C) -> (..., R, C).
+
+    One fused kernel pass — the column pass of the four-step algorithm.
+    ``twiddle`` is a (C, R) table multiplying output ``[..., k, j]`` by
+    ``twiddle[j, k]``.  With kernels disabled: transpose + routed FFT +
+    multiply in torch.
+    """
+    x = _as_complex(x)
+    r = x.shape[-2]
+    if _is_pow2(r) and 1 < r <= MAX_KERNEL_N and _kernels_enabled():
+        return _kernel_fft_axis1(x, twiddle=twiddle, inverse=inverse,
+                                 **_kernel_overrides(config))
+    y = _routed_1d(x.transpose(-1, -2), r, inverse, config)
+    if twiddle is not None:
+        y = y * torch.as_tensor(twiddle, device=y.device).to(y.dtype)
+    return y.transpose(-1, -2).contiguous()
+
+
+def _four_step_split(n: int) -> tuple[int, int]:
+    n1 = 1 << (int(math.log2(n)) // 2)
+    return n1, n // n1
+
+
+@dataclasses.dataclass(frozen=True)
+class FFTPlan:
+    n: int
+    algorithm: str              # "stockham" | "four-step" | "bluestein"
+    passes: int                 # HBM read+write passes (DVFS model input)
+    fn: Callable[[torch.Tensor], torch.Tensor]
+    kind: str = "c2c"           # "c2c" (the R2C/C2R kinds come next slice)
+    stages: int = 0             # butterfly stages per fused pass
+    radices: tuple[int, ...] = ()
+
+    def __call__(self, x) -> torch.Tensor:
+        return self.fn(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _four_step_twiddle_table(n1: int, n2: int) -> np.ndarray:
+    """The (n2, n1) inter-pass twiddle matrix exp(-2*pi*i*j2*k1/n),
+    complex128, materialised once per shape (as the reference does)."""
+    j = np.arange(n2)[:, None]
+    k = np.arange(n1)[None, :]
+    return np.exp(-2j * np.pi * (j * k) / (n1 * n2))
+
+
+@functools.lru_cache(maxsize=None)
+def _four_step_twiddle(n1: int, n2: int, device: torch.device
+                       ) -> torch.Tensor:
+    """The inter-pass twiddle as a complex64 tensor, once per device."""
+    return torch.from_numpy(_four_step_twiddle_table(n1, n2)).to(
+        device=device, dtype=torch.complex64)
+
+
+def four_step_fft(x: torch.Tensor, n1: int, n2: int,
+                  config: KernelConfig | None = None) -> torch.Tensor:
+    """Long FFT as (n1 x n2) decomposition — Bailey's four-step algorithm,
+    run as TWO fused kernel passes.
+
+    View x as v[j1, j2] (row-major).  With outputs indexed k = k2*n1 + k1:
+
+      pass 1: FFT the columns (length n1) -> V[k1, j2]; multiply the
+              inter-pass twiddle exp(-2*pi*i*j2*k1/n) in the epilogue;
+              write back in the same layout -> T[k1, j2]
+      pass 2: FFT the rows of T (length n2) -> Y[k1, k2]; write
+              transposed -> out[k2, k1], which flattens to natural order.
+    """
+    n = n1 * n2
+    if x.shape[-1] != n:
+        raise ValueError(f"four-step split {n1}x{n2} does not match the "
+                         f"length {x.shape[-1]}")
+    batch = x.shape[:-1]
+    v = x.reshape(*batch, n1, n2)
+    tw = _four_step_twiddle(n1, n2, x.device)        # (n2, n1): w^{j2*k1}
+    v = fft_column(v, twiddle=tw, config=config)     # (..., n1, n2)
+    v = fft_transposed(v, config=config)             # (..., n2, n1)
+    return v.reshape(*batch, n)
+
+
+# ---------------------------------------------------------------------------
+# Plan construction
+# ---------------------------------------------------------------------------
+
+def _c2c_fn(x, config: KernelConfig | None = None) -> torch.Tensor:
+    return pow2_fft(_as_complex(x), config=config)
+
+
+def plan_for_length(n: int, kind: str = "c2c") -> FFTPlan:
+    """Build (or return the memoised) plan for length ``n``.
+
+    The active :class:`repro_torch.tune.TuningContext` (if any) supplies
+    the tuned kernel config; with none, the heuristic plan applies.
+    """
+    return _plan_for_length(int(n), kind, _tuned_plan_config((n,), kind))
+
+
+def plan_with_config(n: int, kind: str = "c2c",
+                     config: KernelConfig | None = None) -> FFTPlan:
+    """Build the plan for an *explicit* config, bypassing the active
+    tuning context.  A heuristic-equivalent config collapses onto the
+    heuristic plan."""
+    if config is not None and config.is_heuristic:
+        config = None
+    return _plan_for_length(int(n), kind, config)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_for_length(n: int, kind: str,
+                     config: KernelConfig | None) -> FFTPlan:
+    if kind in ("r2c", "c2r"):
+        raise NotImplementedError(
+            f"{kind!r} plans arrive with the R2C/C2R slice of the port "
+            "(the rfft/irfft kernels); this slice plans C2C transforms")
+    if kind != "c2c":
+        raise ValueError(f"unknown transform kind {kind!r}")
+    radices = (config.radices if config is not None and config.radices
+               else DEFAULT_RADICES)
+    if _is_pow2(n):
+        schedule = radix_schedule(min(n, MAX_SINGLE_PASS), radices)
+        if n <= MAX_SINGLE_PASS:
+            return FFTPlan(n, "stockham", 1,
+                           functools.partial(_c2c_fn, config=config),
+                           stages=len(schedule), radices=schedule)
+        n1, n2 = _resolve_split(n, config)
+        return FFTPlan(
+            n, "four-step", 2,
+            lambda x, n1=n1, n2=n2, c=config: four_step_fft(
+                _as_complex(x), n1, n2, config=c),
+            stages=stage_count(n1, radices) + stage_count(n2, radices),
+            radices=radix_schedule(n1, radices),
+        )
+    # Bluestein: the filter spectrum is precomputed and cached per length,
+    # so only 2 pow2 FFTs of length m >= 2n-1 run per call, plus pointwise
+    # chirp passes.
+    m = 1 << (2 * n - 2).bit_length()
+    inner = _plan_for_length(m, "c2c", config)
+    fn = (bluestein_fft if config is None
+          else functools.partial(bluestein_fft, config=config))
+    return FFTPlan(n, "bluestein", 2 * inner.passes + 1, fn,
+                   stages=inner.stages, radices=inner.radices)

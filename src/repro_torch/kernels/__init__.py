@@ -1,0 +1,15 @@
+"""Hand-written Hopper kernels for the pipeline's compute hot-spots.
+
+Each kernel package holds:
+  <name>.py   the CUDA launch (through ctypes) and its plain torch version
+  ops.py      public wrapper (dtype plumbing, launch ledger)
+  ref.py      torch.fft oracle the tests and the chip check assert against
+
+The CUDA C++ sources live in ``repro_torch/csrc`` and are compiled on
+first use (:mod:`repro_torch.kernels.common`).
+
+Kernels so far:
+  fft           fused-stage Stockham C2C FFT, whole transforms resident in
+                shared memory (single pass, four-step column pass, and
+                transposed-write row pass)
+"""

@@ -1,0 +1,6 @@
+from repro_torch.kernels.fft.ops import (MAX_KERNEL_N, fft_kernel_c2c,
+                                         fft_kernel_c2c_axis1,
+                                         fft_kernel_c2c_t)
+
+__all__ = ["MAX_KERNEL_N", "fft_kernel_c2c", "fft_kernel_c2c_axis1",
+           "fft_kernel_c2c_t"]

@@ -1,0 +1,122 @@
+"""Public wrappers for the fused mixed-radix Stockham C2C FFT kernels.
+
+The counterparts of ``repro.kernels.fft.ops``'s C2C entry points, with the
+same ledger names (``fft-c2c``, ``fft-c2c-t``, ``fft-c2c-axis1``), the
+same logical ``shape`` and the same ``bytes_moved`` formulas.  ``grid``
+and ``tile`` describe the CUDA launch (thread blocks; transforms per
+block and transform length), not a VMEM tile, and there is no padding:
+the kernels mask a ragged batch themselves.
+
+Input is cast to complex64 (complex128 included, as the reference's
+wrappers do) and runs on its own device: the plain torch version on the
+CPU, the CUDA kernel on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.fft.radix import DEFAULT_RADICES
+from repro_torch.kernels.fft import fft_kernel
+from repro_torch.obs.ledger import record_launch
+
+# One fused pass handles transforms that fit shared memory, double-buffered.
+MAX_KERNEL_N = 2**13
+
+
+def _check_kernel_length(n: int) -> None:
+    if n > MAX_KERNEL_N:
+        raise ValueError(
+            f"N={n} exceeds the single-pass kernel limit ({MAX_KERNEL_N}); "
+            "route long transforms through repro_torch.fft.plan (its "
+            "four-step decomposition runs a kernel once per pow2 pass)")
+
+
+def _complex64(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous complex64 with any lazy conjugation resolved."""
+    return x.to(torch.complex64).resolve_conj().contiguous()
+
+
+def _twiddle(twiddle, device: torch.device) -> torch.Tensor | None:
+    """An (.., ..) complex table as a complex64 tensor on ``device``."""
+    if twiddle is None:
+        return None
+    return _complex64(torch.as_tensor(twiddle, device=device))
+
+
+def _batch(shape: torch.Size, keep: int) -> int:
+    b = 1
+    for d in shape[:-keep]:
+        b *= d
+    return b
+
+
+def fft_kernel_c2c(x: torch.Tensor, *, inverse: bool = False,
+                   radices: tuple[int, ...] = DEFAULT_RADICES,
+                   tile_b: int | None = None) -> torch.Tensor:
+    """Batched pow2 C2C FFT (..., N) through the ``fft_c2c`` kernel.
+
+    Longer-than-one-pass transforms go through ``repro_torch.fft.plan``.
+    ``tile_b`` overrides the transforms per thread block (autotuner hook).
+    """
+    x = _complex64(x)
+    n = x.shape[-1]
+    _check_kernel_length(n)
+    if n == 1:
+        # The length-1 DFT is the identity both ways.
+        return x
+    lead = x.shape[:-1]
+    b = _batch(x.shape, 1)
+    tile = fft_kernel.transforms_per_block(n, b, tile_b)
+    y = fft_kernel.fft_c2c(x.reshape(b, n), inverse=inverse,
+                           radices=radices, per_block=tile)
+    record_launch("fft-c2c", grid=(fft_kernel.blocks(b, tile),),
+                  tile=(tile, n), bytes_moved=16 * b * n, shape=(b, n))
+    return y.reshape(*lead, n)
+
+
+def fft_kernel_c2c_t(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
+                     radices: tuple[int, ...] = DEFAULT_RADICES,
+                     tile_b: int | None = None) -> torch.Tensor:
+    """Fused C2C FFT + transposed write: (..., R, C) -> (..., C, R).
+
+    ``twiddle`` (optional, an (R, C) complex table) is multiplied in the
+    kernel's epilogue, before the transposed write.
+    """
+    x = _complex64(x)
+    r, c = x.shape[-2:]
+    _check_kernel_length(c)
+    lead = x.shape[:-2]
+    b = _batch(x.shape, 2)
+    tile = fft_kernel.transforms_per_block(c, r, tile_b)
+    y = fft_kernel.fft_c2c_t(x.reshape(b, r, c), _twiddle(twiddle, x.device),
+                             inverse=inverse, radices=radices,
+                             per_block=tile)
+    record_launch("fft-c2c-t", grid=(fft_kernel.blocks(r, tile, b),),
+                  tile=(tile, c), bytes_moved=16 * b * r * c,
+                  shape=(b, r, c))
+    return y.reshape(*lead, c, r)
+
+
+def fft_kernel_c2c_axis1(x: torch.Tensor, *, twiddle=None,
+                         inverse: bool = False,
+                         radices: tuple[int, ...] = DEFAULT_RADICES,
+                         tile_b: int | None = None) -> torch.Tensor:
+    """C2C FFT over axis -2, layout preserved: (..., R, C) -> (..., R, C).
+
+    The four-step column pass.  ``twiddle`` is a (C, R) complex table;
+    output ``[..., k, j]`` is multiplied by ``twiddle[j, k]``.
+    """
+    x = _complex64(x)
+    r, c = x.shape[-2:]
+    _check_kernel_length(r)
+    lead = x.shape[:-2]
+    b = _batch(x.shape, 2)
+    tile = fft_kernel.transforms_per_block(r, c, tile_b)
+    y = fft_kernel.fft_c2c_axis1(x.reshape(b, r, c),
+                                 _twiddle(twiddle, x.device),
+                                 inverse=inverse, radices=radices,
+                                 per_block=tile)
+    record_launch("fft-c2c-axis1", grid=(fft_kernel.blocks(c, tile, b),),
+                  tile=(tile, r), bytes_moved=16 * b * r * c,
+                  shape=(b, r, c))
+    return y.reshape(*lead, r, c)
