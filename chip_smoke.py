@@ -46,6 +46,7 @@ from repro_torch.fft.radix import (DEFAULT_RADICES,  # noqa: E402
                                    mixed_radix_flop_count)
 from repro_torch.kernels.common import build_all  # noqa: E402
 from repro_torch.kernels.fft import fft_kernel as K  # noqa: E402
+from repro_torch.kernels.fft import ops  # noqa: E402
 from repro_torch.kernels.fft.ref import fft_ref  # noqa: E402
 from repro_torch.obs.ledger import LaunchLedger  # noqa: E402
 
@@ -160,25 +161,28 @@ def phase2_card() -> str:
     return line
 
 
-# Each variant: (kernel name, kernel fn, plain fn, input shape for a
+#: Each kernel's wrapper (what the plans call) and its plain version.
+FNS = {"fft_c2c": (ops.fft_kernel_c2c, K.fft_c2c_plain),
+       "fft_c2c_t": (ops.fft_kernel_c2c_t, K.fft_c2c_t_plain),
+       "fft_c2c_axis1": (ops.fft_kernel_c2c_axis1, K.fft_c2c_axis1_plain)}
+
+
+# Each variant: (kernel name, kernel wrapper, plain fn, input shape for a
 # transform length n, twiddle shape or None).
 def _variants(n: int, b: int, other: int):
     return [
-        ("fft_c2c", K.fft_c2c, K.fft_c2c_plain, (b, n), None),
-        ("fft_c2c_t", K.fft_c2c_t, K.fft_c2c_t_plain, (b, other, n), None),
-        ("fft_c2c_t", K.fft_c2c_t, K.fft_c2c_t_plain, (b, other, n),
-         (other, n)),
-        ("fft_c2c_axis1", K.fft_c2c_axis1, K.fft_c2c_axis1_plain,
-         (b, n, other), None),
-        ("fft_c2c_axis1", K.fft_c2c_axis1, K.fft_c2c_axis1_plain,
-         (b, n, other), (other, n)),
+        ("fft_c2c", *FNS["fft_c2c"], (b, n), None),
+        ("fft_c2c_t", *FNS["fft_c2c_t"], (b, other, n), None),
+        ("fft_c2c_t", *FNS["fft_c2c_t"], (b, other, n), (other, n)),
+        ("fft_c2c_axis1", *FNS["fft_c2c_axis1"], (b, n, other), None),
+        ("fft_c2c_axis1", *FNS["fft_c2c_axis1"], (b, n, other), (other, n)),
     ]
 
 
 def _call(fn, x, tw, inverse):
     if tw is None:
         return fn(x, inverse=inverse)
-    return fn(x, tw, inverse=inverse)
+    return fn(x, twiddle=tw, inverse=inverse)
 
 
 def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
@@ -229,18 +233,37 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
         ("fft_c2c_axis1", (FFTCase(2**20).n_fft, 1024, 1024), None),
         ("fft_c2c_t", (FFTCase(2**20).n_fft, 1024, 1024), (1024, 1024)),
     ]
-    fns = {"fft_c2c": (K.fft_c2c, K.fft_c2c_plain),
-           "fft_c2c_t": (K.fft_c2c_t, K.fft_c2c_t_plain),
-           "fft_c2c_axis1": (K.fft_c2c_axis1, K.fft_c2c_axis1_plain)}
     for name, shape, tw_shape in main_shapes:
-        fn, plain = fns[name]
+        fn, plain = FNS[name]
         x = randn(gen, *shape)
         tw = randn(gen, *tw_shape) if tw_shape else None
+        # One torch.fft call computes the same function for every kernel
+        # without twiddle: fft_c2c_t's row FFT written as (B, C, R) is the
+        # FFT along dim -2 of the transposed view.  With a twiddle it is
+        # the FFT part alone, timed as a yardstick.
+        if name == "fft_c2c":
+            lib, lib_call = (lambda: torch.fft.fft(x)), "torch.fft.fft(x)"
+        elif name == "fft_c2c_t":
+            lib = lambda: torch.fft.fft(x.transpose(1, 2), dim=-2)  # noqa: E731
+            lib_call = "torch.fft.fft(x.transpose(1, 2), dim=-2)"
+        else:
+            lib = lambda: torch.fft.fft(x, dim=-2)  # noqa: E731
+            lib_call = "torch.fft.fft(x, dim=-2)"
         y = _call(fn, x, tw, False)
         y_plain = _call(plain, x, tw, False)
         abs_err, rel = rel_err(y, y_plain)
-        del y, y_plain
         check(rel <= KERNEL_RTOL, f"{name} {shape}: rel err {rel:.3e}")
+        if tw is None:
+            # The library call must compute the kernel's function.
+            y_lib = lib()
+            _, lib_rel = rel_err(y_lib, y)
+            check(tuple(y_lib.shape) == tuple(y.shape)
+                  and lib_rel <= PLAN_RTOL["stockham"],
+                  f"{name} {shape}: {lib_call} differs, rel {lib_rel:.3e}")
+            lib_call += (f" (rel diff {lib_rel:.3e}, output contiguous "
+                         f"{y_lib.is_contiguous()})")
+            del y_lib
+        del y, y_plain
         ms = median_ms(lambda: _call(fn, x, tw, False))
         plain_ms = median_ms(lambda: _call(plain, x, tw, False), reps=3)
         n = shape[1] if name == "fft_c2c_axis1" else shape[-1]
@@ -253,15 +276,11 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
             nbytes += 8 * tw.numel()              # the four-step twiddle
             flops += 6 * x.numel()
         bound_ms, bound_by = bound(nbytes, flops)
-        # torch.fft computes the same function for fft_c2c and for the
-        # axis1 kernel without twiddle; otherwise it is the FFT part alone.
-        dim = -2 if name == "fft_c2c_axis1" else -1
-        same = name == "fft_c2c" or (name == "fft_c2c_axis1" and tw is None)
-        fft_ms = median_ms(lambda: torch.fft.fft(x, dim=dim))
-        library_ms = fft_ms if same else None
-        lib_note = (f"torch.fft.fft(dim={dim})" if same else
-                    f"no single call; torch.fft.fft(dim={dim}) alone (no "
-                    f"twiddle, no transposed write) {fft_ms:.4f} ms")
+        fft_ms = median_ms(lib)
+        library_ms = fft_ms if tw is None else None
+        lib_note = (lib_call if tw is None else
+                    f"no single call; {lib_call} alone (no twiddle) "
+                    f"{fft_ms:.4f} ms")
         row = {"name": name, "shape": list(shape),
                "twiddle": tw is not None, "max_abs_err": abs_err,
                "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,

@@ -66,7 +66,10 @@ def schedule(n: int, radices: tuple[int, ...] = DEFAULT_RADICES
 def transforms_per_block(n: int, count: int,
                          override: int | None = None) -> int:
     """Transforms one thread block holds in shared memory (at most
-    ``count``, the transforms available along the blocked axis)."""
+    ``count``, the transforms available along the blocked axis).
+
+    The wrappers in ``ops`` decide it here once and pass it to the launch
+    as ``per_block``."""
     tile = min(batch_tile(n, _ELEM_BYTES, buffers=_BUFFERS,
                           override=override), max(count, 1))
     if tile * n * _ELEM_BYTES * _BUFFERS > MAX_SHARED_BYTES:
@@ -277,8 +280,9 @@ def _schedule_args(n: int, radices: tuple[int, ...], inverse: bool,
 
 def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
             radices: tuple[int, ...] = DEFAULT_RADICES,
-            per_block: int | None = None) -> torch.Tensor:
-    """Batched pow2 C2C FFT over the last axis of a (B, N) tensor."""
+            per_block: int) -> torch.Tensor:
+    """Batched pow2 C2C FFT over the last axis of a (B, N) tensor,
+    ``per_block`` transforms per thread block."""
     _check(x, 2, "fft_c2c")
     b, n = x.shape
     if x.device.type == "cpu":
@@ -286,12 +290,11 @@ def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
     y = torch.empty_like(x)
     if b == 0:
         return y
-    tile = transforms_per_block(n, b, per_block)
     sched, dr, di, twr, twi = _schedule_args(n, radices, inverse, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _library().repro_fft_c2c(
-            x.data_ptr(), y.data_ptr(), b, n, tile, sched.ctypes.data,
+            x.data_ptr(), y.data_ptr(), b, n, per_block, sched.ctypes.data,
             len(sched), int(inverse), dr.ctypes.data, di.ctypes.data,
             twr.data_ptr(), twi.data_ptr(), stream)
     _raise_on(err, "fft_c2c")
@@ -301,8 +304,9 @@ def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
 def fft_c2c_t(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
               inverse: bool = False,
               radices: tuple[int, ...] = DEFAULT_RADICES,
-              per_block: int | None = None) -> torch.Tensor:
-    """Row FFT of a (B, R, C) tensor written transposed to (B, C, R)."""
+              per_block: int) -> torch.Tensor:
+    """Row FFT of a (B, R, C) tensor written transposed to (B, C, R),
+    ``per_block`` rows per thread block."""
     _check(x, 3, "fft_c2c_t")
     b, r, c = x.shape
     _check_twiddle(twiddle, (r, c), x)
@@ -311,15 +315,16 @@ def fft_c2c_t(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
     y = torch.empty((b, c, r), dtype=x.dtype, device=x.device)
     if b * r == 0:
         return y
-    return _launch_2d("fft_c2c_t", _library().repro_fft_c2c_t, x, y, c, r,
+    return _launch_2d("fft_c2c_t", _library().repro_fft_c2c_t, x, y,
                       twiddle, inverse, radices, per_block)
 
 
 def fft_c2c_axis1(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
                   inverse: bool = False,
                   radices: tuple[int, ...] = DEFAULT_RADICES,
-                  per_block: int | None = None) -> torch.Tensor:
-    """Column FFT of a (B, R, C) tensor, layout kept."""
+                  per_block: int) -> torch.Tensor:
+    """Column FFT of a (B, R, C) tensor, layout kept, ``per_block``
+    columns per thread block."""
     _check(x, 3, "fft_c2c_axis1")
     b, r, c = x.shape
     _check_twiddle(twiddle, (c, r), x)
@@ -330,22 +335,21 @@ def fft_c2c_axis1(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
     if b * c == 0:
         return y
     return _launch_2d("fft_c2c_axis1", _library().repro_fft_c2c_axis1, x, y,
-                      r, c, twiddle, inverse, radices, per_block)
+                      twiddle, inverse, radices, per_block)
 
 
-def _launch_2d(name: str, fn, x: torch.Tensor, y: torch.Tensor, n: int,
-               count: int, twiddle: torch.Tensor | None, inverse: bool,
-               radices: tuple[int, ...], per_block: int | None
-               ) -> torch.Tensor:
-    """Launch the t/axis1 kernel: length-``n`` transforms, ``count`` of
-    them per batch entry along the blocked axis."""
+def _launch_2d(name: str, fn, x: torch.Tensor, y: torch.Tensor,
+               twiddle: torch.Tensor | None, inverse: bool,
+               radices: tuple[int, ...], per_block: int) -> torch.Tensor:
+    """Launch the t/axis1 kernel (transforms of length C for ``t``, R for
+    ``axis1``)."""
     b, r, c = x.shape
-    tile = transforms_per_block(n, count, per_block)
+    n = c if name == "fft_c2c_t" else r
     sched, dr, di, twr, twi = _schedule_args(n, radices, inverse, x.device)
     ftw = twiddle.data_ptr() if twiddle is not None else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), b, r, c, tile, ftw,
+        err = fn(x.data_ptr(), y.data_ptr(), b, r, c, per_block, ftw,
                  sched.ctypes.data, len(sched), int(inverse),
                  dr.ctypes.data, di.ctypes.data, twr.data_ptr(),
                  twi.data_ptr(), stream)

@@ -1,21 +1,9 @@
 """repro_torch.tune — kernel-configuration records and the hook plans
-consult (copies of ``repro.tune.config``, ``cache`` and ``context``; the
-tuner itself arrives with the autotuning slice of the port)."""
-from repro_torch.tune.cache import (CACHE_ENV, CACHE_VERSION, TuneRecord,
-                                    TuningCache, cache_path,
-                                    default_device_name)
-from repro_torch.tune.config import (HEURISTIC, ConfigKey, KernelConfig,
-                                     SOURCE_COMMON, SOURCE_HEURISTIC,
-                                     SOURCE_TUNED)
-from repro_torch.tune.context import (DISABLE_ENV, TuningContext,
-                                      get_tuning_context, plan_config,
-                                      set_tuning_context, tuning_enabled,
-                                      use_tuning)
+consult (the parts of ``repro.tune.config`` and ``context`` the plans
+read; the tuner and its on-disk cache arrive with the autotuning slice of
+the port)."""
+from repro_torch.tune.config import ConfigKey, KernelConfig
+from repro_torch.tune.context import TuningContext, plan_config, use_tuning
 
-__all__ = [
-    "CACHE_ENV", "CACHE_VERSION", "DISABLE_ENV", "HEURISTIC",
-    "ConfigKey", "KernelConfig", "SOURCE_COMMON", "SOURCE_HEURISTIC",
-    "SOURCE_TUNED", "TuneRecord", "TuningCache", "TuningContext",
-    "cache_path", "default_device_name", "get_tuning_context",
-    "plan_config", "set_tuning_context", "tuning_enabled", "use_tuning",
-]
+__all__ = ["ConfigKey", "KernelConfig", "TuningContext", "plan_config",
+           "use_tuning"]

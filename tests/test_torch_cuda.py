@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.fft import plan as port_plan
 from repro_torch.kernels.fft import fft_kernel as K
+from repro_torch.kernels.fft import ops
 from repro_torch.kernels.fft.ref import fft_ref
 from repro_torch.obs.ledger import LaunchLedger
 
@@ -38,18 +39,19 @@ def _rel(a, b):
 @pytest.mark.parametrize("n", (2, 64, 1024, 8192))
 def test_kernels_match_plain_on_the_card(gen, n, radices, inverse):
     x = _rand(gen, 37, n)
-    assert _rel(K.fft_c2c(x, inverse=inverse, radices=radices),
+    assert _rel(ops.fft_kernel_c2c(x, inverse=inverse, radices=radices),
                 K.fft_c2c_plain(x, inverse=inverse, radices=radices)) <= RTOL
     x3, tw = _rand(gen, 3, 13, n), _rand(gen, 13, n)
     for twiddle in (None, tw):
-        assert _rel(K.fft_c2c_t(x3, twiddle, inverse=inverse,
-                                radices=radices),
+        assert _rel(ops.fft_kernel_c2c_t(x3, twiddle=twiddle,
+                                         inverse=inverse, radices=radices),
                     K.fft_c2c_t_plain(x3, twiddle, inverse=inverse,
                                       radices=radices)) <= RTOL
     xa = _rand(gen, 3, n, 13)
     for twiddle in (None, tw):
-        assert _rel(K.fft_c2c_axis1(xa, twiddle, inverse=inverse,
-                                    radices=radices),
+        assert _rel(ops.fft_kernel_c2c_axis1(xa, twiddle=twiddle,
+                                             inverse=inverse,
+                                             radices=radices),
                     K.fft_c2c_axis1_plain(xa, twiddle, inverse=inverse,
                                           radices=radices)) <= RTOL
     torch.cuda.synchronize()

@@ -56,13 +56,14 @@ def test_length_one_is_identity_and_long_lengths_are_refused():
 def test_kernel_functions_validate_their_inputs():
     x = torch.zeros(3, 64, dtype=torch.complex64)
     with pytest.raises(ValueError, match="not implemented by the CUDA"):
-        fft_kernel.fft_c2c(x, radices=(16, 2))
+        fft_kernel.fft_c2c(x, radices=(16, 2), per_block=1)
     with pytest.raises(ValueError, match="complex64"):
-        fft_kernel.fft_c2c(x.to(torch.complex128))
+        fft_kernel.fft_c2c(x.to(torch.complex128), per_block=1)
     with pytest.raises(ValueError, match="complex64"):
-        fft_kernel.fft_c2c(x.t())
+        fft_kernel.fft_c2c(x.t(), per_block=1)
     with pytest.raises(ValueError, match="power of two"):
-        fft_kernel.fft_c2c(torch.zeros(3, 100, dtype=torch.complex64))
+        fft_kernel.fft_c2c(torch.zeros(3, 100, dtype=torch.complex64),
+                           per_block=1)
     with pytest.raises(ValueError, match="shared memory"):
         fft_kernel.transforms_per_block(8192, 4, override=2)
 

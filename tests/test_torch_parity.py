@@ -1,9 +1,15 @@
 """Parity helpers between the JAX reference (``repro``) and the PyTorch
 port (``repro_torch``) — one numpy input through both packages — and the
 port's ledger semantics."""
+import jax
 import numpy as np
 import torch
 
+# The reference's plans bind their kernel hooks when ``repro.fft.plan`` is
+# imported, and bind none if ``repro.kernels.fft.ops`` was imported first
+# (an import cycle); importing the plans here keeps the kernel tests,
+# which import this module first, from turning them off.
+import repro.fft.plan  # noqa: F401
 from repro.obs.ledger import LaunchLedger as RefLedger
 from repro_torch.obs.ledger import LaunchLedger as PortLedger
 
@@ -26,7 +32,12 @@ def assert_close(port, ref, rtol: float) -> None:
 
 def run_both(ref_fn, port_fn):
     """Run both sides under their launch ledgers; returns
-    (ref output, port output, ref records, port records)."""
+    (ref output, port output, ref records, port records).
+
+    The reference records launches only while ``jax.jit`` traces, and its
+    jit caches are process-wide, so they are cleared first: the records
+    then do not depend on which tests ran earlier in the process."""
+    jax.clear_caches()
     ref_ledger, port_ledger = RefLedger(), PortLedger()
     with ref_ledger.capture():
         ref = np.asarray(ref_fn())
