@@ -7,6 +7,7 @@ Layers:
   energy       Eqs. (3)-(7): energy, GFLOPS/W, I_ef
   workloads    the 1-D FFT plan model
   dvfs         optimal & mean-optimal frequency search (Table 3)
+  scheduler    the runtime clock lock around dispatches (Sec. 5.3)
 """
 from repro_torch.core.dvfs import MeanOptimal, SweepResult, mean_optimal, sweep
 from repro_torch.core.energy import (OperatingPoint, efficiency_increase,

@@ -1,5 +1,6 @@
 """Optimal-frequency search — the paper's central procedure (numpy copy of
-``repro.core.dvfs``, limited to ``sweep`` and ``mean_optimal``).
+``repro.core.dvfs``, limited to ``sweep``, ``mean_optimal`` and the
+cached-sweep budget reselection the serving layer uses).
 
 For each workload sweep the device's allowed core-clock grid, compute
 E(f) = P(f)·t(f), and pick the minimum-energy clock (Sec. 4).  Across a
@@ -58,6 +59,19 @@ class SweepResult:
     def at(self, f: float) -> OperatingPoint:
         """The sweep point closest to clock ``f`` (grid frequencies only)."""
         return min(self.points, key=lambda p: abs(p.f - f))
+
+    def optimal_under_budget(self, time_budget: float | None
+                             ) -> OperatingPoint:
+        """Constrained optimum re-selected from the cached sweep points.
+
+        The serving layer sweeps each shape once and caches the result;
+        requests with different real-time budgets (Sec. 2.3) re-select the
+        minimum-energy feasible point from the cached grid instead of
+        re-running the sweep.
+        """
+        if time_budget is None:
+            return self.optimal
+        return _constrained_optimal(self.points, self.boost, time_budget)
 
 
 def _constrained_optimal(

@@ -1,8 +1,10 @@
 """Energy and efficiency metrics — Eqs. (3)-(7) of the paper (numpy copy of
-``repro.core.energy``, limited to what the FFT sweep needs).
+``repro.core.energy``, limited to what the FFT sweep and the serving
+layer need).
 
   E_f   = sum_i P_i * t_i                       (3)  energy of a run
   E_ef  = C_p * t / E_f = C_p / P_avg           (4)  energy efficiency
+  N_FFT = M_GB / (N * B)                        (6)  transforms per batch
   I_ef  = E_ef,o / E_ef,d                       (7)  efficiency increase
 
 The model is analytic, so (3) collapses to E(f) = P(f) * t(f).
@@ -16,6 +18,25 @@ import numpy as np
 from repro_torch.core.hardware import DeviceSpec
 from repro_torch.core.perf_model import WorkloadProfile
 from repro_torch.core.power_model import PowerModel
+
+
+def guarded_ratio(num: float, den: float, *, on_zero: float = 1.0) -> float:
+    """``num / den`` with ONE documented zero-denominator convention.
+
+    ``den == 0`` and ``num == 0`` gives ``on_zero``, which the metric
+    defines: 1.0 for "fraction of demand served"-style metrics (no demand,
+    nothing unserved), 0.0 for "fraction of events that hit"-style metrics
+    (no events, no hits).  ``den == 0`` and ``num != 0`` gives NaN, always:
+    work accounted against no demand is an accounting bug, not an edge.
+    """
+    if den == 0:
+        return on_zero if num == 0 else float("nan")
+    return num / den
+
+
+def ffts_per_batch(m_bytes: float, n: int, elem_bytes: int) -> int:
+    """Eq. (6): how many length-N transforms fill ``m_bytes`` of memory."""
+    return max(int(m_bytes // (n * elem_bytes)), 1)
 
 
 @dataclasses.dataclass(frozen=True)

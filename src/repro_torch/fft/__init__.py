@@ -1,7 +1,8 @@
-"""The port's FFT substrate (C2C so far).
+"""The port's FFT substrate (1-D C2C, R2C and C2R so far).
 
   radix        mixed-radix schedules + memoised twiddle tables (numpy)
-  stockham     batched mixed-radix Stockham FFT in pure torch
+  stockham     batched mixed-radix Stockham FFT in pure torch (C2C, and
+               packed R2C/C2R)
   bluestein    arbitrary-length FFT via chirp-z (paper Sec. 2.1)
   plan         per-length algorithm choice + CUDA kernel routing
 

@@ -1,6 +1,6 @@
 """FFT planning — pick the algorithm and kernel route per length.
 
-The counterpart of ``repro.fft.plan`` for C2C transforms:
+The counterpart of ``repro.fft.plan`` for 1-D transforms:
 
   pow2, fits one kernel   -> one fused Stockham pass (``fft_c2c`` kernel)
   pow2, long              -> four-step decomposition: two fused passes
@@ -9,6 +9,16 @@ The counterpart of ``repro.fft.plan`` for C2C transforms:
   non-pow2                -> Bluestein (two routed pow2 FFTs, cached
                              chirp/filter)
 
+and, for real input (``kind="r2c"``, N/2+1 bins out, and its inverse
+``kind="c2r"``):
+
+  pow2, N/2 fits a kernel -> one fused packed pass (``fft_r2c`` /
+                             ``fft_c2r``: split or merge in the kernel)
+  pow2, long              -> pack, the N/2 C2C plan (four-step), then the
+                             split or merge in torch
+  non-pow2 r2c            -> the full C2C plan, sliced to N/2+1 bins
+                             (non-pow2 c2r raises)
+
 ``MAX_SINGLE_PASS`` is the reference's, so ``algorithm`` and ``passes``
 (the DVFS model's HBM pass count) agree between the two packages.
 
@@ -16,18 +26,15 @@ The counterpart of ``repro.fft.plan`` for C2C transforms:
 on a CUDA tensor, or runs that kernel's plain torch version on a CPU
 tensor (``repro_torch.kernels.fft``).  Unlike the reference there is no
 ``try``/``except`` fallback: a kernel that fails raises through the plan.
-The pure-torch engine runs only inside an explicit :func:`kernels_disabled`
-block (the serving layer's bottom degradation rung); nothing enters it by
-itself.  Tests monkeypatch the module-level ``_kernel_*`` hooks to count
-or fail kernel invocations.
+The pure-torch engine runs only inside an explicit
+:func:`kernels_disabled` block; nothing enters it by itself.  Tests
+monkeypatch the module-level ``_kernel_*`` hooks to count or fail kernel
+invocations.
 
 **Tuning**: plan construction consults the active
 :class:`repro_torch.tune.TuningContext` for a tuned
 :class:`repro_torch.tune.KernelConfig` (transforms per block, radix
 schedule, four-step split); with no context the heuristic plans apply.
-
-The R2C/C2R plans (``kind="r2c"``/``"c2r"``) arrive with the next slice
-of the port, with their kernels.
 """
 from __future__ import annotations
 
@@ -43,10 +50,13 @@ import torch
 
 from repro_torch.fft.bluestein import bluestein_fft
 from repro_torch.fft.radix import DEFAULT_RADICES, radix_schedule, stage_count
-from repro_torch.fft.stockham import _as_complex, _stockham_pow2
+from repro_torch.fft.stockham import (_as_complex, _as_real, _irfft_merge,
+                                     _pack_real, _rfft_split,
+                                     _stockham_pow2, _unpack_real)
 from repro_torch.kernels.fft.ops import (MAX_KERNEL_N, fft_kernel_c2c,
                                          fft_kernel_c2c_axis1,
-                                         fft_kernel_c2c_t)
+                                         fft_kernel_c2c_t, fft_kernel_c2r,
+                                         fft_kernel_r2c)
 from repro_torch.tune.config import KernelConfig
 from repro_torch.tune.context import plan_config as _tuned_plan_config
 
@@ -61,6 +71,8 @@ MAX_SINGLE_PASS = 2**13
 _kernel_fft: Callable = fft_kernel_c2c
 _kernel_fft_t: Callable = fft_kernel_c2c_t
 _kernel_fft_axis1: Callable = fft_kernel_c2c_axis1
+_kernel_rfft: Callable = fft_kernel_r2c
+_kernel_irfft: Callable = fft_kernel_c2r
 
 _KERNELS_OFF = contextvars.ContextVar("repro_torch_kernels_off",
                                       default=False)
@@ -74,9 +86,8 @@ def _kernels_enabled() -> bool:
 def kernels_disabled():
     """Run plans on the pure-torch engine inside the block.
 
-    The counterpart of the reference's ``pallas_disabled``: the serving
-    layer's bottom degradation rung runs its fallback under it, with zero
-    hand-written kernel launches.
+    The counterpart of the reference's ``pallas_disabled``: plans built
+    or run inside it launch no hand-written kernel.
     """
     token = _KERNELS_OFF.set(True)
     try:
@@ -198,7 +209,7 @@ class FFTPlan:
     algorithm: str              # "stockham" | "four-step" | "bluestein"
     passes: int                 # HBM read+write passes (DVFS model input)
     fn: Callable[[torch.Tensor], torch.Tensor]
-    kind: str = "c2c"           # "c2c" (the R2C/C2R kinds come next slice)
+    kind: str = "c2c"           # "c2c" | "r2c" | "c2r"
     stages: int = 0             # butterfly stages per fused pass
     radices: tuple[int, ...] = ()
 
@@ -256,8 +267,34 @@ def _c2c_fn(x, config: KernelConfig | None = None) -> torch.Tensor:
     return pow2_fft(_as_complex(x), config=config)
 
 
+def _r2c_fn(x, n: int, config: KernelConfig | None = None) -> torch.Tensor:
+    """Routed R2C: the fused kernel when the packed length fits, else pack
+    -> routed pow2 C2C -> split (so long real transforms still run a
+    kernel for each four-step pass)."""
+    x = _as_real(x)
+    m = n // 2
+    if 4 <= n and m <= MAX_KERNEL_N and _kernels_enabled():
+        return _kernel_rfft(x, **_kernel_overrides(config))
+    if m < 1:
+        return _as_complex(x)
+    return _rfft_split(
+        pow2_fft(_pack_real(x.to(torch.float32)), config=config), n)
+
+
+def _c2r_fn(x, n: int, config: KernelConfig | None = None) -> torch.Tensor:
+    """Routed C2R inverse of :func:`_r2c_fn` (1/N normalised)."""
+    x = _as_complex(x)
+    if 4 <= n and n // 2 <= MAX_KERNEL_N and _kernels_enabled():
+        return _kernel_irfft(x, **_kernel_overrides(config))
+    return _unpack_real(
+        pow2_fft(_irfft_merge(x, n), inverse=True, config=config))
+
+
 def plan_for_length(n: int, kind: str = "c2c") -> FFTPlan:
     """Build (or return the memoised) plan for length ``n``.
+
+    ``kind`` selects the transform: ``"c2c"`` (default), ``"r2c"`` (real
+    input, N/2+1 bins out) or ``"c2r"`` (the inverse, 1/N normalised).
 
     The active :class:`repro_torch.tune.TuningContext` (if any) supplies
     the tuned kernel config; with none, the heuristic plan applies.
@@ -278,12 +315,10 @@ def plan_with_config(n: int, kind: str = "c2c",
 @functools.lru_cache(maxsize=None)
 def _plan_for_length(n: int, kind: str,
                      config: KernelConfig | None) -> FFTPlan:
-    if kind in ("r2c", "c2r"):
-        raise NotImplementedError(
-            f"{kind!r} plans arrive with the R2C/C2R slice of the port "
-            "(the rfft/irfft kernels); this slice plans C2C transforms")
-    if kind != "c2c":
+    if kind not in ("c2c", "r2c", "c2r"):
         raise ValueError(f"unknown transform kind {kind!r}")
+    if kind != "c2c":
+        return _real_plan(n, kind, config)
     radices = (config.radices if config is not None and config.radices
                else DEFAULT_RADICES)
     if _is_pow2(n):
@@ -309,3 +344,27 @@ def _plan_for_length(n: int, kind: str,
           else functools.partial(bluestein_fft, config=config))
     return FFTPlan(n, "bluestein", 2 * inner.passes + 1, fn,
                    stages=inner.stages, radices=inner.radices)
+
+
+def _real_plan(n: int, kind: str, config: KernelConfig | None) -> FFTPlan:
+    if not _is_pow2(n):
+        if kind == "c2r":
+            raise ValueError(
+                f"c2r plans need a power-of-two length, got {n}")
+        # r2c of any other length: the full C2C plan, sliced to the half
+        # spectrum.
+        inner = _plan_for_length(n, "c2c", config)
+        return FFTPlan(
+            n, inner.algorithm, inner.passes,
+            lambda x: inner.fn(_as_complex(x))[..., :n // 2 + 1],
+            kind="r2c", stages=inner.stages, radices=inner.radices)
+    m = max(n // 2, 1)
+    inner = _plan_for_length(m, "c2c", config) if m > 1 else None
+    passes = inner.passes if inner else 1
+    stages = inner.stages if inner else 0
+    radices = inner.radices if inner else ()
+    alg = inner.algorithm if inner else "stockham"
+    fn = (functools.partial(_r2c_fn, n=n, config=config) if kind == "r2c"
+          else functools.partial(_c2r_fn, n=n, config=config))
+    return FFTPlan(n, alg, passes, fn, kind=kind, stages=stages,
+                   radices=radices)

@@ -9,7 +9,8 @@ The CUDA C++ sources live in ``repro_torch/csrc`` and are compiled on
 first use (:mod:`repro_torch.kernels.common`).
 
 Kernels so far:
-  fft           fused-stage Stockham C2C FFT, whole transforms resident in
-                shared memory (single pass, four-step column pass, and
-                transposed-write row pass)
+  fft           fused-stage Stockham FFT, whole transforms resident in
+                shared memory: C2C (single pass, four-step column pass,
+                and transposed-write row pass) and packed R2C/C2R (the
+                Hermitian split or merge in shared memory)
 """

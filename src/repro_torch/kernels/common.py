@@ -10,8 +10,9 @@ Kernels are CUDA C++ sources under ``repro_torch/csrc`` with a plain C
 interface.  :func:`load_library` compiles them with ``nvcc`` for Hopper
 (``sm_90a``) at first use — every source at once, one ``nvcc`` each, in
 parallel — into a build directory beside the package, named by a hash of
-the source so that an edited source is rebuilt, and loads one of them
-through ``ctypes``.  Nothing is compiled when a module is imported.
+the source and of the shared headers (``csrc/*.cuh``) so that an edited
+source or header is rebuilt, and loads one of them through ``ctypes``.
+Nothing is compiled when a module is imported.
 """
 from __future__ import annotations
 
@@ -71,9 +72,14 @@ def _nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.blake2b(source.read_bytes() + " ".join(NVCC_FLAGS)
-                             .encode(), digest_size=8).hexdigest()
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    """Where ``source`` is built: named by a hash of the source, every
+    header under ``csrc/`` (a source may include any of them) and the
+    flags, so that editing any of them builds a new library."""
+    h = hashlib.blake2b(source.read_bytes(), digest_size=8)
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()}.so"
 
 
 @functools.cache

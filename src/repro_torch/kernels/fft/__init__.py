@@ -1,6 +1,7 @@
 from repro_torch.kernels.fft.ops import (MAX_KERNEL_N, fft_kernel_c2c,
                                          fft_kernel_c2c_axis1,
-                                         fft_kernel_c2c_t)
+                                         fft_kernel_c2c_t, fft_kernel_c2r,
+                                         fft_kernel_r2c)
 
 __all__ = ["MAX_KERNEL_N", "fft_kernel_c2c", "fft_kernel_c2c_axis1",
-           "fft_kernel_c2c_t"]
+           "fft_kernel_c2c_t", "fft_kernel_c2r", "fft_kernel_r2c"]

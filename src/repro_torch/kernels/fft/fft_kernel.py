@@ -1,24 +1,31 @@
-"""Fused mixed-radix Stockham C2C FFT kernels: CUDA launches and plain twins.
+"""Fused mixed-radix Stockham FFT kernels: CUDA launches and plain twins.
 
-Three CUDA kernels (``repro_torch/csrc/fft_c2c.cu``; its header note says
-which TPU kernel each replaces, what bounds it and what its design does
-about that) and, beside each, a plain torch version that runs the same
-radix schedule, the same packed twiddle table and the same butterfly
-arithmetic on float32 re/im planes — the counterpart of the reference's
-``_mixed_radix_stages``.
+Five CUDA kernels (``repro_torch/csrc/fft_c2c.cu`` and ``fft_real.cu``;
+each file's header note says which TPU kernel each replaces, what bounds
+it and what its design does about that) and, beside each, a plain torch
+version that runs the same radix schedule, the same packed twiddle table
+and the same butterfly arithmetic on float32 re/im planes — the
+counterpart of the reference's ``_mixed_radix_stages``.
 
   fft_c2c        (B, N) -> (B, N), pow2 N <= 2**13
   fft_c2c_t      (B, R, C) -> (B, C, R): FFT of each row, written
                  transposed; optional (R, C) twiddle before the write
   fft_c2c_axis1  (B, R, C) -> (B, R, C): FFT of each column, layout
                  kept; optional (C, R) twiddle: out[.., k, j] *= ftw[j, k]
+  fft_r2c        (B, N) float32 -> (B, N/2+1): packed R2C, pow2
+                 4 <= N <= 2**14 (the reference's ``_r2c_tile``)
+  fft_c2r        (B, N/2+1) -> (B, N) float32: packed C2R, 1/N (the
+                 reference's ``_c2r_body``)
 
-Every function takes contiguous complex64 tensors.  The input's device
-decides: a CPU tensor runs the plain version, a CUDA tensor launches the
-kernel and raises if the launch fails — there is no fallback between the
-two.  ``LAUNCHES`` counts kernel launches (only launches; the plain
-versions never count), so a caller can show that work went through the
-kernels.
+The C2C functions take contiguous complex64 tensors; the real ones take
+or return contiguous float32.  The input's device decides: a CPU tensor
+runs the plain version, a CUDA tensor launches the kernel and raises if
+the launch fails — there is no fallback between the two.  ``LAUNCHES``
+counts kernel launches (only launches; the plain versions never count),
+so a caller can show that work went through the kernels.
+
+The plain R2C/C2R versions run the Hermitian split and merge of the torch
+engine (``repro_torch.fft.stockham``); the kernels read its split table.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from repro_torch.fft.radix import (DEFAULT_RADICES, dft_matrix,
                                    packed_stage_twiddles, radix_schedule)
+from repro_torch.fft.stockham import _irfft_merge, _rfft_split, _split_factors
 from repro_torch.kernels.common import (MAX_SHARED_BYTES, batch_tile,
                                         load_library, round_up)
 
@@ -38,7 +46,8 @@ from repro_torch.kernels.common import (MAX_SHARED_BYTES, batch_tile,
 KERNEL_RADICES = (2, 4, 8)
 
 #: Launches per kernel since the last :func:`reset_launches`.
-LAUNCHES = {"fft_c2c": 0, "fft_c2c_t": 0, "fft_c2c_axis1": 0}
+LAUNCHES = {"fft_c2c": 0, "fft_c2c_t": 0, "fft_c2c_axis1": 0,
+            "fft_r2c": 0, "fft_c2r": 0}
 
 _ELEM_BYTES = 8          # complex64
 _BUFFERS = 2             # ping-pong Stockham buffers in shared memory
@@ -63,18 +72,20 @@ def schedule(n: int, radices: tuple[int, ...] = DEFAULT_RADICES
     return sched
 
 
-def transforms_per_block(n: int, count: int,
+def transforms_per_block(points: int, count: int,
                          override: int | None = None) -> int:
     """Transforms one thread block holds in shared memory (at most
-    ``count``, the transforms available along the blocked axis).
+    ``count``, the transforms available along the blocked axis), each in
+    two buffers of ``points`` complex values: the transform length for
+    C2C, N/2 for R2C and N/2+1 for C2R (which stages every bin).
 
     The wrappers in ``ops`` decide it here once and pass it to the launch
     as ``per_block``."""
-    tile = min(batch_tile(n, _ELEM_BYTES, buffers=_BUFFERS,
+    tile = min(batch_tile(points, _ELEM_BYTES, buffers=_BUFFERS,
                           override=override), max(count, 1))
-    if tile * n * _ELEM_BYTES * _BUFFERS > MAX_SHARED_BYTES:
-        raise ValueError(f"{tile} transforms of length {n} per block exceed "
-                         f"{MAX_SHARED_BYTES} bytes of shared memory")
+    if tile * points * _ELEM_BYTES * _BUFFERS > MAX_SHARED_BYTES:
+        raise ValueError(f"{tile} transforms of {points} points per block "
+                         f"exceed {MAX_SHARED_BYTES} bytes of shared memory")
     return tile
 
 
@@ -226,6 +237,33 @@ def fft_c2c_axis1_plain(x: torch.Tensor, twiddle: torch.Tensor | None = None,
     return _join(re.transpose(1, 2), im.transpose(1, 2))
 
 
+def _real_length(n: int) -> int:
+    """The half length of a packed real transform (pow2 N >= 4)."""
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"packed R2C/C2R length must be a power of two "
+                         f">= 4, got {n}")
+    return n // 2
+
+
+def fft_r2c_plain(x: torch.Tensor, *,
+                  radices: tuple[int, ...] = DEFAULT_RADICES) -> torch.Tensor:
+    """Plain torch version of :func:`fft_r2c`."""
+    b, n = x.shape
+    m = _real_length(n)
+    v = x.reshape(b, m, 2)
+    return _rfft_split(_join(*_stages_plain(v[..., 0], v[..., 1], m, radices,
+                                            False)), n)
+
+
+def fft_c2r_plain(x: torch.Tensor, *,
+                  radices: tuple[int, ...] = DEFAULT_RADICES) -> torch.Tensor:
+    """Plain torch version of :func:`fft_c2r`."""
+    b, m1 = x.shape
+    m = _real_length(2 * (m1 - 1))
+    zr, zi = _stages_plain(*_planes(_irfft_merge(x, 2 * m)), m, radices, True)
+    return torch.stack([zr, zi], dim=-1).reshape(b, 2 * m)
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -246,6 +284,18 @@ def _library() -> ctypes.CDLL:
     for fn in (lib.repro_fft_c2c_t, lib.repro_fft_c2c_axis1):
         fn.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _P, _I, _I,
                        _P, _P, _P, _P, _P]
+        fn.restype = _I
+    return lib
+
+
+@functools.cache
+def _real_library() -> ctypes.CDLL:
+    lib = load_library("fft_real")
+    lib.repro_fft_error_string.argtypes = [_I]
+    lib.repro_fft_error_string.restype = ctypes.c_char_p
+    for fn in (lib.repro_fft_r2c, lib.repro_fft_c2r):
+        fn.argtypes = [_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _P,
+                       _P, _P]
         fn.restype = _I
     return lib
 
@@ -297,7 +347,7 @@ def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
             x.data_ptr(), y.data_ptr(), b, n, per_block, sched.ctypes.data,
             len(sched), int(inverse), dr.ctypes.data, di.ctypes.data,
             twr.data_ptr(), twi.data_ptr(), stream)
-    _raise_on(err, "fft_c2c")
+    _raise_on(err, "fft_c2c", _library())
     return y
 
 
@@ -353,13 +403,77 @@ def _launch_2d(name: str, fn, x: torch.Tensor, y: torch.Tensor,
                  sched.ctypes.data, len(sched), int(inverse),
                  dr.ctypes.data, di.ctypes.data, twr.data_ptr(),
                  twi.data_ptr(), stream)
-    _raise_on(err, name)
+    _raise_on(err, name, _library())
     return y
 
 
-def _raise_on(err: int, name: str) -> None:
-    """Raise if the launch failed; else count it."""
+def _check_real(x: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous 2-D float32 tensor, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    if x.device.type == "cuda" and x.data_ptr() % 8:
+        # The kernel reads pairs of reals as one float2; a contiguous slice
+        # at an odd element offset is legal in torch but not 8-byte aligned.
+        raise ValueError(f"{what}: the input must be 8-byte aligned (a "
+                         f"slice at an odd element offset is not); copy it")
+
+
+def fft_r2c(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
+            per_block: int) -> torch.Tensor:
+    """Batched packed R2C FFT of a (B, N) float32 tensor -> (B, N/2+1)
+    complex64, ``per_block`` transforms per thread block."""
+    _check_real(x, "fft_r2c")
+    b, n = x.shape
+    m = _real_length(n)
+    if x.device.type == "cpu":
+        return fft_r2c_plain(x, radices=radices)
+    y = torch.empty((b, m + 1), dtype=torch.complex64, device=x.device)
+    if b == 0:
+        return y
+    return _launch_real("fft_r2c", _real_library().repro_fft_r2c, x, y, n,
+                        radices, False, per_block)
+
+
+def fft_c2r(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
+            per_block: int) -> torch.Tensor:
+    """Batched packed C2R inverse of a (B, N/2+1) complex64 tensor ->
+    (B, N) float32 (1/N normalised), ``per_block`` transforms per thread
+    block."""
+    _check(x, 2, "fft_c2r")
+    b, m1 = x.shape
+    n = 2 * _real_length(2 * (m1 - 1))
+    if x.device.type == "cpu":
+        return fft_c2r_plain(x, radices=radices)
+    y = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return y
+    return _launch_real("fft_c2r", _real_library().repro_fft_c2r, x, y, n,
+                        radices, True, per_block)
+
+
+def _launch_real(name: str, fn, x: torch.Tensor, y: torch.Tensor, n: int,
+                 radices: tuple[int, ...], inverse: bool,
+                 per_block: int) -> torch.Tensor:
+    """Launch the R2C/C2R kernel: stage tables of the half length N/2, the
+    complex64 split table of N."""
+    sched, dr, di, twr, twi = _schedule_args(n // 2, radices, inverse,
+                                             x.device)
+    sw = _split_factors(n, x.device, torch.complex64)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], n, per_block,
+                 sched.ctypes.data, len(sched), dr.ctypes.data,
+                 di.ctypes.data, twr.data_ptr(), twi.data_ptr(),
+                 sw.data_ptr(), stream)
+    _raise_on(err, name, _real_library())
+    return y
+
+
+def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
+    """Raise if the launch failed, with ``lib``'s message; else count it."""
     if err:
-        msg = _library().repro_fft_error_string(err).decode()
+        msg = lib.repro_fft_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
     LAUNCHES[name] += 1

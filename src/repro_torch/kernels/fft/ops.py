@@ -1,20 +1,23 @@
-"""Public wrappers for the fused mixed-radix Stockham C2C FFT kernels.
+"""Public wrappers for the fused mixed-radix Stockham FFT kernels.
 
-The counterparts of ``repro.kernels.fft.ops``'s C2C entry points, with the
-same ledger names (``fft-c2c``, ``fft-c2c-t``, ``fft-c2c-axis1``), the
-same logical ``shape`` and the same ``bytes_moved`` formulas.  ``grid``
-and ``tile`` describe the CUDA launch (thread blocks; transforms per
-block and transform length), not a VMEM tile, and there is no padding:
-the kernels mask a ragged batch themselves.
+The counterparts of ``repro.kernels.fft.ops``'s C2C, R2C and C2R entry
+points, with the same ledger names (``fft-c2c``, ``fft-c2c-t``,
+``fft-c2c-axis1``, ``fft-r2c``, ``fft-c2r``), the same logical ``shape``
+and the same ``bytes_moved`` formulas, except that the reference counts
+its padded batch where the port counts the batch itself.  ``grid`` and
+``tile`` describe the CUDA launch (thread blocks; transforms per block
+and transform length), not a VMEM tile, and there is no padding: the
+kernels mask a ragged batch themselves.
 
-Input is cast to complex64 (complex128 included, as the reference's
-wrappers do) and runs on its own device: the plain torch version on the
-CPU, the CUDA kernel on the card.
+Complex input is cast to complex64 and real input to float32 (wider
+types included, as the reference's wrappers do); each runs on its own
+device: the plain torch version on the CPU, the CUDA kernel on the card.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.fft import stockham
 from repro_torch.fft.radix import DEFAULT_RADICES
 from repro_torch.kernels.fft import fft_kernel
 from repro_torch.obs.ledger import record_launch
@@ -120,3 +123,63 @@ def fft_kernel_c2c_axis1(x: torch.Tensor, *, twiddle=None,
                   tile=(tile, r), bytes_moved=16 * b * r * c,
                   shape=(b, r, c))
     return y.reshape(*lead, r, c)
+
+
+def _real32(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous float32 (the real part of complex input), 8-byte
+    aligned: the kernel reads pairs of reals as one float2."""
+    if x.is_complex():
+        x = x.real
+    x = x.to(torch.float32).contiguous()
+    if x.data_ptr() % 8:
+        x = x.clone()
+    return x
+
+
+def fft_kernel_r2c(x: torch.Tensor, *,
+                   radices: tuple[int, ...] = DEFAULT_RADICES,
+                   tile_b: int | None = None) -> torch.Tensor:
+    """Batched pow2 R2C FFT: (..., N) real -> (..., N/2+1) complex64.
+
+    Packs N reals as N/2 complex points, so it takes N up to
+    2 * MAX_KERNEL_N; the Hermitian split runs inside the kernel.
+    """
+    x = _real32(x)
+    n = x.shape[-1]
+    _check_kernel_length(max(n // 2, 1))
+    if n < 4:
+        return stockham.rfft(x)
+    lead = x.shape[:-1]
+    b = _batch(x.shape, 1)
+    tile = fft_kernel.transforms_per_block(n // 2, b, tile_b)
+    y = fft_kernel.fft_r2c(x.reshape(b, n), radices=radices, per_block=tile)
+    record_launch("fft-r2c", grid=(fft_kernel.blocks(b, tile),),
+                  tile=(tile, n), bytes_moved=4 * b * (n + 2 * (n // 2 + 1)),
+                  shape=(b, n))
+    return y.reshape(*lead, n // 2 + 1)
+
+
+def fft_kernel_c2r(x: torch.Tensor, *,
+                   radices: tuple[int, ...] = DEFAULT_RADICES,
+                   tile_b: int | None = None) -> torch.Tensor:
+    """Batched pow2 C2R inverse: (..., N/2+1) half-spectrum -> (..., N)
+    float32, the exact inverse of :func:`fft_kernel_r2c` (1/N normalised).
+
+    The packed merge reads the imaginary parts of bins 0 and N/2, which
+    ``torch.fft.irfft`` ignores: the two agree on a true half-spectrum.
+    """
+    x = _complex64(x)
+    m = x.shape[-1] - 1
+    n = 2 * m
+    _check_kernel_length(max(m, 1))
+    if n < 4:
+        return stockham.irfft(x)
+    lead = x.shape[:-1]
+    b = _batch(x.shape, 1)
+    tile = fft_kernel.transforms_per_block(m + 1, b, tile_b)
+    y = fft_kernel.fft_c2r(x.reshape(b, m + 1), radices=radices,
+                           per_block=tile)
+    record_launch("fft-c2r", grid=(fft_kernel.blocks(b, tile),),
+                  tile=(tile, n), bytes_moved=4 * b * (2 * (m + 1) + n),
+                  shape=(b, n))
+    return y.reshape(*lead, n)

@@ -1,0 +1,147 @@
+"""Request and receipt types for the energy-aware FFT service.
+
+The counterpart of ``repro.serving.request`` for the 1-D FFT requests this
+slice of the port serves (``KIND_FFT``, C2C and R2C).  A request is a
+batch of same-length transforms submitted by one client; a receipt is
+everything the paper would report about serving it: which clock it ran
+at, its modelled energy (Eqs. 3-4), and its measured queue + service
+latency.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.workloads import COMPLEX_BYTES, is_pow2
+
+_REQUEST_IDS = itertools.count()
+
+#: The request kind this slice serves: batched 1-D transforms.
+KIND_FFT = "fft"
+
+#: Request kinds of the reference that later slices of the port bring.
+_LATER_KINDS = {"fdas": "the overlap-save/FDAS slice",
+                "pulsar": "the pulsar-pipeline slice"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeKey:
+    """Cache key: one plan + one frequency sweep per distinct value.
+
+    The latency budget is deliberately NOT part of the key: budgets only
+    re-select a point from the cached sweep
+    (``SweepResult.optimal_under_budget``).
+    """
+
+    kind: str
+    n: int
+    precision: str
+    device: str = ""
+    transform: str = "c2c"          # "c2c" | "r2c": distinct plans + sweeps
+
+    @property
+    def elem_bytes(self) -> int:
+        """Per-point device bytes of this shape's payload: real (half) for
+        pow2 R2C, complex otherwise (non-pow2 r2c runs the full C2C plan).
+        In lockstep with ``core.workloads.FFTCase.elem_bytes``."""
+        full = COMPLEX_BYTES[self.precision]
+        if self.transform == "r2c" and is_pow2(self.n):
+            return full // 2
+        return full
+
+
+@dataclasses.dataclass
+class FFTRequest:
+    """One client submission: ``x`` rows are independent transforms.
+
+    ``x`` is a (batch, n) or (n,) numpy array or torch tensor.
+    """
+
+    x: Any
+    precision: str = "fp32"
+    kind: str = KIND_FFT
+    latency_budget: float | None = None  # max tolerable slowdown vs boost
+    transform: str = "c2c"               # "c2c" or "r2c" (real payloads)
+    ndim: int = 1                        # transform rank
+    request_id: int = dataclasses.field(
+        default_factory=lambda: next(_REQUEST_IDS))
+    t_enqueue: float = 0.0               # stamped by the service
+
+    def __post_init__(self):
+        if not isinstance(self.x, (np.ndarray, torch.Tensor)):
+            self.x = np.asarray(self.x)
+        if self.precision not in COMPLEX_BYTES:
+            raise ValueError(
+                f"unknown precision {self.precision!r}; "
+                f"have {sorted(COMPLEX_BYTES)}")
+        if self.kind in _LATER_KINDS:
+            raise NotImplementedError(
+                f"{self.kind!r} requests arrive with "
+                f"{_LATER_KINDS[self.kind]} of the port")
+        if self.kind != KIND_FFT:
+            raise ValueError(f"unknown request kind {self.kind!r}")
+        if self.transform not in ("c2c", "r2c"):
+            raise ValueError(f"unknown transform {self.transform!r}; "
+                             "have ('c2c', 'r2c')")
+        if self.ndim < 1:
+            raise ValueError(f"transform rank must be >= 1, got {self.ndim}")
+        if self.ndim > 1:
+            raise NotImplementedError(
+                "N-D requests arrive with the N-D plan-graph slice of the "
+                "port")
+        # Reject malformed payloads at submit time so one bad request can
+        # never poison a whole serving cycle.
+        if self.x.ndim not in (1, 2) or any(d < 1 for d in self.x.shape):
+            raise ValueError(
+                f"payload must be (batch, n) or (n,) with positive dims; "
+                f"got shape {tuple(self.x.shape)}")
+
+    @property
+    def n(self) -> int:
+        """Points per transform."""
+        return int(self.x.shape[-1])
+
+    @property
+    def batch(self) -> int:
+        """Number of independent transforms in this request."""
+        return int(self.x.shape[0]) if self.x.ndim == 2 else 1
+
+    @property
+    def bytes(self) -> int:
+        """Device bytes of the request payload at its precision (half for
+        pow2 R2C payloads, which execute as real arrays)."""
+        return self.batch * self.n * self.shape_key("").elem_bytes
+
+    def shape_key(self, device_name: str) -> ShapeKey:
+        return ShapeKey(kind=self.kind, n=self.n, precision=self.precision,
+                        device=device_name, transform=self.transform)
+
+
+@dataclasses.dataclass
+class RequestReceipt:
+    """Per-request accounting, filled in when the batch executes."""
+
+    request: FFTRequest
+    batch_id: int
+    worker: int
+    # --- latency (measured wall clock, seconds) --------------------------
+    queue_latency: float        # enqueue -> batch execution start
+    service_latency: float      # execution start -> results on the device
+    # --- energy/clock (analytic model, paper Eqs. 3-4 + Sec. 5.3) --------
+    clock_mhz: float            # the locked clock the batch ran at
+    modelled_time_s: float      # model-predicted execution time of this share
+    energy_j: float             # model-predicted energy of this share
+    boost_energy_j: float       # same share executed at the boost clock
+    result: Any = None          # transform output (None if not retained)
+    # --- kernel launch ledger (repro_torch.obs.ledger) ---------------------
+    # The launch signature of this request's shape: one LaunchRecord per
+    # kernel launch of the first batch of the shape the process served.
+    launches: list = dataclasses.field(default_factory=list)
+
+    @property
+    def latency(self) -> float:
+        return self.queue_latency + self.service_latency

@@ -73,3 +73,102 @@ def test_plans_launch_the_kernels(gen, n, expected):
     assert {k: v for k, v in K.LAUNCHES.items() if v} == expected
     assert len(ledger.records) == sum(expected.values())
     assert _rel(y, fft_ref(x)) <= (2e-5 if n & (n - 1) == 0 else 1e-4)
+
+
+def _real(gen, *shape):
+    return torch.randn(*shape, device="cuda", generator=gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radices", ((4, 2), (8, 4, 2)))
+@pytest.mark.parametrize("n,b", [(4, 1001), (8, 1001), (64, 1001),
+                                 (1024, 1001), (16384, 37)])
+def test_real_kernels_match_plain_on_the_card(gen, n, b, radices):
+    """Ragged batches against every block size; the C2R input is any
+    complex tensor (kernel and plain version run the same merge)."""
+    x = _real(gen, b, n)
+    assert _rel(ops.fft_kernel_r2c(x, radices=radices),
+                K.fft_r2c_plain(x, radices=radices)) <= RTOL
+    spec = _rand(gen, b, n // 2 + 1)
+    assert _rel(ops.fft_kernel_c2r(spec, radices=radices),
+                K.fft_c2r_plain(spec, radices=radices)) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_real_input_at_an_odd_offset(gen):
+    """A contiguous float32 slice at an odd element offset is not 8-byte
+    aligned: the kernel function refuses it, the wrapper copies it."""
+    flat = _real(gen, 5 * 1024 + 1)
+    x = flat[1:].reshape(5, 1024)
+    assert x.is_contiguous() and x.data_ptr() % 8
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        K.fft_r2c(x, per_block=1)
+    assert _rel(ops.fft_kernel_r2c(x), torch.fft.rfft(x)) <= 2e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,expected", [
+    (1024, "fft_r2c"), (16384, "fft_r2c"),
+    (2**15, {"fft_c2c_axis1": 1, "fft_c2c_t": 1}),
+])
+def test_real_plans_launch_the_kernels(gen, n, expected):
+    from repro_torch.kernels.fft.ref import irfft_ref, rfft_ref
+    x = _real(gen, 6, n)
+    for kind in ("r2c", "c2r"):
+        want = ({expected.replace("r2c", kind): 1}
+                if isinstance(expected, str) else expected)
+        inp = x if kind == "r2c" else torch.fft.rfft(x)
+        K.reset_launches()
+        y = port_plan.plan_for_length(n, kind)(inp)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in K.LAUNCHES.items() if v} == want
+        ref = rfft_ref(inp) if kind == "r2c" else irfft_ref(inp)
+        assert _rel(y, ref) <= 2e-5
+    back = port_plan.plan_for_length(n, "c2r")(
+        port_plan.plan_for_length(n, "r2c")(x))
+    assert _rel(back, x) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_service_on_the_card(gen):
+    import numpy as np
+    from repro_torch.core import TESLA_V100
+    from repro_torch.serving import FFTService
+    svc = FFTService(TESLA_V100, devices=[torch.device("cuda", 0)])
+    rng = np.random.default_rng(0)
+    xc = (rng.standard_normal((8, 4096))
+          + 1j * rng.standard_normal((8, 4096))).astype(np.complex64)
+    xr = rng.standard_normal((16, 4096)).astype(np.float32)
+    K.reset_launches()
+    reqs = [(svc.submit(xc), torch.fft.fft(torch.from_numpy(xc).cuda())),
+            (svc.submit(xr, transform="r2c"),
+             torch.fft.rfft(torch.from_numpy(xr).cuda()))]
+    svc.drain()
+    assert K.LAUNCHES["fft_c2c"] == 1 and K.LAUNCHES["fft_r2c"] == 1
+    for req, ref in reqs:
+        r = svc.receipt(req)
+        assert r.result.device.type == "cuda"
+        assert _rel(r.result, ref) <= 2e-5
+        assert r.clock_mhz <= TESLA_V100.f_max
+        assert r.energy_j <= r.boost_energy_j
+    assert svc.report().n_batches == 2
+
+
+@pytest.mark.cuda
+def test_service_stacks_tensor_payloads_on_the_card(gen):
+    """Tensor payloads already on the card are stacked there, served, and
+    each request gets its own rows back."""
+    from repro_torch.core import TESLA_V100
+    from repro_torch.serving import FFTService
+    svc = FFTService(TESLA_V100, devices=[torch.device("cuda", 0)])
+    xs = [torch.randn(b, 1024, device="cuda", generator=gen)
+          for b in (3, 5, 8)]
+    reqs = [svc.submit(x, transform="r2c") for x in xs]
+    svc.drain()
+    assert svc.report().n_batches == 1
+    for req, x in zip(reqs, xs):
+        r = svc.receipt(req)
+        assert r.result.device.type == "cuda"
+        assert _rel(r.result, torch.fft.rfft(x)) <= 2e-5

@@ -135,9 +135,12 @@ def test_kernel_function_failure_propagates(monkeypatch):
 
 
 def test_real_kinds_wait_for_their_slice():
+    """Their slice has landed: both real kinds plan, and only a non-pow2
+    c2r and an unknown kind are refused."""
     for kind in ("r2c", "c2r"):
-        with pytest.raises(NotImplementedError, match="R2C/C2R slice"):
-            port_plan.plan_for_length(64, kind)
+        assert port_plan.plan_for_length(64, kind).kind == kind
+    with pytest.raises(ValueError, match="power-of-two"):
+        port_plan.plan_for_length(60, "c2r")
     with pytest.raises(ValueError, match="unknown transform kind"):
         port_plan.plan_for_length(64, "dct")
 
