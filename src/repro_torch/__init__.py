@@ -7,7 +7,10 @@ reference's Pallas TPU kernels; each has a plain torch twin that runs on
 CPU tensors.
 
 Ported so far: planned batched 1-D C2C FFTs (single pass, four-step,
-Bluestein) and real-input R2C/C2R FFTs on five CUDA kernels, priced by the
-paper's DVFS model (``repro_torch.core``) and served with per-request
-energy receipts by ``repro_torch.serving.FFTService``.
+Bluestein), real-input R2C/C2R FFTs, the N-D plan graph
+(``repro_torch.fft.fft2``/``rfft2``/``fftn``/``rfftn``) and the
+overlap-save FDAS acceleration search (``repro_torch.search``) on eight
+CUDA kernels, priced by the paper's DVFS model (``repro_torch.core``) and
+served with per-request energy receipts by
+``repro_torch.serving.FFTService``.
 """

@@ -5,7 +5,8 @@ Layers:
   power_model  P(f) = static(V) + dynamic(f, V) + memory
   perf_model   t(f) with the paper's three regimes (Fig. 6)
   energy       Eqs. (3)-(7): energy, GFLOPS/W, I_ef
-  workloads    the 1-D FFT plan model
+  workloads    the FFT plan model (1-D and N-D) and the overlap-save /
+               FDAS model
   dvfs         optimal & mean-optimal frequency search (Table 3)
   scheduler    the runtime clock lock around dispatches (Sec. 5.3)
 """
@@ -16,6 +17,8 @@ from repro_torch.core.hardware import (JETSON_NANO, TESLA_V100, TITAN_V,
                                        DeviceSpec)
 from repro_torch.core.perf_model import WorkloadProfile
 from repro_torch.core.power_model import PowerModel
-from repro_torch.core.workloads import FFTCase, fft_workload
+from repro_torch.core.workloads import (ConvCase, FFTCase, conv_workload,
+                                       fdas_total_profile, fdas_workload,
+                                       fft_workload, merge_profiles)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,14 +1,17 @@
 """Workload builders for the DVFS model (numpy copy of
-``repro.core.workloads``, limited to the 1-D FFT).
+``repro.core.workloads``).
 
-:func:`fft_workload` is an analytic model of a batched out-of-place 1-D
-FFT in the style the paper measures: FLOPs = 5 N log2 N per transform,
-HBM traffic = one read + one write of the whole batch per *pass*, where a
-pass is one kernel of the multi-kernel plan (``repro_torch.fft.plan``
-runs exactly that many kernel launches).
+:func:`fft_workload` is an analytic model of a batched out-of-place FFT
+in the style the paper measures: FLOPs = 5 N log2 N per transform, HBM
+traffic = one read + one write of the whole batch per *pass*, where a
+pass is one kernel of the multi-kernel plan (``repro_torch.fft.plan`` and
+``repro_torch.fft.plan_nd`` run exactly that many kernel passes).
+:func:`conv_workload` / :func:`fdas_workload` price the overlap-save
+matched filter and the acceleration search from the engine's own
+``ConvPlan``.
 
-The N-D, convolution/FDAS and pulsar-search builders of the reference
-arrive with the slices that port their engines; until then they raise.
+The pulsar-search builder of the reference arrives with the
+pulsar-pipeline slice of the port; until then it raises.
 """
 from __future__ import annotations
 
@@ -17,8 +20,8 @@ import math
 
 from repro_torch.core.hardware import DeviceSpec
 from repro_torch.core.perf_model import WorkloadProfile
-from repro_torch.fft.radix import (mixed_radix_flop_count, r2c_flop_count,
-                                   stage_count)
+from repro_torch.fft.radix import (is_pow2, mixed_radix_flop_count,
+                                   r2c_flop_count, stage_count)
 
 # Byte sizes of one complex element per precision (paper: C2C transforms).
 COMPLEX_BYTES = {"fp16": 4, "fp32": 8, "fp64": 16}
@@ -26,10 +29,6 @@ COMPLEX_BYTES = {"fp16": 4, "fp32": 8, "fp64": 16}
 # Peak-FLOP multiplier per precision relative to the device's FP32 figure
 # (V100-style ratios: FP64 = 1/2, FP16 = 2x).
 PRECISION_PEAK = {"fp16": 2.0, "fp32": 1.0, "fp64": 0.5}
-
-
-def is_pow2(n: int) -> bool:
-    return n > 0 and (n & (n - 1)) == 0
 
 
 def largest_prime_factor(n: int) -> int:
@@ -95,9 +94,7 @@ TRANSFORMS = ("c2c", "r2c", "c2r")
 class FFTCase:
     """One measured configuration: length/shape, precision, transform, batch.
 
-    Field-for-field the reference's ``FFTCase``; see its docstring.  The
-    port prices 1-D cases only so far (``shape`` of more than one axis
-    raises in :func:`fft_workload`).
+    Field-for-field the reference's ``FFTCase``; see its docstring.
     """
 
     n: int = 0
@@ -156,16 +153,14 @@ def fft_workload(
     *,
     regime_c: bool = False,
 ) -> WorkloadProfile:
-    """Analytic profile of a batched 1-D FFT on ``device``.
+    """Analytic profile of a batched FFT on ``device``.
 
     ``regime_c`` marks plan/length combinations whose kernel saturates a
     core-clocked cache at f_max (the paper observes this for N = 8192 on
     the V100): the cache term is pinned just above the memory term.
     """
     if case.shape is not None and len(case.shape) > 1:
-        raise NotImplementedError(
-            "N-D FFT workloads arrive with the N-D plan-graph slice of the "
-            "port (repro_torch.fft.plan_nd)")
+        return _nd_fft_workload(case, device, regime_c=regime_c)
     n, b = case.n, case.elem_bytes
     n_fft = case.n_fft
     # The packed R2C/C2R path only exists for pow2 lengths.
@@ -209,16 +204,206 @@ def fft_workload(
     )
 
 
-def conv_workload(*args, **kwargs) -> WorkloadProfile:
-    """Overlap-save convolution profile: arrives with the FDAS slice."""
-    raise NotImplementedError(
-        "conv_workload arrives with the overlap-save/FDAS slice of the port")
+def _nd_fft_workload(
+    case: FFTCase,
+    device: DeviceSpec,
+    *,
+    regime_c: bool = False,
+) -> WorkloadProfile:
+    """Analytic profile of a batched N-D FFT (Eq. 2 factored passes).
+
+    Pass counts come from the compiled plan graph
+    (:func:`repro_torch.fft.plan_nd.nd_pass_summary`) — pow2 axes fuse
+    their hand-off transpose into the FFT write, so a pow2 2-D transform
+    costs 2 HBM passes.  FLOPs sum the per-axis butterfly counts over the
+    points of the other axes; an R2C last axis does half the work and
+    shrinks every later axis's row count to (n_last/2 + 1)/n_last.
+    """
+    from repro_torch.fft.plan_nd import nd_pass_summary
+
+    shape = case.shape
+    n, b = case.n, case.elem_bytes
+    n_fft = case.n_fft
+    transform = case.transform if case.transform != "c2r" else "r2c"
+    passes, _chain, stages = nd_pass_summary(shape, transform)
+
+    def axis_flops(na: int) -> float:
+        """One length-``na`` 1-D transform, Bluestein-aware (Sec. 2.1)."""
+        if not is_pow2(na):
+            m = 1 << math.ceil(math.log2(max(2 * na - 1, 2)))
+            return 2 * _butterfly_flops(m, case.radices) + 20.0 * na
+        return _butterfly_flops(na, case.radices)
+
+    real = transform == "r2c" and is_pow2(shape[-1]) and shape[-1] >= 2
+    flops = 0.0
+    rows_frac = 1.0
+    for axis in reversed(range(len(shape))):
+        na = shape[axis]
+        batch_pts = n / na                      # transforms of this axis
+        if axis == len(shape) - 1 and real:
+            flops += batch_pts * _r2c_flops(na, case.radices)
+            rows_frac = (na // 2 + 1) / na      # half-spectrum downstream
+        else:
+            flops += rows_frac * batch_pts * axis_flops(na)
+    flops *= n_fft
+
+    data_bytes = float(n) * b * n_fft
+    hbm_bytes = 2.0 * data_bytes * passes
+    cache_bytes = 2.0 * data_bytes * stages
+    peak = device.peak_flops * PRECISION_PEAK[case.precision]
+    t_mem = hbm_bytes / device.hbm_bandwidth
+    t_cache = cache_bytes / device.cache_bandwidth
+    if regime_c:
+        t_cache = max(t_cache, 1.02 * t_mem)
+    return WorkloadProfile(
+        name=case.name,
+        t_mem=t_mem,
+        t_issue=flops / (peak * device.issue_efficiency),
+        t_cache=t_cache,
+        t_compute=flops / peak,
+        contention=0.01,
+        flops=flops,
+    )
 
 
-def fdas_workload(*args, **kwargs) -> list[WorkloadProfile]:
-    """Acceleration-search stage profiles: arrive with the FDAS slice."""
-    raise NotImplementedError(
-        "fdas_workload arrives with the overlap-save/FDAS slice of the port")
+@dataclasses.dataclass(frozen=True)
+class ConvCase:
+    """One overlap-save matched-filter configuration (the FDAS workload).
+
+    ``n`` complex points per row are convolved against a bank of
+    ``templates`` filters of ``taps`` points each through the segmented
+    engine (``repro_torch.fft.convolve``); ``nfft=0`` lets the engine's
+    cost model pick the segment length.  ``batch_bytes`` sizes the batch
+    by the Eq. 6 memory budget, exactly like :class:`FFTCase`.
+    """
+
+    n: int
+    templates: int
+    taps: int
+    nfft: int = 0
+    precision: str = "fp32"
+    batch_bytes: float = 2e9
+    radices: tuple[int, ...] | None = None
+    name: str = ""
+
+    def __post_init__(self):
+        if self.n < 1:
+            raise ValueError(f"ConvCase needs n >= 1, got {self.n}")
+        if self.templates < 1 or self.taps < 1:
+            raise ValueError(
+                f"ConvCase needs templates/taps >= 1, got "
+                f"{self.templates}/{self.taps}")
+        if self.precision not in COMPLEX_BYTES:
+            raise ValueError(f"unknown precision {self.precision!r}")
+        if not self.name:
+            object.__setattr__(
+                self, "name",
+                f"conv-n{self.n}-t{self.templates}x{self.taps}"
+                f"-{self.precision}")
+
+    @property
+    def plan(self):
+        """The memoised overlap-save plan (segmentation + pass counts)."""
+        from repro_torch.fft.convolve import conv_plan
+        return conv_plan(self.n, self.taps, self.templates, self.nfft)
+
+    @property
+    def n_rows(self) -> int:
+        """Eq. 6: complex rows per memory-budgeted batch."""
+        return max(int(self.batch_bytes
+                       // (self.n * COMPLEX_BYTES[self.precision])), 1)
+
+
+def conv_workload(case: ConvCase, device: DeviceSpec) -> WorkloadProfile:
+    """Analytic profile of one batched overlap-save matched-filter plane.
+
+    Pass and traffic counts come straight from the engine's own plan
+    (``ConvPlan``: one fused forward pass feeding T filters, T inverse
+    passes, zero standalone multiply passes).
+    """
+    plan = case.plan
+    rows = case.n_rows
+    t = case.templates
+    seg_pts = plan.n_segments * plan.nfft
+    scale = COMPLEX_BYTES[case.precision] / 8.0    # plan bytes are complex64
+    hbm_bytes = plan.os_bytes * scale * rows
+    flops = ((1 + t) * _butterfly_flops(plan.nfft, case.radices)
+             * plan.n_segments + 6.0 * t * seg_pts) * rows
+    # Every fused pass exchanges its working set once per butterfly stage.
+    stages = _stage_count(plan.nfft, case.radices)
+    cache_bytes = 2.0 * seg_pts * 8.0 * scale * rows * stages * (1 + t)
+    peak = device.peak_flops * PRECISION_PEAK[case.precision]
+    return WorkloadProfile(
+        name=case.name,
+        t_mem=hbm_bytes / device.hbm_bandwidth,
+        t_issue=flops / (peak * device.issue_efficiency),
+        t_cache=cache_bytes / device.cache_bandwidth,
+        t_compute=flops / peak,
+        contention=0.01,
+        flops=flops,
+    )
+
+
+def fdas_workload(case: ConvCase, device: DeviceSpec, *,
+                  series_n: int | None = None) -> list[WorkloadProfile]:
+    """Per-stage profiles of the acceleration search: R2C FFT -> template
+    convolution -> power/threshold detection.
+
+    ``case.n`` is the half-spectrum length; ``series_n`` overrides the
+    time-series length (default ``2 * (n - 1)``).
+    """
+    if series_n is None:
+        series_n = 2 * (case.n - 1)
+    fft_prof = fft_workload(
+        FFTCase(n=series_n, precision=case.precision,
+                batch_bytes=case.batch_bytes, transform="r2c",
+                radices=case.radices, name="fdas-fft"),
+        device,
+    )
+    conv_prof = dataclasses.replace(conv_workload(case, device),
+                                    name="fdas-conv")
+    # Detection: read the (T, nbins) plane, write power + the top-k pass.
+    rows = case.n_rows
+    plane = float(case.templates * case.n * rows)
+    det_bytes = plane * (8.0 + 4.0) * (COMPLEX_BYTES[case.precision] / 8.0)
+    det_flops = 5.0 * plane
+    peak = device.peak_flops * PRECISION_PEAK[case.precision]
+    detect = WorkloadProfile(
+        name="fdas-detect",
+        t_mem=det_bytes / device.hbm_bandwidth,
+        t_issue=det_flops / (peak * 0.4),
+        t_compute=det_flops / peak,
+        flops=det_flops,
+    )
+    return [fft_prof, conv_prof, detect]
+
+
+def merge_profiles(name: str,
+                   profs: list[WorkloadProfile]) -> WorkloadProfile:
+    """Sum stage profiles into one (for service-level single-clock sweeps).
+
+    Times and FLOPs add; contention is t_mem-weighted (the memory-bound
+    fraction is what the contention term scales, Fig. 6)."""
+    t_mem = sum(p.t_mem for p in profs)
+    contention = (sum(p.contention * p.t_mem for p in profs) / t_mem
+                  if t_mem > 0 else 0.0)
+    return WorkloadProfile(
+        name=name,
+        t_mem=t_mem,
+        t_issue=sum(p.t_issue for p in profs),
+        t_cache=sum(p.t_cache for p in profs),
+        t_compute=sum(p.t_compute for p in profs),
+        t_coll=sum(p.t_coll for p in profs),
+        contention=contention,
+        flops=sum(p.flops for p in profs),
+    )
+
+
+def fdas_total_profile(case: ConvCase, device: DeviceSpec, *,
+                       series_n: int | None = None) -> WorkloadProfile:
+    """All FDAS stages merged into one profile (service-level sweeps)."""
+    return merge_profiles(f"fdas-n{case.n}-t{case.templates}",
+                          fdas_workload(case, device, series_n=series_n))
 
 
 def pulsar_search_workload(*args, **kwargs) -> list[WorkloadProfile]:

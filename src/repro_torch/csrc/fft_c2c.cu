@@ -8,6 +8,9 @@
 //                           pointer selects the variant without twiddle
 //   repro_fft_c2c_t      <- fft_t_pallas (:413, body :150) and
 //                           fft_t_twiddle_pallas (:446), the same way
+//   repro_fft_c2c_mul    <- fft_mul_pallas (:243, body _c2c_mul_body :220):
+//                           the C2C FFT of each row times every row of a
+//                           (T, n) filter bank, (B, n) -> (B, T, n)
 //
 // What bounds them: memory.  A length-n transform does ~4.25 n log2 n
 // float operations on 16 n bytes of device-memory traffic (one complex64
@@ -27,6 +30,18 @@
 // masked in the kernel (the last block runs fewer transforms), never
 // padded.  Length 8192 needs 128 KB of shared memory per block, which is
 // only available as dynamic shared memory after cudaFuncSetAttribute.
+//
+// The bank multiply (c2c_mul) is the overlap-save/FDAS forward pass.  It
+// writes T times what it reads — 8 n (B + T + B T) bytes, write-bound —
+// so its least time is the product plane's write.  The TPU kernel pins the
+// whole bank in VMEM across grid steps; at the FDAS size (T = 85,
+// n = 2048, 1.39 MB) no SM's shared memory holds it.  Here a block keeps
+// only its transformed rows in shared memory and streams the bank from
+// global memory, one template after another: every block reads the same
+// bank, so it stays in the 50 MB L2, and the products go out with
+// evict-first stores (__stcs) so that the plane does not push it out.
+// Consecutive threads write consecutive points of one (row, template)
+// product, so the store is fully coalesced.
 //
 // The stages themselves (stockham.cuh) are the reference's arithmetic,
 // operation for operation; the plain torch version beside the wrapper
@@ -135,6 +150,43 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// (B, n) -> (B, T, n): y[b, t] = FFT(x[b]) * bank[t] (the inverse FFT,
+// 1/n, when the schedule is inverse).  Block i transforms rows
+// [i*per_block, ...) and writes their T products each; the launch checks
+// that per_block * T * n fits an int.
+__global__ void __launch_bounds__(kThreads)
+    fft_c2c_mul_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                       long long batch, int per_block, int templates,
+                       const float2* __restrict__ bank,
+                       const __grid_constant__ Schedule s,
+                       const float* __restrict__ tw_re,
+                       const float* __restrict__ tw_im) {
+  extern __shared__ float2 smem[];
+  const int n = s.n;
+  const int log_n = __ffs(n) - 1;
+  const long long first = static_cast<long long>(blockIdx.x) * per_block;
+  const int count = static_cast<int>(min(static_cast<long long>(per_block),
+                                         batch - first));
+  const int elems = count * n;
+  float2* a = smem;
+  float2* b = smem + static_cast<size_t>(per_block) * n;
+  const float2* src = x + first * n;
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) a[e] = src[e];
+  __syncthreads();
+  const float2* res = stockham(a, b, count, s, tw_re, tw_im);
+  // Output element e of the block is (row, t, i) with e = (row*T + t)*n + i.
+  float2* dst = y + first * templates * n;
+  const int outs = elems * templates;
+  for (int e = threadIdx.x; e < outs; e += blockDim.x) {
+    const int q = e >> log_n;
+    const int i = e & (n - 1);
+    const int row = q / templates;
+    const int t = q - row * templates;
+    const float2 v = scaled(res[row * n + i], s.scale);
+    __stcs(dst + e, cmul(v, __ldg(bank + static_cast<size_t>(t) * n + i)));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -155,6 +207,30 @@ int repro_fft_c2c(const void* x, void* y, long long batch, int n,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(x), static_cast<float2*>(y), batch,
       per_block, s, tw_re, tw_im);
+  return cudaGetLastError();
+}
+
+int repro_fft_c2c_mul(const void* x, void* y, long long batch, int n,
+                      int per_block, int templates, const void* bank,
+                      const int* radices, int nstages, int inverse,
+                      const float* dft_re, const float* dft_im,
+                      const float* tw_re, const float* tw_im, void* stream) {
+  Schedule s;
+  cudaError_t err =
+      make_schedule(&s, n, radices, nstages, inverse, dft_re, dft_im);
+  if (err != cudaSuccess) return err;
+  if (templates < 1 ||
+      static_cast<long long>(per_block) * templates * n > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const long long blocks = (batch + per_block - 1) / per_block;
+  size_t smem = 0;
+  err = prepare(fft_c2c_mul_kernel, blocks, per_block, n, &smem);
+  if (err != cudaSuccess) return err;
+  fft_c2c_mul_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<float2*>(y), batch,
+      per_block, templates, static_cast<const float2*>(bank), s, tw_re,
+      tw_im);
   return cudaGetLastError();
 }
 

@@ -16,18 +16,15 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.fft.radix import next_pow2
 from repro_torch.fft.stockham import _as_complex
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << (n - 1).bit_length()
 
 
 @functools.lru_cache(maxsize=None)
 def _chirp_factors(n: int, inverse: bool
                    ) -> tuple[np.ndarray, np.ndarray]:
     """(chirp, fb): the length-N chirp and the FFT of the chirp filter."""
-    m = _next_pow2(2 * n - 1)
+    m = next_pow2(2 * n - 1)
     sign = 1.0 if inverse else -1.0
     k = np.arange(n)
     # exp(sign * i*pi*k^2/n); k^2 mod 2n keeps the argument small & exact.
@@ -56,7 +53,7 @@ def bluestein_fft(x, *, inverse: bool = False, config=None) -> torch.Tensor:
 
     x = _as_complex(x)
     n = x.shape[-1]
-    m = _next_pow2(2 * n - 1)
+    m = next_pow2(2 * n - 1)
     chirp, fb = _device_factors(n, inverse, x.device, x.dtype)
     a = torch.zeros((*x.shape[:-1], m), dtype=x.dtype, device=x.device)
     a[..., :n] = x * chirp

@@ -1,6 +1,6 @@
 """FFT planning — pick the algorithm and kernel route per length.
 
-The counterpart of ``repro.fft.plan`` for 1-D transforms:
+The counterpart of ``repro.fft.plan``.  For 1-D transforms:
 
   pow2, fits one kernel   -> one fused Stockham pass (``fft_c2c`` kernel)
   pow2, long              -> four-step decomposition: two fused passes
@@ -21,6 +21,11 @@ and, for real input (``kind="r2c"``, N/2+1 bins out, and its inverse
 
 ``MAX_SINGLE_PASS`` is the reference's, so ``algorithm`` and ``passes``
 (the DVFS model's HBM pass count) agree between the two packages.
+
+The N-D plan graph (``repro_torch.fft.plan_nd``) and the overlap-save
+engine (``repro_torch.fft.convolve``) run their passes through the
+primitives here: :func:`fft_transposed`, :func:`rfft_transposed`,
+:func:`tiled_transpose` and :func:`fft_mul`.
 
 **Routing**: every power-of-two pass of every plan launches a CUDA kernel
 on a CUDA tensor, or runs that kernel's plain torch version on a CPU
@@ -49,14 +54,17 @@ import numpy as np
 import torch
 
 from repro_torch.fft.bluestein import bluestein_fft
-from repro_torch.fft.radix import DEFAULT_RADICES, radix_schedule, stage_count
+from repro_torch.fft.radix import (DEFAULT_RADICES, is_pow2, radix_schedule,
+                                   stage_count)
 from repro_torch.fft.stockham import (_as_complex, _as_real, _irfft_merge,
                                      _pack_real, _rfft_split,
                                      _stockham_pow2, _unpack_real)
 from repro_torch.kernels.fft.ops import (MAX_KERNEL_N, fft_kernel_c2c,
                                          fft_kernel_c2c_axis1,
+                                         fft_kernel_c2c_mul,
                                          fft_kernel_c2c_t, fft_kernel_c2r,
-                                         fft_kernel_r2c)
+                                         fft_kernel_r2c, fft_kernel_r2c_t,
+                                         transpose_kernel)
 from repro_torch.tune.config import KernelConfig
 from repro_torch.tune.context import plan_config as _tuned_plan_config
 
@@ -73,6 +81,9 @@ _kernel_fft_t: Callable = fft_kernel_c2c_t
 _kernel_fft_axis1: Callable = fft_kernel_c2c_axis1
 _kernel_rfft: Callable = fft_kernel_r2c
 _kernel_irfft: Callable = fft_kernel_c2r
+_kernel_rfft_t: Callable = fft_kernel_r2c_t
+_kernel_transpose: Callable = transpose_kernel
+_kernel_fft_mul: Callable = fft_kernel_c2c_mul
 
 _KERNELS_OFF = contextvars.ContextVar("repro_torch_kernels_off",
                                       default=False)
@@ -112,7 +123,7 @@ def _resolve_split(n: int, config: KernelConfig | None) -> tuple[int, int]:
     """The four-step (n1, n2) cut: the tuned one when valid, else balanced."""
     if config is not None and config.split:
         n1, n2 = config.split
-        if n1 * n2 == n and _is_pow2(n1) and _is_pow2(n2):
+        if n1 * n2 == n and is_pow2(n1) and is_pow2(n2):
             return n1, n2
     return _four_step_split(n)
 
@@ -138,12 +149,26 @@ def pow2_fft(x: torch.Tensor, *, inverse: bool = False,
     return _stockham_pow2(x, inverse=inverse)
 
 
-def _is_pow2(n: int) -> bool:
-    return n > 0 and (n & (n - 1)) == 0
+def fft_mul(x, bank, config: KernelConfig | None = None) -> torch.Tensor:
+    """Forward pow2 C2C FFT fused with a (T, N) filter-bank multiply.
+
+    (..., N) in -> (..., T, N) out: out[..., t, :] = FFT(x) * bank[t].
+    The overlap-save convolution engine's forward pass: the bank multiply
+    rides the ``fft_c2c_mul`` kernel as its epilogue.  With kernels
+    disabled, or a length no single pass takes: the routed FFT plus one
+    broadcast multiply in torch (one more pass over the plane).
+    """
+    x = _as_complex(x)
+    n = x.shape[-1]
+    if is_pow2(n) and 1 < n <= MAX_KERNEL_N and _kernels_enabled():
+        return _kernel_fft_mul(x, bank, **_kernel_overrides(config))
+    y = pow2_fft(x, config=config)
+    return y[..., None, :] * torch.as_tensor(bank, device=y.device).to(
+        y.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Fused-epilogue pass primitives
+# Fused-epilogue pass primitives (the plan graph's node executors)
 # ---------------------------------------------------------------------------
 
 def fft_transposed(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
@@ -157,7 +182,7 @@ def fft_transposed(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
     """
     x = _as_complex(x)
     n = x.shape[-1]
-    if (_is_pow2(n) and 1 < n <= MAX_KERNEL_N and _kernels_enabled()):
+    if (is_pow2(n) and 1 < n <= MAX_KERNEL_N and _kernels_enabled()):
         return _kernel_fft_t(x, twiddle=twiddle, inverse=inverse,
                              **_kernel_overrides(config))
     y = _routed_1d(x, n, inverse, config)
@@ -170,7 +195,7 @@ def _routed_1d(x: torch.Tensor, n: int, inverse: bool,
                config: KernelConfig | None = None) -> torch.Tensor:
     """Last-axis C2C of any length, honouring ``inverse`` (conj trick for
     the non-pow2 plans, which only run forward)."""
-    if _is_pow2(n):
+    if is_pow2(n):
         return pow2_fft(x, inverse=inverse, config=config)
     plan = plan_for_length(n)
     if inverse:
@@ -189,13 +214,36 @@ def fft_column(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
     """
     x = _as_complex(x)
     r = x.shape[-2]
-    if _is_pow2(r) and 1 < r <= MAX_KERNEL_N and _kernels_enabled():
+    if is_pow2(r) and 1 < r <= MAX_KERNEL_N and _kernels_enabled():
         return _kernel_fft_axis1(x, twiddle=twiddle, inverse=inverse,
                                  **_kernel_overrides(config))
     y = _routed_1d(x.transpose(-1, -2), r, inverse, config)
     if twiddle is not None:
         y = y * torch.as_tensor(twiddle, device=y.device).to(y.dtype)
     return y.transpose(-1, -2).contiguous()
+
+
+def rfft_transposed(x, config: KernelConfig | None = None) -> torch.Tensor:
+    """R2C FFT along the last axis, transposed write: (..., R, C) real ->
+    (..., C/2+1, R) — one fused pass (``fft_r2c_t``: pack, half-length
+    FFT, Hermitian split and transpose in shared memory).  With kernels
+    disabled, or a length no single pass takes: the routed R2C plan, then
+    a transpose in torch."""
+    x = _as_real(x)
+    n = x.shape[-1]
+    if (is_pow2(n) and 4 <= n and n // 2 <= MAX_KERNEL_N
+            and _kernels_enabled()):
+        return _kernel_rfft_t(x, **_kernel_overrides(config))
+    y = plan_with_config(n, "r2c", config)(x)
+    return y.transpose(-1, -2).contiguous()
+
+
+def tiled_transpose(x: torch.Tensor) -> torch.Tensor:
+    """Swap the last two axes in one tiled kernel pass (``transpose``),
+    dtype kept; a torch transpose with kernels disabled."""
+    if _kernels_enabled():
+        return _kernel_transpose(x)
+    return x.transpose(-1, -2).contiguous()
 
 
 def _four_step_split(n: int) -> tuple[int, int]:
@@ -321,7 +369,7 @@ def _plan_for_length(n: int, kind: str,
         return _real_plan(n, kind, config)
     radices = (config.radices if config is not None and config.radices
                else DEFAULT_RADICES)
-    if _is_pow2(n):
+    if is_pow2(n):
         schedule = radix_schedule(min(n, MAX_SINGLE_PASS), radices)
         if n <= MAX_SINGLE_PASS:
             return FFTPlan(n, "stockham", 1,
@@ -347,7 +395,7 @@ def _plan_for_length(n: int, kind: str,
 
 
 def _real_plan(n: int, kind: str, config: KernelConfig | None) -> FFTPlan:
-    if not _is_pow2(n):
+    if not is_pow2(n):
         if kind == "c2r":
             raise ValueError(
                 f"c2r plans need a power-of-two length, got {n}")

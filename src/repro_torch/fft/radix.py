@@ -26,6 +26,15 @@ import numpy as np
 DEFAULT_RADICES = (4, 2)
 
 
+def is_pow2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= ``n`` (for n >= 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
 #: Real FLOPs per point per stage of a radix-r DIF butterfly (classic
 #: operation counts: 5 N log2 N total for radix-2, 4.25 N log2 N for
 #: radix-4, ~4.08 N log2 N for radix-8; each stage decides log2(r) bits).

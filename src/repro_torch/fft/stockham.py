@@ -26,13 +26,9 @@ import functools
 
 import torch
 
-from repro_torch.fft.radix import (DEFAULT_RADICES, dft_matrix,
+from repro_torch.fft.radix import (DEFAULT_RADICES, dft_matrix, is_pow2,
                                    radix_schedule, rfft_split_twiddles,
                                    stage_twiddles)
-
-
-def _is_pow2(n: int) -> bool:
-    return n > 0 and (n & (n - 1)) == 0
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -71,7 +67,7 @@ def _stockham_pow2(x: torch.Tensor, *, inverse: bool = False,
                    ) -> torch.Tensor:
     """Mixed-radix Stockham FFT along the last axis (power-of-two length)."""
     n = x.shape[-1]
-    if not _is_pow2(n):
+    if not is_pow2(n):
         raise ValueError(f"Stockham engine needs a power-of-two length, "
                          f"got {n}")
     if n == 1:
@@ -157,7 +153,7 @@ def _rfft_pow2(x: torch.Tensor, *,
                radices: tuple[int, ...] = DEFAULT_RADICES) -> torch.Tensor:
     """R2C FFT along the last axis: (..., N) real -> (..., N/2+1) complex."""
     n = x.shape[-1]
-    if not (_is_pow2(n) and n >= 2):
+    if not (is_pow2(n) and n >= 2):
         raise ValueError(f"R2C engine needs a power-of-two length >= 2, "
                          f"got {n}")
     if not x.is_floating_point():
@@ -171,7 +167,7 @@ def _irfft_pow2(X: torch.Tensor, *,
     """C2R inverse: (..., N/2+1) half-spectrum -> (..., N) real (1/N norm)."""
     m = X.shape[-1] - 1
     n = 2 * m
-    if not (m >= 1 and _is_pow2(n)):
+    if not (m >= 1 and is_pow2(n)):
         raise ValueError(f"C2R engine needs N/2+1 bins of a power-of-two "
                          f"N >= 2, got {m + 1}")
     z = _stockham_pow2(_irfft_merge(_as_complex(X), n), inverse=True,

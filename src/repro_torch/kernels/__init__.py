@@ -11,6 +11,8 @@ first use (:mod:`repro_torch.kernels.common`).
 Kernels so far:
   fft           fused-stage Stockham FFT, whole transforms resident in
                 shared memory: C2C (single pass, four-step column pass,
-                and transposed-write row pass) and packed R2C/C2R (the
-                Hermitian split or merge in shared memory)
+                transposed-write row pass, and the filter-bank multiply
+                epilogue), packed R2C/C2R (the Hermitian split or merge
+                in shared memory; R2C also with a transposed write), and
+                the plan graph's tiled transpose
 """

@@ -1,21 +1,27 @@
 """Fused mixed-radix Stockham FFT kernels: CUDA launches and plain twins.
 
-Five CUDA kernels (``repro_torch/csrc/fft_c2c.cu`` and ``fft_real.cu``;
-each file's header note says which TPU kernel each replaces, what bounds
-it and what its design does about that) and, beside each, a plain torch
-version that runs the same radix schedule, the same packed twiddle table
-and the same butterfly arithmetic on float32 re/im planes — the
-counterpart of the reference's ``_mixed_radix_stages``.
+Eight CUDA kernels (``repro_torch/csrc/fft_c2c.cu``, ``fft_real.cu`` and
+``transpose.cu``; each file's header note says which TPU kernel each
+replaces, what bounds it and what its design does about that) and,
+beside each, a plain torch version that runs the same radix schedule, the
+same packed twiddle table and the same butterfly arithmetic on float32
+re/im planes — the counterpart of the reference's ``_mixed_radix_stages``.
 
   fft_c2c        (B, N) -> (B, N), pow2 N <= 2**13
   fft_c2c_t      (B, R, C) -> (B, C, R): FFT of each row, written
                  transposed; optional (R, C) twiddle before the write
   fft_c2c_axis1  (B, R, C) -> (B, R, C): FFT of each column, layout
                  kept; optional (C, R) twiddle: out[.., k, j] *= ftw[j, k]
+  fft_c2c_mul    (B, N), (T, N) bank -> (B, T, N): FFT of each row times
+                 every bank row (the reference's ``_c2c_mul_body``)
   fft_r2c        (B, N) float32 -> (B, N/2+1): packed R2C, pow2
                  4 <= N <= 2**14 (the reference's ``_r2c_tile``)
+  fft_r2c_t      (B, R, C) float32 -> (B, C/2+1, R): packed R2C of each
+                 row, written transposed
   fft_c2r        (B, N/2+1) -> (B, N) float32: packed C2R, 1/N (the
                  reference's ``_c2r_body``)
+  transpose      (B, R, C) -> (B, C, R) of 4-, 8- or 16-byte elements,
+                 dtype kept
 
 The C2C functions take contiguous complex64 tensors; the real ones take
 or return contiguous float32.  The input's device decides: a CPU tensor
@@ -47,7 +53,12 @@ KERNEL_RADICES = (2, 4, 8)
 
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"fft_c2c": 0, "fft_c2c_t": 0, "fft_c2c_axis1": 0,
-            "fft_r2c": 0, "fft_c2r": 0}
+            "fft_c2c_mul": 0, "fft_r2c": 0, "fft_r2c_t": 0, "fft_c2r": 0,
+            "transpose": 0}
+
+#: Side of the square tile the transpose kernel moves through shared
+#: memory (``csrc/transpose.cu``).
+TRANSPOSE_TILE = 32
 
 _ELEM_BYTES = 8          # complex64
 _BUFFERS = 2             # ping-pong Stockham buffers in shared memory
@@ -93,6 +104,11 @@ def blocks(count: int, per_block: int, outer: int = 1) -> int:
     """Thread blocks of a launch: ``outer`` batch entries, each cut into
     blocks of ``per_block`` transforms out of ``count``."""
     return outer * (round_up(count, per_block) // per_block)
+
+
+def transpose_blocks(b: int, r: int, c: int) -> int:
+    """Thread blocks of a transpose launch: one per tile of each plane."""
+    return blocks(r, TRANSPOSE_TILE, b) * blocks(c, TRANSPOSE_TILE)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +253,22 @@ def fft_c2c_axis1_plain(x: torch.Tensor, twiddle: torch.Tensor | None = None,
     return _join(re.transpose(1, 2), im.transpose(1, 2))
 
 
+def fft_c2c_mul_plain(x: torch.Tensor, bank: torch.Tensor, *,
+                      inverse: bool = False,
+                      radices: tuple[int, ...] = DEFAULT_RADICES
+                      ) -> torch.Tensor:
+    """Plain torch version of :func:`fft_c2c_mul`."""
+    b, n = x.shape
+    re, im = _stages_plain(*_planes(x), n, radices, inverse)
+    br, bi = _planes(bank)
+    return _join(*_cmul(re[:, None, :], im[:, None, :], br[None], bi[None]))
+
+
+def transpose_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of :func:`transpose`."""
+    return x.transpose(1, 2).contiguous()
+
+
 def _real_length(n: int) -> int:
     """The half length of a packed real transform (pow2 N >= 4)."""
     if n < 4 or n & (n - 1):
@@ -253,6 +285,15 @@ def fft_r2c_plain(x: torch.Tensor, *,
     v = x.reshape(b, m, 2)
     return _rfft_split(_join(*_stages_plain(v[..., 0], v[..., 1], m, radices,
                                             False)), n)
+
+
+def fft_r2c_t_plain(x: torch.Tensor, *,
+                    radices: tuple[int, ...] = DEFAULT_RADICES
+                    ) -> torch.Tensor:
+    """Plain torch version of :func:`fft_r2c_t`."""
+    b, r, c = x.shape
+    y = fft_r2c_plain(x.reshape(b * r, c), radices=radices)
+    return y.reshape(b, r, c // 2 + 1).transpose(1, 2).contiguous()
 
 
 def fft_c2r_plain(x: torch.Tensor, *,
@@ -281,6 +322,9 @@ def _library() -> ctypes.CDLL:
     lib.repro_fft_c2c.argtypes = [_P, _P, _LL, _I, _I, _P, _I, _I,
                                   _P, _P, _P, _P, _P]
     lib.repro_fft_c2c.restype = _I
+    lib.repro_fft_c2c_mul.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _P, _I,
+                                      _I, _P, _P, _P, _P, _P]
+    lib.repro_fft_c2c_mul.restype = _I
     for fn in (lib.repro_fft_c2c_t, lib.repro_fft_c2c_axis1):
         fn.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _P, _I, _I,
                        _P, _P, _P, _P, _P]
@@ -297,6 +341,19 @@ def _real_library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _P,
                        _P, _P]
         fn.restype = _I
+    lib.repro_fft_r2c_t.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _P,
+                                    _P, _P, _P, _P, _P]
+    lib.repro_fft_r2c_t.restype = _I
+    return lib
+
+
+@functools.cache
+def _transpose_library() -> ctypes.CDLL:
+    lib = load_library("transpose")
+    lib.repro_fft_error_string.argtypes = [_I]
+    lib.repro_fft_error_string.restype = ctypes.c_char_p
+    lib.repro_transpose.argtypes = [_P, _P, _LL, _I, _I, _I, _P]
+    lib.repro_transpose.restype = _I
     return lib
 
 
@@ -388,6 +445,66 @@ def fft_c2c_axis1(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
                       twiddle, inverse, radices, per_block)
 
 
+def fft_c2c_mul(x: torch.Tensor, bank: torch.Tensor, *,
+                inverse: bool = False,
+                radices: tuple[int, ...] = DEFAULT_RADICES,
+                per_block: int) -> torch.Tensor:
+    """Batched pow2 C2C FFT of a (B, N) tensor times every row of a (T, N)
+    complex64 bank -> (B, T, N), ``per_block`` transforms per thread
+    block."""
+    _check(x, 2, "fft_c2c_mul")
+    b, n = x.shape
+    if (bank.dtype != torch.complex64 or bank.ndim != 2
+            or bank.shape[1] != n or bank.shape[0] < 1
+            or not bank.is_contiguous() or bank.device != x.device):
+        raise ValueError(f"filter bank must be a contiguous complex64 "
+                         f"(T, {n}) tensor on {x.device}, got "
+                         f"{tuple(bank.shape)} {bank.dtype} on {bank.device}")
+    if x.device.type == "cpu":
+        return fft_c2c_mul_plain(x, bank, inverse=inverse, radices=radices)
+    t = bank.shape[0]
+    y = torch.empty((b, t, n), dtype=x.dtype, device=x.device)
+    if b == 0:
+        return y
+    sched, dr, di, twr, twi = _schedule_args(n, radices, inverse, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _library().repro_fft_c2c_mul(
+            x.data_ptr(), y.data_ptr(), b, n, per_block, t, bank.data_ptr(),
+            sched.ctypes.data, len(sched), int(inverse), dr.ctypes.data,
+            di.ctypes.data, twr.data_ptr(), twi.data_ptr(), stream)
+    _raise_on(err, "fft_c2c_mul", _library())
+    return y
+
+
+def transpose(x: torch.Tensor) -> torch.Tensor:
+    """(B, R, C) -> (B, C, R) of any dtype of 4, 8 or 16 bytes (kept)."""
+    if x.ndim != 3 or not x.is_contiguous():
+        raise ValueError(f"transpose takes a contiguous 3-D tensor, got "
+                         f"{tuple(x.shape)} (contiguous "
+                         f"{x.is_contiguous()})")
+    size = x.element_size()
+    if size not in (4, 8, 16):
+        raise ValueError(f"transpose moves 4-, 8- or 16-byte elements, got "
+                         f"{x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"transpose: no kernel for device {x.device}")
+    if x.device.type == "cpu":
+        return transpose_plain(x)
+    if x.data_ptr() % size:
+        raise ValueError(f"transpose: the input must be {size}-byte aligned")
+    b, r, c = x.shape
+    y = torch.empty((b, c, r), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _transpose_library().repro_transpose(
+            x.data_ptr(), y.data_ptr(), b, r, c, size, stream)
+    _raise_on(err, "transpose", _transpose_library())
+    return y
+
+
 def _launch_2d(name: str, fn, x: torch.Tensor, y: torch.Tensor,
                twiddle: torch.Tensor | None, inverse: bool,
                radices: tuple[int, ...], per_block: int) -> torch.Tensor:
@@ -407,10 +524,10 @@ def _launch_2d(name: str, fn, x: torch.Tensor, y: torch.Tensor,
     return y
 
 
-def _check_real(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
-        raise ValueError(f"{what} takes a contiguous 2-D float32 tensor, "
-                         f"got {tuple(x.shape)} {x.dtype}")
+def _check_real(x: torch.Tensor, what: str, ndim: int = 2) -> None:
+    if x.dtype != torch.float32 or x.ndim != ndim or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous {ndim}-D float32 "
+                         f"tensor, got {tuple(x.shape)} {x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if x.device.type == "cuda" and x.data_ptr() % 8:
@@ -434,6 +551,32 @@ def fft_r2c(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
         return y
     return _launch_real("fft_r2c", _real_library().repro_fft_r2c, x, y, n,
                         radices, False, per_block)
+
+
+def fft_r2c_t(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
+              per_block: int) -> torch.Tensor:
+    """Packed R2C of each row of a (B, R, C) float32 tensor, written
+    transposed to (B, C/2+1, R) complex64, ``per_block`` rows per thread
+    block."""
+    _check_real(x, "fft_r2c_t", ndim=3)
+    b, r, c = x.shape
+    m = _real_length(c)
+    if x.device.type == "cpu":
+        return fft_r2c_t_plain(x, radices=radices)
+    y = torch.empty((b, m + 1, r), dtype=torch.complex64, device=x.device)
+    if b * r == 0:
+        return y
+    sched, dr, di, twr, twi = _schedule_args(m, radices, False, x.device)
+    sw = _split_factors(c, x.device, torch.complex64)
+    lib = _real_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_fft_r2c_t(
+            x.data_ptr(), y.data_ptr(), b, r, c, per_block,
+            sched.ctypes.data, len(sched), dr.ctypes.data, di.ctypes.data,
+            twr.data_ptr(), twi.data_ptr(), sw.data_ptr(), stream)
+    _raise_on(err, "fft_r2c_t", lib)
+    return y
 
 
 def fft_c2r(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,

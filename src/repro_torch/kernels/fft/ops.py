@@ -1,17 +1,20 @@
 """Public wrappers for the fused mixed-radix Stockham FFT kernels.
 
-The counterparts of ``repro.kernels.fft.ops``'s C2C, R2C and C2R entry
-points, with the same ledger names (``fft-c2c``, ``fft-c2c-t``,
-``fft-c2c-axis1``, ``fft-r2c``, ``fft-c2r``), the same logical ``shape``
-and the same ``bytes_moved`` formulas, except that the reference counts
-its padded batch where the port counts the batch itself.  ``grid`` and
-``tile`` describe the CUDA launch (thread blocks; transforms per block
-and transform length), not a VMEM tile, and there is no padding: the
-kernels mask a ragged batch themselves.
+The counterparts of ``repro.kernels.fft.ops``'s entry points, with the
+same ledger names (``fft-c2c``, ``fft-c2c-t``, ``fft-c2c-axis1``,
+``fft-c2c-mul``, ``fft-r2c``, ``fft-r2c-t``, ``fft-c2r``,
+``transpose``), the same logical ``shape`` and the same ``bytes_moved``
+formulas, except that the reference counts its padded batch where the
+port counts the batch itself.  ``grid`` and ``tile`` describe the CUDA
+launch (thread blocks; transforms per block and transform length, or the
+transpose's square tile), not a VMEM tile, and there is no padding: the
+kernels mask a ragged batch or edge themselves.
 
 Complex input is cast to complex64 and real input to float32 (wider
-types included, as the reference's wrappers do); each runs on its own
-device: the plain torch version on the CPU, the CUDA kernel on the card.
+types included, as the reference's wrappers do) — except by the
+transpose, which keeps the dtype, as the reference's does.  Each runs on
+its own device: the plain torch version on the CPU, the CUDA kernel on
+the card.
 """
 from __future__ import annotations
 
@@ -125,6 +128,50 @@ def fft_kernel_c2c_axis1(x: torch.Tensor, *, twiddle=None,
     return y.reshape(*lead, r, c)
 
 
+def fft_kernel_c2c_mul(x: torch.Tensor, bank, *, inverse: bool = False,
+                       radices: tuple[int, ...] = DEFAULT_RADICES,
+                       tile_b: int | None = None) -> torch.Tensor:
+    """Fused pow2 C2C FFT + (T, N) filter-bank multiply epilogue.
+
+    (..., N) in -> (..., T, N) out with out[..., t, :] = FFT(x) * bank[t].
+    ``bank`` is a (T, N) complex array or tensor (the cached filter
+    spectra of ``repro_torch.fft.convolve``, already on the device).
+    """
+    x = _complex64(x)
+    n = x.shape[-1]
+    _check_kernel_length(n)
+    bank = _twiddle(bank, x.device)
+    if bank.ndim != 2 or bank.shape[-1] != n:
+        raise ValueError(f"filter bank must be (T, {n}), got "
+                         f"{tuple(bank.shape)}")
+    t = bank.shape[0]
+    lead = x.shape[:-1]
+    b = _batch(x.shape, 1)
+    tile = fft_kernel.transforms_per_block(n, b, tile_b)
+    y = fft_kernel.fft_c2c_mul(x.reshape(b, n), bank, inverse=inverse,
+                               radices=radices, per_block=tile)
+    record_launch("fft-c2c-mul", grid=(fft_kernel.blocks(b, tile),),
+                  tile=(tile, n), bytes_moved=8 * n * (b + t + b * t),
+                  shape=(b, t, n))
+    return y.reshape(*lead, t, n)
+
+
+def transpose_kernel(x: torch.Tensor) -> torch.Tensor:
+    """Tiled last-two-axes transpose: (..., R, C) -> (..., C, R), one pass,
+    in the input's dtype (4-, 8- or 16-byte elements)."""
+    x = x.resolve_conj().resolve_neg().contiguous()
+    r, c = x.shape[-2:]
+    lead = x.shape[:-2]
+    b = _batch(x.shape, 2)
+    y = fft_kernel.transpose(x.reshape(b, r, c))
+    tile = fft_kernel.TRANSPOSE_TILE
+    record_launch("transpose", grid=(fft_kernel.transpose_blocks(b, r, c),),
+                  tile=(tile, tile),
+                  bytes_moved=2 * b * r * c * x.element_size(),
+                  shape=(b, r, c))
+    return y.reshape(*lead, c, r)
+
+
 def _real32(x: torch.Tensor) -> torch.Tensor:
     """Contiguous float32 (the real part of complex input), 8-byte
     aligned: the kernel reads pairs of reals as one float2."""
@@ -157,6 +204,29 @@ def fft_kernel_r2c(x: torch.Tensor, *,
                   tile=(tile, n), bytes_moved=4 * b * (n + 2 * (n // 2 + 1)),
                   shape=(b, n))
     return y.reshape(*lead, n // 2 + 1)
+
+
+def fft_kernel_r2c_t(x: torch.Tensor, *,
+                     radices: tuple[int, ...] = DEFAULT_RADICES,
+                     tile_b: int | None = None) -> torch.Tensor:
+    """Fused R2C + transposed write: (..., R, C) real -> (..., C/2+1, R)
+    complex64, pow2 4 <= C <= 2 * MAX_KERNEL_N; ``tile_b`` overrides the
+    rows per thread block."""
+    x = _real32(x)
+    r, c = x.shape[-2:]
+    _check_kernel_length(max(c // 2, 1))
+    if c < 4:
+        raise ValueError(f"fused R2C needs C >= 4, got {c}")
+    lead = x.shape[:-2]
+    b = _batch(x.shape, 2)
+    tile = fft_kernel.transforms_per_block(c // 2, r, tile_b)
+    y = fft_kernel.fft_r2c_t(x.reshape(b, r, c), radices=radices,
+                             per_block=tile)
+    record_launch("fft-r2c-t", grid=(fft_kernel.blocks(r, tile, b),),
+                  tile=(tile, c),
+                  bytes_moved=4 * b * r * (c + 2 * (c // 2 + 1)),
+                  shape=(b, r, c))
+    return y.reshape(*lead, c // 2 + 1, r)
 
 
 def fft_kernel_c2r(x: torch.Tensor, *,

@@ -1,31 +1,37 @@
 """Plan + frequency-sweep cache: plan and sweep once per shape (the
-counterpart of ``repro.serving.cache`` for 1-D C2C and R2C requests).
+counterpart of ``repro.serving.cache`` for FFT and FDAS requests).
 
-The two expensive per-shape artefacts of the paper's method are the FFT
-plan (``repro_torch.fft.plan``) and the DVFS frequency sweep over the
-device clock grid (``repro_torch.core.dvfs``) that yields the
-minimum-energy operating point (Sec. 4).  Both depend only on (kind,
-length, precision, transform, device), so the service computes them once
-per distinct shape; differing real-time budgets re-select an operating
-point from the cached sweep without re-sweeping.
+The two expensive per-shape artefacts of the paper's method are the plan
+(``repro_torch.fft.plan``, the N-D plan graph ``repro_torch.fft.plan_nd``,
+or the FDAS search's overlap-save plan) and the DVFS frequency sweep over
+the device clock grid (``repro_torch.core.dvfs``) that yields the
+minimum-energy operating point (Sec. 4).  Both depend only on the shape
+key, so the service computes them once per distinct key; differing
+real-time budgets re-select an operating point from the cached sweep
+without re-sweeping.
 
-``plan_fn`` / ``sweep_fn`` are injectable so tests can count invocations.
-The port runs eagerly, so an entry's ``fn`` is the plan's own function:
-nothing is compiled.
+``plan_fn`` / ``sweep_fn`` are injectable so tests can count invocations
+(``plan_fn`` builds the 1-D plans; N-D keys go through ``plan_nd``, as in
+the reference).  The port runs eagerly, so an entry's ``fn`` is the plan's
+own function: nothing is compiled.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 from repro_torch.core import dvfs
 from repro_torch.core.energy import OperatingPoint, guarded_ratio
 from repro_torch.core.hardware import DeviceSpec
 from repro_torch.core.perf_model import WorkloadProfile
 from repro_torch.core.power_model import PowerModel
-from repro_torch.core.workloads import FFTCase, fft_workload
+from repro_torch.core.workloads import (ConvCase, FFTCase,
+                                        fdas_total_profile, fft_workload)
 from repro_torch.fft.plan import FFTPlan, plan_for_length
-from repro_torch.serving.request import ShapeKey
+from repro_torch.fft.plan_nd import plan_nd
+from repro_torch.search.fdas import fdas_search, serving_candidates
+from repro_torch.search.templates import TemplateBank
+from repro_torch.serving.request import KIND_FDAS, ShapeKey
 from repro_torch.tune.context import plan_config
 
 
@@ -48,7 +54,7 @@ class CacheEntry:
     """Everything the executor needs for one shape."""
 
     key: ShapeKey
-    plan: FFTPlan
+    plan: Any                   # FFTPlan; NDPlan for N-D; ConvPlan for FDAS
     fn: Callable                # the plan's function for the shape
     profile: WorkloadProfile    # analytic workload model of one full batch
     sweep: dvfs.SweepResult     # full clock-grid sweep for ``profile``
@@ -98,8 +104,12 @@ class PlanSweepCache:
 
     @staticmethod
     def _tuned_config(key: ShapeKey):
-        """The tuned config this key's plan build will resolve to."""
-        return plan_config((key.n,), key.transform)
+        """The tuned config this key's plan build will resolve to (None
+        for FDAS keys: their segment is part of the key, or the cost
+        model's)."""
+        if key.kind == KIND_FDAS:
+            return None
+        return plan_config(key.shape or (key.n,), key.transform)
 
     def entry(self, key: ShapeKey) -> CacheEntry:
         cache_key = (key, self._tuned_config(key))
@@ -118,13 +128,51 @@ class PlanSweepCache:
 
     def _build(self, key: ShapeKey) -> CacheEntry:
         self.stats.plan_builds += 1
-        plan = (self._plan_fn(key.n) if key.transform == "c2c"
-                else self._plan_fn(key.n, key.transform))
-        case = FFTCase(n=key.n, precision=key.precision,
-                       batch_bytes=self.batch_bytes,
-                       transform=key.transform)
-        profile = fft_workload(case, self.device)
+        if key.kind == KIND_FDAS:
+            plan, fn, profile, n_fft = self._build_fdas(key)
+        else:
+            plan, fn, profile, n_fft = self._build_fft(key)
         self.stats.sweeps += 1
         sweep = self._sweep_fn(profile, self.device, self._power_model)
-        return CacheEntry(key=key, plan=plan, fn=plan.fn, profile=profile,
-                          sweep=sweep, n_fft_model=case.n_fft)
+        return CacheEntry(key=key, plan=plan, fn=fn, profile=profile,
+                          sweep=sweep, n_fft_model=n_fft)
+
+    def _build_fft(self, key: ShapeKey):
+        if key.shape:
+            # N-D shapes are first-class: one plan graph (fused
+            # transpose-write passes) + one sweep per distinct shape.
+            plan = plan_nd(key.shape, key.transform)
+        elif key.transform == "c2c":
+            plan = self._plan_fn(key.n)
+        else:
+            plan = self._plan_fn(key.n, key.transform)
+        case = FFTCase(n=0 if key.shape else key.n, precision=key.precision,
+                       batch_bytes=self.batch_bytes,
+                       transform=key.transform, shape=key.shape or None)
+        return plan, plan.fn, fft_workload(case, self.device), case.n_fft
+
+    def _build_fdas(self, key: ShapeKey):
+        """Acceleration-search entries: one template bank, one overlap-save
+        plan and one sweep per (n, segment, templates) key.  The bank's
+        filter spectra are cached process-wide (``fft.convolve``)."""
+        n = key.n
+        bank = _fdas_bank(key.templates)
+        case = ConvCase(n=n // 2 + 1, templates=key.templates,
+                        taps=bank.taps, nfft=key.segment,
+                        precision=key.precision,
+                        batch_bytes=self.batch_bytes)
+        profile = fdas_total_profile(case, self.device, series_n=n)
+        nfft = key.segment or None
+
+        def fn(x, _bank=bank, _nfft=nfft):
+            return serving_candidates(fdas_search(x, _bank, nfft=_nfft))
+
+        # Per-transform receipts divide by the row count the swept profile
+        # models: ConvCase.n_rows (real half-spectrum rows).
+        return case.plan, fn, profile, case.n_rows
+
+
+def _fdas_bank(templates: int) -> TemplateBank:
+    """The linear bank a ``templates``-wide FDAS key searches with."""
+    return TemplateBank.linear(zmax=max((templates - 1) / 2.0, 0.0),
+                               n_templates=templates)

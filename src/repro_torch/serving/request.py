@@ -1,31 +1,33 @@
 """Request and receipt types for the energy-aware FFT service.
 
-The counterpart of ``repro.serving.request`` for the 1-D FFT requests this
-slice of the port serves (``KIND_FFT``, C2C and R2C).  A request is a
-batch of same-length transforms submitted by one client; a receipt is
-everything the paper would report about serving it: which clock it ran
-at, its modelled energy (Eqs. 3-4), and its measured queue + service
-latency.
+The counterpart of ``repro.serving.request`` for the requests the port
+serves: ``KIND_FFT`` (1-D and N-D, C2C and R2C) and ``KIND_FDAS`` (the
+acceleration search).  A request is a batch of same-shape transforms
+submitted by one client; a receipt is everything the paper would report
+about serving it: which clock it ran at, its modelled energy (Eqs. 3-4),
+and its measured queue + service latency.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.core.workloads import COMPLEX_BYTES, is_pow2
+from repro_torch.core.workloads import COMPLEX_BYTES
+from repro_torch.fft.radix import is_pow2
 
 _REQUEST_IDS = itertools.count()
 
-#: The request kind this slice serves: batched 1-D transforms.
-KIND_FFT = "fft"
+#: Request kinds the service understands.
+KIND_FFT = "fft"            # batched 1-D or N-D transforms
+KIND_FDAS = "fdas"          # Fourier-domain acceleration search
 
 #: Request kinds of the reference that later slices of the port bring.
-_LATER_KINDS = {"fdas": "the overlap-save/FDAS slice",
-                "pulsar": "the pulsar-pipeline slice"}
+_LATER_KINDS = {"pulsar": "the pulsar-pipeline slice"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +36,11 @@ class ShapeKey:
 
     The latency budget is deliberately NOT part of the key: budgets only
     re-select a point from the cached sweep
-    (``SweepResult.optimal_under_budget``).
+    (``SweepResult.optimal_under_budget``).  ``shape`` is () for 1-D
+    transforms and the transform-axes lengths otherwise, so a 2-D key and
+    a 1-D key of the same total points are distinct entries; ``n`` is
+    always the total points per transform.  FDAS keys carry the bank size
+    and the overlap-save segment (0 = auto).
     """
 
     kind: str
@@ -42,14 +48,23 @@ class ShapeKey:
     precision: str
     device: str = ""
     transform: str = "c2c"          # "c2c" | "r2c": distinct plans + sweeps
+    shape: tuple[int, ...] = ()     # N-D transform-axes lengths; () for 1-D
+    templates: int = 0              # fdas: acceleration-bank size
+    segment: int = 0                # fdas: overlap-save nfft (0 = auto)
+
+    @property
+    def last_axis(self) -> int:
+        """The axis length R2C packing applies to (the last transform axis)."""
+        return self.shape[-1] if self.shape else self.n
 
     @property
     def elem_bytes(self) -> int:
         """Per-point device bytes of this shape's payload: real (half) for
-        pow2 R2C, complex otherwise (non-pow2 r2c runs the full C2C plan).
-        In lockstep with ``core.workloads.FFTCase.elem_bytes``."""
+        pow2 R2C along the last transform axis, complex otherwise (non-pow2
+        r2c runs the full C2C plan).  In lockstep with
+        ``core.workloads.FFTCase.elem_bytes``."""
         full = COMPLEX_BYTES[self.precision]
-        if self.transform == "r2c" and is_pow2(self.n):
+        if self.transform == "r2c" and is_pow2(self.last_axis):
             return full // 2
         return full
 
@@ -58,7 +73,10 @@ class ShapeKey:
 class FFTRequest:
     """One client submission: ``x`` rows are independent transforms.
 
-    ``x`` is a (batch, n) or (n,) numpy array or torch tensor.
+    ``x`` is a numpy array or torch tensor: (batch, *shape) or (*shape,)
+    with ``ndim`` transform axes (1 for the paper's 1-D workload, 2+ for
+    N-D transforms through the plan graph).  FDAS requests carry real
+    (batch, n) time series and the bank size ``templates``.
     """
 
     x: Any
@@ -67,6 +85,8 @@ class FFTRequest:
     latency_budget: float | None = None  # max tolerable slowdown vs boost
     transform: str = "c2c"               # "c2c" or "r2c" (real payloads)
     ndim: int = 1                        # transform rank
+    templates: int = 16                  # fdas kind only: bank size
+    segment: int = 0                     # fdas kind only: nfft (0 = auto)
     request_id: int = dataclasses.field(
         default_factory=lambda: next(_REQUEST_IDS))
     t_enqueue: float = 0.0               # stamped by the service
@@ -82,33 +102,42 @@ class FFTRequest:
             raise NotImplementedError(
                 f"{self.kind!r} requests arrive with "
                 f"{_LATER_KINDS[self.kind]} of the port")
-        if self.kind != KIND_FFT:
+        if self.kind not in (KIND_FFT, KIND_FDAS):
             raise ValueError(f"unknown request kind {self.kind!r}")
+        if self.kind == KIND_FDAS and self.templates < 1:
+            raise ValueError(
+                f"{self.kind} requests need templates >= 1, "
+                f"got {self.templates}")
         if self.transform not in ("c2c", "r2c"):
             raise ValueError(f"unknown transform {self.transform!r}; "
                              "have ('c2c', 'r2c')")
         if self.ndim < 1:
             raise ValueError(f"transform rank must be >= 1, got {self.ndim}")
-        if self.ndim > 1:
-            raise NotImplementedError(
-                "N-D requests arrive with the N-D plan-graph slice of the "
-                "port")
+        if self.ndim > 1 and self.kind != KIND_FFT:
+            raise ValueError("N-D payloads are FFT requests only")
         # Reject malformed payloads at submit time so one bad request can
         # never poison a whole serving cycle.
-        if self.x.ndim not in (1, 2) or any(d < 1 for d in self.x.shape):
+        if (self.x.ndim not in (self.ndim, self.ndim + 1)
+                or any(d < 1 for d in self.x.shape)):
             raise ValueError(
-                f"payload must be (batch, n) or (n,) with positive dims; "
+                f"rank-{self.ndim} payload must be (batch, *shape) or "
+                f"(*shape,) with positive dims; "
                 f"got shape {tuple(self.x.shape)}")
 
     @property
+    def shape(self) -> tuple[int, ...]:
+        """Transform-axes lengths (the trailing ``ndim`` payload dims)."""
+        return tuple(int(d) for d in self.x.shape[-self.ndim:])
+
+    @property
     def n(self) -> int:
-        """Points per transform."""
-        return int(self.x.shape[-1])
+        """Total points per transform (product over the transform axes)."""
+        return math.prod(self.shape)
 
     @property
     def batch(self) -> int:
         """Number of independent transforms in this request."""
-        return int(self.x.shape[0]) if self.x.ndim == 2 else 1
+        return int(self.x.shape[0]) if self.x.ndim == self.ndim + 1 else 1
 
     @property
     def bytes(self) -> int:
@@ -117,8 +146,14 @@ class FFTRequest:
         return self.batch * self.n * self.shape_key("").elem_bytes
 
     def shape_key(self, device_name: str) -> ShapeKey:
+        """FDAS keys carry (n, segment, templates): distinct banks or
+        segment lengths plan and sweep separately."""
+        fdas = self.kind == KIND_FDAS
         return ShapeKey(kind=self.kind, n=self.n, precision=self.precision,
-                        device=device_name, transform=self.transform)
+                        device=device_name, transform=self.transform,
+                        shape=self.shape if self.ndim > 1 else (),
+                        templates=self.templates if fdas else 0,
+                        segment=self.segment if fdas else 0)
 
 
 @dataclasses.dataclass

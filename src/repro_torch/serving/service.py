@@ -1,12 +1,14 @@
 """The energy-aware streaming FFT service, on the card.
 
-The counterpart of ``repro.serving.service`` for 1-D C2C and R2C requests
-(``KIND_FFT``).  Request lifecycle:
+The counterpart of ``repro.serving.service`` for ``KIND_FFT`` requests
+(1-D and N-D, C2C and R2C) and ``KIND_FDAS`` requests (the acceleration
+search, answered with its packed candidates).  Request lifecycle:
 
   enqueue      submit() stamps arrival time and parks the request
   batch        drain() coalesces pending requests into Eq. 6-sized batches
-  plan-cache   each batch's shape hits the plan + sweep cache (one FFT plan
-               and one DVFS sweep per distinct shape, ever)
+  plan-cache   each batch's shape hits the plan + sweep cache (one plan
+               — 1-D, N-D plan graph or FDAS search — and one DVFS sweep
+               per distinct shape, ever)
   clock-plan   the batch's operating point is selected from the cached
                sweep under the strictest per-request real-time budget
   execute      the batch is stacked on the device the work-stealing
@@ -41,7 +43,8 @@ from repro_torch.obs.metrics import latency_summary
 from repro_torch.serving.batcher import Batch, coalesce
 from repro_torch.serving.cache import CacheEntry, CacheStats, PlanSweepCache
 from repro_torch.serving.dispatch import Dispatcher
-from repro_torch.serving.request import KIND_FFT, FFTRequest, RequestReceipt
+from repro_torch.serving.request import (KIND_FDAS, KIND_FFT, FFTRequest,
+                                         RequestReceipt)
 
 _EXEC_DTYPE = {"fp16": np.complex64, "fp32": np.complex64,
                "fp64": np.complex128}
@@ -150,17 +153,26 @@ class FFTService:
 
     def submit(self, x: Any, *, precision: str = "fp32",
                kind: str = KIND_FFT, latency_budget: float | None = None,
-               transform: str = "c2c", ndim: int = 1) -> FFTRequest:
-        """Enqueue one request (a (batch, n) or (n,) array or tensor).
+               transform: str = "c2c", ndim: int = 1, templates: int = 16,
+               segment: int = 0) -> FFTRequest:
+        """Enqueue one request (a (batch, *shape) or (*shape,) array or
+        tensor).
 
         ``transform="r2c"`` serves real payloads through the R2C plan —
-        half the energy per transform at the same length (Eq. 5/6).  The
-        request's receipt becomes available after the next drain():
+        half the energy per transform at the same length (Eq. 5/6).
+        ``ndim=2`` serves 2-D transforms through the N-D plan graph (one
+        fused kernel pass per pow2 axis), with their own plan + sweep
+        cache entries.  ``kind="fdas"`` runs the acceleration search
+        (``repro_torch.search``) on real time series; ``templates`` sizes
+        the bank and ``segment`` pins the overlap-save FFT length (0 =
+        cost-model auto-selection), and both are part of the cache key.
+        The result of an FDAS request is its (batch, k, 3) candidates.
+        The request's receipt becomes available after the next drain():
         ``service.receipt(request)``.
         """
         req = FFTRequest(x=x, precision=precision, kind=kind,
                          latency_budget=latency_budget, transform=transform,
-                         ndim=ndim)
+                         ndim=ndim, templates=templates, segment=segment)
         req.t_enqueue = self._timer()
         self._pending.append(req)
         return req
@@ -204,24 +216,30 @@ class FFTService:
                 if r.request_id in self._receipts]   # cap may have evicted
 
     def _stack(self, batch: Batch, device: torch.device) -> torch.Tensor:
-        """The batch's payloads as one tensor on ``device`` at the execution
-        dtype.  Numpy payloads are stacked on the host and copied once;
-        tensor payloads are stacked on ``device`` and never visit the
-        host."""
-        r2c = batch.key.transform == "r2c"
-        dtype = (_REAL_EXEC_DTYPE if r2c else _EXEC_DTYPE)[batch.key.precision]
+        """The batch's payloads as one (rows, *shape) tensor on ``device``
+        at the execution dtype.  Numpy payloads are stacked on the host
+        and copied once; tensor payloads are stacked on ``device`` and
+        never visit the host.  R2C payloads and FDAS time series execute
+        real (FDAS in float32, as the reference)."""
+        key = batch.key
+        real = key.transform == "r2c" or key.kind == KIND_FDAS
+        if key.kind == KIND_FDAS:
+            dtype = np.float32
+        else:
+            dtype = (_REAL_EXEC_DTYPE if real else _EXEC_DTYPE)[key.precision]
+        shape = key.shape or (key.n,)
         xs = [r.x for r in batch.requests]
         if not any(isinstance(x, torch.Tensor) for x in xs):
-            rows = [np.atleast_2d(np.asarray(x)) for x in xs]
+            rows = [np.asarray(x).reshape(-1, *shape) for x in xs]
             x = np.concatenate(rows, axis=0) if len(rows) > 1 else rows[0]
-            if r2c:
+            if real:
                 x = x.real
             return torch.from_numpy(
                 np.ascontiguousarray(x, dtype=dtype)).to(device)
-        rows = [torch.atleast_2d(torch.as_tensor(x, device=device))
+        rows = [torch.as_tensor(x, device=device).reshape(-1, *shape)
                 for x in xs]
         x = torch.cat(rows) if len(rows) > 1 else rows[0]
-        if r2c and x.is_complex():
+        if real and x.is_complex():
             x = x.real
         return x.to(_TORCH_DTYPE[dtype]).resolve_conj().contiguous()
 

@@ -12,8 +12,7 @@ Configs are frozen/hashable so plan builders can key their memoisation on
 them.  :class:`ConfigKey` identifies what a config was tuned *for*:
 ``(device, shape, kind, dtype)`` — the same axes the paper sweeps clocks
 per (device, length, precision).  The overlap-save ``segment`` axis and
-the persisted tuning records come with the convolution and autotuner
-slices of the port.
+the persisted tuning records come with the autotuner slice of the port.
 """
 from __future__ import annotations
 

@@ -172,3 +172,129 @@ def test_service_stacks_tensor_payloads_on_the_card(gen):
         r = svc.receipt(req)
         assert r.result.device.type == "cuda"
         assert _rel(r.result, torch.fft.rfft(x)) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radices", ((4, 2), (8, 4, 2)))
+@pytest.mark.parametrize("c,rows", [(4, 1001), (64, 1001), (1024, 37),
+                                    (8192, 13), (16384, 5)])
+def test_r2c_t_kernel_matches_plain_on_the_card(gen, c, rows, radices):
+    """Ragged row counts against every block size, up to C = 2**14."""
+    x = _real(gen, 3, rows, c)
+    y = ops.fft_kernel_r2c_t(x, radices=radices)
+    assert tuple(y.shape) == (3, c // 2 + 1, rows)
+    assert _rel(y, K.fft_r2c_t_plain(x, radices=radices)) <= RTOL
+    assert _rel(y, torch.fft.rfft(x, dim=-1).transpose(1, 2)) <= 2e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_r2c_t_input_at_an_odd_offset(gen):
+    """A float32 slice at an odd element offset: the kernel function
+    refuses it, the wrapper copies it."""
+    flat = _real(gen, 2 * 7 * 256 + 1)
+    x = flat[1:].reshape(2, 7, 256)
+    assert x.is_contiguous() and x.data_ptr() % 8
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        K.fft_r2c_t(x, per_block=1)
+    y = ops.fft_kernel_r2c_t(x)
+    assert _rel(y, torch.fft.rfft(x, dim=-1).transpose(1, 2)) <= 2e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128))
+@pytest.mark.parametrize("shape", [(3, 37, 45), (2, 1, 100), (2, 100, 1),
+                                   (1, 1000, 33), (4, 64, 64)])
+def test_transpose_kernel_handles_ragged_edges(gen, dtype, shape):
+    """Every element width (4, 8, 16 bytes), edges that no 32 x 32 tile
+    divides: the kernel moves the exact bits of the plain version."""
+    x = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    if dtype.is_complex:
+        x = x + 1j * torch.randn(*shape, device="cuda", generator=gen)
+    y = ops.transpose_kernel(x)
+    assert y.dtype == dtype and tuple(y.shape) == (shape[0], shape[2],
+                                                   shape[1])
+    assert torch.equal(y, K.transpose_plain(x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", (False, True))
+@pytest.mark.parametrize("n,templates,rows", [(2048, 85, 37), (64, 1, 1001),
+                                              (8192, 9, 5), (256, 9, 301)])
+def test_c2c_mul_kernel_matches_plain_on_the_card(gen, n, templates, rows,
+                                                  inverse):
+    """(2048, 85) is the FDAS bank: 1.39 MB, more than one block's shared
+    memory; the kernel streams it from global memory."""
+    x = _rand(gen, rows, n)
+    bank = _rand(gen, templates, n)
+    if n == 2048:
+        assert bank.numel() * 8 > K.MAX_SHARED_BYTES
+    y = ops.fft_kernel_c2c_mul(x, bank, inverse=inverse)
+    assert tuple(y.shape) == (rows, templates, n)
+    assert _rel(y, K.fft_c2c_mul_plain(x, bank, inverse=inverse)) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kind,expected", [
+    ((64, 128), "c2c", {"fft_c2c_t": 2}),
+    ((64, 128), "r2c", {"fft_r2c_t": 1, "fft_c2c_t": 1}),
+    ((8, 16, 32), "c2c", {"fft_c2c_t": 3}),
+    ((12, 32), "c2c", {"fft_c2c_t": 1, "fft_c2c": 2, "transpose": 1}),
+    ((64, 1), "r2c", {"transpose": 1, "fft_c2c_t": 1}),
+])
+def test_nd_plans_launch_the_kernels(gen, shape, kind, expected):
+    from repro_torch.fft.plan_nd import plan_nd
+    x = (_rand(gen, 3, *shape) if kind == "c2c"
+         else _real(gen, 3, *shape))
+    dims = tuple(range(1, len(shape) + 1))
+    K.reset_launches()
+    y = plan_nd(shape, kind)(x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == expected
+    ref = (torch.fft.fftn(x, dim=dims) if kind == "c2c"
+           else torch.fft.rfftn(x, dim=dims))
+    bluestein = any(n & (n - 1) for n in shape)
+    assert _rel(y, ref) <= (1e-4 if bluestein else 2e-5)
+
+
+@pytest.mark.cuda
+def test_fdas_plane_launches_one_mul_and_one_inverse(gen):
+    from repro_torch.search import TemplateBank, matched_filter_plane
+    bank = TemplateBank.linear(zmax=4, n_templates=9)
+    spec = _rand(gen, 2, 5000)
+    K.reset_launches()
+    got = matched_filter_plane(spec, bank)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "fft_c2c_mul": 1, "fft_c2c": 1}
+    from repro_torch.fft.plan import kernels_disabled
+    with kernels_disabled():
+        want = matched_filter_plane(spec, bank)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_service_serves_2d_and_fdas_on_the_card(gen):
+    import numpy as np
+    from repro_torch.core import TESLA_V100
+    from repro_torch.search import TemplateBank, fdas_search
+    from repro_torch.serving import FFTService
+    svc = FFTService(TESLA_V100, devices=[torch.device("cuda", 0)])
+    rng = np.random.default_rng(0)
+    x2 = (rng.standard_normal((4, 256, 512))
+          + 1j * rng.standard_normal((4, 256, 512))).astype(np.complex64)
+    xf = rng.standard_normal((2, 8192)).astype(np.float32)
+    r2 = svc.submit(x2, ndim=2)
+    rf = svc.submit(xf, kind="fdas", templates=9)
+    svc.drain()
+    got = svc.receipt(r2).result
+    assert _rel(got, torch.fft.fft2(torch.from_numpy(x2).cuda())) <= 2e-5
+    bank = TemplateBank.linear(zmax=4, n_templates=9)
+    want = fdas_search(torch.from_numpy(xf).cuda(), bank)
+    cands = svc.receipt(rf).result
+    assert cands.shape == (2, 16, 3)
+    assert torch.equal(cands[..., 2], want.candidates.power)

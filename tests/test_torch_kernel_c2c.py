@@ -73,8 +73,9 @@ def test_plain_versions_never_count_launches():
     x = torch.from_numpy(rand_complex(2, (3, 64)))
     port_ops.fft_kernel_c2c(x)
     assert fft_kernel.LAUNCHES == {"fft_c2c": 0, "fft_c2c_t": 0,
-                                   "fft_c2c_axis1": 0, "fft_r2c": 0,
-                                   "fft_c2r": 0}
+                                   "fft_c2c_axis1": 0, "fft_c2c_mul": 0,
+                                   "fft_r2c": 0, "fft_r2c_t": 0,
+                                   "fft_c2r": 0, "transpose": 0}
 
 
 @pytest.mark.parametrize("n,count,tile,blocks", [
