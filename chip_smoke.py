@@ -9,16 +9,19 @@ CUDA toolkit (``nvcc``) and PyTorch built for CUDA:
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. build every CUDA kernel of the port from ``src/repro_torch/csrc``
-     (the three libraries ``fft_c2c``, ``fft_real`` and ``transpose``,
-     one ``nvcc`` each, in parallel);
+     (the six libraries ``fft_c2c``, ``fft_real``, ``transpose``,
+     ``dedisp``, ``harmonic_sum`` and ``spectrum``, one ``nvcc`` each, in
+     parallel);
   2. print the card's name and power limit (``nvidia-smi``);
   3. hold each kernel (the C2C variants: fft_c2c, fft_c2c_t with and
      without twiddle, fft_c2c_axis1 with and without twiddle, forward and
-     inverse; fft_r2c, fft_c2r; fft_r2c_t, transpose and fft_c2c_mul)
-     against its plain torch version on the card, at small shapes and at
-     the shapes the main path gives it; time the kernel, the plain
-     version and, where one call computes the same function, that
-     PyTorch call;
+     inverse; fft_r2c, fft_c2r; fft_r2c_t, transpose and fft_c2c_mul;
+     dedisperse, harmonic_sum_plane, harmonic_sum and
+     power_spectrum_stats) against its plain torch version on the card,
+     at small, ragged shapes and at the shapes the main paths give it;
+     time the kernel, the plain version and, where one call computes the
+     same function, that PyTorch call (else the nearest torch
+     composition);
   4. drive the main path — ``plan_for_length(n)(x)`` on a 2 GB batch
      (``FFTCase(n).n_fft`` transforms) for n = 1024, 8192, 2**20 and
      19321 = 139**2, then ``plan_for_length(n, "r2c")`` and ``"c2r"`` on
@@ -31,11 +34,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      bank (counts set to 0 just before, read just after): recover the
      injected accelerated tone, hold one row's power plane against a
      direct ``torch.fft`` oracle, check the ledger, and time its stages;
-  6. serve two waves of C2C, R2C, rank-2 and FDAS requests through
-     ``repro_torch.serving.FFTService`` on the card (counts set to 0
-     before the phase and read after); check every result against its
-     own reference, the receipts and the plan/sweep cache;
-  7. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+  6. serve two waves of C2C, R2C, rank-2, FDAS and pulsar-search
+     requests through ``repro_torch.serving.FFTService`` on the card
+     (counts set to 0 before the phase and read after); check every
+     result against its own reference, the receipts (the pulsar ones'
+     per-stage shares and real-time margin) and the plan/sweep cache;
+  7. run ``pulsar_search`` on 2 filterbanks of 1024 channels x 2**17
+     samples with 128 DM trials, the 85-template bank and 8 harmonics
+     (counts set to 0 just before, read just after): recover the two
+     injected pulsars at their exact (DM trial, template, bin) cells, no
+     candidate on the control filterbank; check the ledger, hold
+     dedisperse and the harmonic-sum plane against their oracles, time
+     the search and its stages, and print the measured real-time margin
+     beside the V100 model's;
+  8. run the Sec. 5.3 demo ``fft.pipeline.pulsar_pipeline`` (C2C and
+     R2C) at the reference's Table 4 shape (32 x 2**20, 32 harmonics),
+     with its measured FFT share of device time beside the model's; then
+     ``power_spectrum_stats_kernel`` and ``harmonic_sum_kernel`` on the
+     same spectrum (counts set to 0 just before, read just after), held
+     against the demo's plain stages and the zero-padded oracle;
+  9. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -56,28 +74,45 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import TESLA_V100, FFTCase, fft_workload, sweep  # noqa: E402
+from repro_torch.data.synthetic import FilterbankSpec, InjectedPulsar  # noqa: E402
 from repro_torch.fft import multidim  # noqa: E402
+from repro_torch.fft import pipeline as demo  # noqa: E402
 from repro_torch.fft.convolve import device_filter_spectra  # noqa: E402
 from repro_torch.fft.plan import fft_mul, plan_for_length, pow2_fft  # noqa: E402
 from repro_torch.fft.plan_nd import plan_nd  # noqa: E402
 from repro_torch.fft.radix import (DEFAULT_RADICES,  # noqa: E402
                                    mixed_radix_flop_count, r2c_flop_count)
 from repro_torch.kernels.common import build_all  # noqa: E402
+from repro_torch.kernels.dedisp import dedisp_kernel as D  # noqa: E402
+from repro_torch.kernels.dedisp import dedisperse_kernel, dedisperse_ref  # noqa: E402
 from repro_torch.kernels.fft import fft_kernel as K  # noqa: E402
 from repro_torch.kernels.fft import ops  # noqa: E402
+from repro_torch.kernels.harmonic_sum import (harmonic_sum_kernel,  # noqa: E402
+                                              harmonic_sum_plane,
+                                              harmonic_sum_plane_ref,
+                                              harmonic_sum_ref)
+from repro_torch.kernels.harmonic_sum.ops import K as H  # noqa: E402
+from repro_torch.kernels.spectrum import power_spectrum_stats_kernel  # noqa: E402
+from repro_torch.kernels.spectrum import spectrum_kernel as S  # noqa: E402
 from repro_torch.kernels.fft.ref import fft_ref, irfft_ref, rfft_ref  # noqa: E402
 from repro_torch.obs.ledger import LaunchLedger  # noqa: E402
 from repro_torch.obs.metrics import latency_summary  # noqa: E402
-from repro_torch.search import (TemplateBank, extract_candidates,  # noqa: E402
-                                fdas_conv_plan, fdas_search, power_plane,
-                                serving_candidates)
-from repro_torch.serving import KIND_FDAS, FFTService  # noqa: E402
+from repro_torch.search import (DispersionPlan, TemplateBank,  # noqa: E402
+                                extract_candidates, fdas_conv_plan,
+                                fdas_search, matched_filter_plane,
+                                plan_pulsar_stages, power_plane,
+                                pulsar_search, serving_candidates,
+                                serving_sifted, sift_candidates)
+from repro_torch.serving import KIND_FDAS, KIND_PULSAR, FFTService  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
 #: FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
+#: Clock cycles of the spin kernel that opens each profile (about 50 ms at
+#: the H100's 1.98 GHz boost clock).
+SPIN_CYCLES = 100_000_000
 #: Kernel vs its plain version on the same inputs: both run the same f32
 #: schedule; they differ only by FMA contraction and rounding order.
 KERNEL_RTOL = 1e-5
@@ -130,9 +165,18 @@ FDAS_LEDGER = {"fft-c2c-axis1": 1, "fft-c2c-t": 1, "fft-c2c-mul": 1,
 LEDGER_TO_KERNEL = {"fft-c2c": "fft_c2c", "fft-c2c-t": "fft_c2c_t",
                     "fft-c2c-axis1": "fft_c2c_axis1", "fft-r2c": "fft_r2c",
                     "fft-c2r": "fft_c2r", "fft-r2c-t": "fft_r2c_t",
-                    "transpose": "transpose", "fft-c2c-mul": "fft_c2c_mul"}
+                    "transpose": "transpose", "fft-c2c-mul": "fft_c2c_mul",
+                    "dedisperse": "dedisperse",
+                    "harmonic-sum-plane": "harmonic_sum_plane",
+                    "harmonic-sum": "harmonic_sum",
+                    "power-spectrum-stats": "power_spectrum_stats"}
+#: The CUDA kernels' names; each is the prefix of its __global__ function
+#: (``<name>_kernel``), which names it in profiler traces.
 KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
-           "fft_r2c_t", "transpose", "fft_c2c_mul")
+           "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
+           "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
+#: The modules whose ``LAUNCHES`` count the kernels' launches.
+COUNTERS = (K, D, H, S)
 SOURCES = {
     "fft_c2c": "src/repro_torch/csrc/fft_c2c.cu",
     "fft_c2c_t": "src/repro_torch/csrc/fft_c2c.cu",
@@ -142,6 +186,10 @@ SOURCES = {
     "fft_r2c_t": "src/repro_torch/csrc/fft_real.cu",
     "transpose": "src/repro_torch/csrc/transpose.cu",
     "fft_c2c_mul": "src/repro_torch/csrc/fft_c2c.cu",
+    "dedisperse": "src/repro_torch/csrc/dedisp.cu",
+    "harmonic_sum_plane": "src/repro_torch/csrc/harmonic_sum.cu",
+    "harmonic_sum": "src/repro_torch/csrc/harmonic_sum.cu",
+    "power_spectrum_stats": "src/repro_torch/csrc/spectrum.cu",
 }
 REPLACES = {
     "fft_c2c": "src/repro/kernels/fft/fft_kernel.py:360",
@@ -152,6 +200,12 @@ REPLACES = {
     "fft_r2c_t": "src/repro/kernels/fft/fft_kernel.py:547",
     "transpose": "src/repro/kernels/fft/fft_kernel.py:577",
     "fft_c2c_mul": "src/repro/kernels/fft/fft_kernel.py:243",
+    "dedisperse": "src/repro/kernels/dedisp/dedisp_kernel.py:57",
+    "harmonic_sum_plane":
+        "src/repro/kernels/harmonic_sum/harmonic_sum_kernel.py:84",
+    "harmonic_sum":
+        "src/repro/kernels/harmonic_sum/harmonic_sum_kernel.py:108",
+    "power_spectrum_stats": "src/repro/kernels/spectrum/spectrum_kernel.py:32",
 }
 #: Serving phase: each wave submits 16 requests per stream, (4096, 4096)
 #: complex64 and (8192, 4096) float32, about 2.1 GB of each, just over the
@@ -169,6 +223,40 @@ SERVE_FDAS = 4
 SERVE_FDAS_N = 2**20
 SERVE_WAVES = 2
 SEED = 0
+#: Pulsar phase: 2 filterbanks of 1024 channels x 2**17 samples (the
+#: FilterbankSpec default band, 1300-1500 MHz, and sampling, 64 us: 8.389 s
+#: of sky each), 128 DM trials (largest delay 508 samples), the 85-template
+#: bank, 8 harmonics, and the reference's threshold (25), pool (64) and
+#: max_candidates (16).  Filterbank 0 carries two pulsars of amplitude
+#: 0.002 a channel in unit noise (the reference benchmark's normalised
+#: power: 0.12 at 16 x 2048); filterbank 1 is the no-signal control.
+PULSAR_SPEC = FilterbankSpec(nchan=1024, ntime=2**17)
+PULSAR_TRIALS = 128
+PULSAR_HARMONICS = 8
+PULSAR_AMP = 0.002
+#: (DM trial, drift z in bins, start bin): templates 48 and 30 of the bank.
+PULSARS = ((37, 6.0, 20000), (90, -12.0, 41000))
+PULSAR_CELLS = {(37, 48, 20000), (90, 30, 41000)}
+#: The pulsar stages that are one kernel launch each.
+ONE_KERNEL_STAGE = {"dedisperse": "dedisp",
+                    "harmonic_sum_plane": "harmonic sum"}
+#: Noise draws of the small-geometry recovery count in phase 7.
+RIDGE_SEEDS = 64
+PULSAR_LEDGER = {"dedisperse": 1, "fft-c2c-axis1": 1, "fft-c2c-t": 1,
+                 "fft-c2c-mul": 1, "fft-c2c": 1, "harmonic-sum-plane": 1}
+#: The Sec. 5.3 demo at the reference's Table 4 shape (benchmarks/run.py).
+DEMO_SHAPE = demo.PipelineShape(batch=32, n=2**20, n_harmonics=32)
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for module in COUNTERS:
+        module.reset_launches()
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches since the last :func:`reset_launches`."""
+    return {k: v for module in COUNTERS for k, v in module.LAUNCHES.items()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -213,15 +301,22 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 def device_breakdown(fn) -> dict[str, float]:
     """Device time [ms] of one profiled run of ``fn``, by kernel: the
-    port's kernels by name, every other (torch) kernel summed."""
+    port's kernels by name, every other (torch) kernel summed.
+
+    Late in a long run the profiler can lose the kernels that start in the
+    first milliseconds of a session (a fresh process records them), so a
+    spin kernel first keeps the card busy for about 50 ms; it is left out
+    of the sums."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
         fn()
         torch.cuda.synchronize()
     out: dict[str, float] = {}
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or "spin_kernel" in ev.name):
             continue
         name = next((k for k in KERNELS if f"{k}_kernel" in ev.name),
                     "torch (other kernels)")
@@ -612,6 +707,212 @@ def phase3_nd_kernels(gen: torch.Generator, results: dict[str, dict]) -> None:
     torch.cuda.empty_cache()
 
 
+def _filterbanks(gen: torch.Generator, plan: DispersionPlan,
+                 pulsars_of_row, spec: FilterbankSpec | None = None,
+                 amp: float | None = None) -> torch.Tensor:
+    """(rows, C, N) float32 filterbanks on the card: unit noise from
+    ``gen``, and in row i the pulsars ``pulsars_of_row[i]`` of amplitude
+    ``amp``, injected as ``data.synthetic.synthetic_filterbank`` injects
+    them (the plan's rounded delays, the same chirp); PULSAR_SPEC and
+    PULSAR_AMP by default."""
+    spec = spec or PULSAR_SPEC
+    amp = PULSAR_AMP if amp is None else amp
+    rows = len(pulsars_of_row)
+    fb = torch.randn(rows, spec.nchan, spec.ntime, device="cuda",
+                     generator=gen)
+    t = torch.arange(spec.ntime, device="cuda", dtype=torch.float64)
+    for row, pulsars in enumerate(pulsars_of_row):
+        for trial, z, k0 in pulsars:
+            pulsar = InjectedPulsar(dm=plan.dms[trial], k0=k0, z=z,
+                                    amp=amp)
+            delays = torch.from_numpy(spec.delay_samples(pulsar.dm)).to(
+                "cuda", torch.float64)[:, None]
+            s = (t - delays) / spec.ntime
+            fb[row] += (pulsar.amp * torch.cos(
+                2 * np.pi * (pulsar.k0 * s + 0.5 * pulsar.z * s * s)
+                + pulsar.phase)).float()
+            del s
+    return fb
+
+
+def _cells(c, row: int) -> set:
+    """The (DM trial, template, bin) cells of one row's candidates."""
+    return {(int(d), int(t), int(b)) for d, t, b in zip(
+        c.dm[row].tolist(), c.template[row].tolist(), c.bin[row].tolist())
+        if d >= 0}
+
+
+def _clear_rungs(ladder: torch.Tensor, margin: float) -> torch.Tensor:
+    """Bins whose best normalised rung leads the runner-up by more than
+    ``margin`` (two closer rungs may tie either way in float32)."""
+    hs = 2.0 ** torch.arange(ladder.shape[-2], device=ladder.device)
+    z = (ladder - hs[:, None]) / torch.sqrt(hs)[:, None]
+    if z.shape[-2] == 1:
+        return torch.ones(z.shape[:-2] + z.shape[-1:], dtype=torch.bool,
+                          device=z.device)
+    top = z.topk(2, dim=-2).values
+    return top[..., 0, :] - top[..., 1, :] > margin
+
+
+def _same_rungs(lev, want_lev, ladder) -> bool:
+    clear = _clear_rungs(ladder, 1e-5)
+    return bool(torch.equal(lev[clear], want_lev[clear]))
+
+
+def _harmonic_adds(rows: int, n: int, n_harmonics: int) -> int:
+    """The additions the ladder makes: P[j * k] for j * k < n, j >= 2."""
+    return rows * sum(-(-n // j) for j in range(2, n_harmonics + 1))
+
+
+def _pulsar_row(name: str, shape, fn, plain, compare, nbytes: float,
+                flops: float, composition=None, composition_call=None
+                ) -> dict:
+    """Check ``fn`` against ``plain`` with ``compare`` (-> (max abs err,
+    ok)), then time both and the nearest torch composition; print and
+    return the row (no single PyTorch call computes these functions)."""
+    got = fn()
+    want = plain()
+    abs_err, ok = compare(got, want)
+    check(ok, f"{name} {tuple(shape)}: kernel vs plain differ "
+          f"(max abs err {abs_err:.3e})")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = median_ms(fn)
+    plain_ms = median_ms(plain, reps=3)
+    torch.cuda.empty_cache()
+    note = "none"
+    if composition is not None:
+        note = (f"none; the nearest torch composition, {composition_call}, "
+                f"{median_ms(composition, reps=5):.4f} ms")
+        torch.cuda.empty_cache()
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"  {name} {tuple(shape)}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
+          f"GB/s), bound {bound_ms:.4f} ms ({bound_by}; {nbytes:.0f} bytes, "
+          f"{flops:.0f} operations), plain {plain_ms:.4f} ms, library "
+          f"[{note}], max abs err {abs_err:.3e}")
+    return {"name": name, "shape": list(shape), "twiddle": False,
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase3_pulsar_kernels(gen: torch.Generator,
+                          results: dict[str, dict]) -> None:
+    """dedisperse, harmonic_sum_plane, harmonic_sum and
+    power_spectrum_stats against their plain versions at small, ragged
+    shapes (odd N, a delay of N - 1, H in {1, 2, 8, 32}, batches filling no
+    whole block), then timed at the shapes the pulsar search and the demo
+    give them; adds one row per kernel to ``results``."""
+    checked, worst = 0, 0.0
+    for batch, nchan, n, ndm in ((1, 1, 1, 1), (3, 5, 1025, 9),
+                                 (2, 64, 4096, 17), (1, 1024, 2048, 8)):
+        fb = torch.randn(batch, nchan, n, device="cuda", generator=gen)
+        delays = np.random.default_rng(n).integers(0, n, size=(ndm, nchan))
+        delays[-1] = n - 1
+        table = torch.from_numpy(delays.astype(np.int32)).cuda()
+        _, rel = rel_err(dedisperse_kernel(fb, delays),
+                         D.dedisperse_plain(fb, table))
+        check(rel <= KERNEL_RTOL, f"dedisperse {fb.shape} x {ndm} trials: "
+              f"rel err {rel:.3e}")
+        worst, checked = max(worst, rel), checked + 1
+    for rows, n in ((3, 1025), (37, 4096), (5, 65537)):
+        p = 3.0 * torch.rand(rows, n, device="cuda", generator=gen)
+        for h in (1, 2, 8, 32):
+            stat, lev = harmonic_sum_plane(p, h)
+            want_stat, want_lev = H.harmonic_sum_plane_plain(p, h)
+            ladder = harmonic_sum_kernel(p, h)
+            want_ladder = H.harmonic_sum_plain(p, h)
+            _, rel = rel_err(stat, want_stat)
+            _, rel2 = rel_err(ladder, want_ladder)
+            check(rel <= KERNEL_RTOL and rel2 <= KERNEL_RTOL
+                  and _same_rungs(lev, want_lev, want_ladder),
+                  f"harmonic sum ({rows}, {n}) H={h}: rel err {rel:.3e} "
+                  f"(ladder {rel2:.3e}) or rungs differ")
+            worst, checked = max(worst, rel, rel2), checked + 2
+    for rows, n in ((1, 1), (7, 1025), (1000, 64), (3, 2**20)):
+        x = randn(gen, rows, n)
+        p, mean, std = power_spectrum_stats_kernel(x)
+        wp, wmean, wvar = S.power_spectrum_stats_plain(x)
+        rels = [rel_err(p, wp)[1], rel_err(mean, wmean)[1],
+                rel_err(std, torch.sqrt(torch.clamp_min(wvar, 0.0)))[1]]
+        check(max(rels) <= KERNEL_RTOL,
+              f"power_spectrum_stats ({rows}, {n}): rel errs {rels}")
+        worst, checked = max(worst, *rels), checked + 1
+    torch.cuda.synchronize()
+    print(f"phase 3: {checked} pulsar-kernel-vs-plain checks, max relative "
+          f"error {worst:.3e} (limit {KERNEL_RTOL}; harmonic rungs equal "
+          f"where the winner leads by more than 1e-5)")
+
+    # dedisperse at the pulsar phase's shape, with its plan's table.
+    spec = PULSAR_SPEC
+    plan = DispersionPlan.from_spec(spec, n_trials=PULSAR_TRIALS)
+    b, c, n, d = 2, spec.nchan, spec.ntime, plan.n_trials
+    fb = torch.randn(b, c, n, device="cuda", generator=gen)
+    table = torch.from_numpy(plan.delay_array().astype(np.int32)).cuda()
+    adds = b * int((n - plan.delay_array()).sum())
+
+    def close(got, want):
+        diff, rel = rel_err(got, want)
+        return diff, rel <= KERNEL_RTOL
+    results["dedisperse"] = _pulsar_row(
+        "dedisperse", (b, c, n, d), lambda: dedisperse_kernel(fb, plan.delays),
+        lambda: D.dedisperse_plain(fb, table), close,
+        4 * b * n * (c + d), adds)
+    del fb
+    torch.cuda.empty_cache()
+    # harmonic_sum_plane at the pulsar phase's power plane: 2 x 128 x 85
+    # rows of 65537 bins.
+    rows, n, h = 2 * d * (2 * FDAS_ZMAX + 1), n // 2 + 1, PULSAR_HARMONICS
+    p = torch.empty(rows, n, device="cuda").exponential_(generator=gen)
+    levels = H.levels(h)
+
+    def plane_close(got, want):
+        diff, rel = rel_err(got[0], want[0])
+        # The rungs of the plain version's ladder, on a slice of rows
+        # (the whole ladder would need another 17 GB).
+        ladder = H.harmonic_sum_plain(p[:512], h)
+        same = _same_rungs(got[1][:512], want[1][:512], ladder)
+        differ = int((got[1] != want[1]).sum())
+        return diff, (rel <= KERNEL_RTOL and same
+                      and differ <= 1e-3 * got[1].numel())
+    results["harmonic_sum_plane"] = _pulsar_row(
+        "harmonic_sum_plane", (rows, n), lambda: harmonic_sum_plane(p, h),
+        lambda: H.harmonic_sum_plane_plain(p, h), plane_close, 12 * rows * n,
+        _harmonic_adds(rows, n, h) + rows * n * (1 + 3 * (levels - 1)))
+    del p
+    torch.cuda.empty_cache()
+    # harmonic_sum and power_spectrum_stats at the demo's shape.
+    b, n, h = DEMO_SHAPE.batch, DEMO_SHAPE.n, DEMO_SHAPE.n_harmonics
+    p = torch.empty(b, n, device="cuda").exponential_(generator=gen)
+    levels = H.levels(h)
+    results["harmonic_sum"] = _pulsar_row(
+        "harmonic_sum", (b, n), lambda: harmonic_sum_kernel(p, h),
+        lambda: H.harmonic_sum_plain(p, h), close,
+        4 * b * n * (1 + levels), _harmonic_adds(b, n, h),
+        lambda: harmonic_sum_ref(p, h), "the gather ladder of "
+        "harmonic_sum_ref")
+    del p
+    x = randn(gen, b, n)
+
+    def composition():
+        q = x.real ** 2 + x.imag ** 2
+        q /= n
+        return torch.var_mean(q, -1, correction=0)
+
+    def stats_close(got, want):
+        diffs = [rel_err(got[0], want[0]), rel_err(got[1], want[1]),
+                 rel_err(got[2], torch.sqrt(torch.clamp_min(want[2], 0.0)))]
+        return (max(d[0] for d in diffs),
+                max(d[1] for d in diffs) <= KERNEL_RTOL)
+    results["power_spectrum_stats"] = _pulsar_row(
+        "power_spectrum_stats", (b, n), lambda: power_spectrum_stats_kernel(x),
+        lambda: S.power_spectrum_stats_plain(x), stats_close,
+        12 * b * n + 8 * b, 8 * b * n, composition,
+        "p = x.real**2 + x.imag**2; p /= n; torch.var_mean(p, -1, "
+        "correction=0)")
+    del x
+    torch.cuda.empty_cache()
+
+
 def phase3_rows_per_block(gen: torch.Generator) -> None:
     """The transposed-write kernels at the N-D plans' widest rows, timed
     with 1, 2 and 3 rows per block (the heuristic's 64 KB budget gives
@@ -650,11 +951,11 @@ def _drive(label: str, plan, x: torch.Tensor, expected: dict[str, int],
     ``lib_fn``; prices ``case`` on the V100 model.  Adds the run's
     launches to ``launches`` and returns the plan's output."""
     ledger = LaunchLedger()
-    K.reset_launches()
+    reset_launches()
     with ledger.capture():
         y = plan(x)
     torch.cuda.synchronize()
-    run = dict(K.LAUNCHES)
+    run = launch_counts()
     counts = ledger.counts()
     check(counts == expected, f"{label}: ledger {counts} != {expected}")
     for ledger_name, count in counts.items():
@@ -700,7 +1001,7 @@ def phase4_main_path(gen: torch.Generator) -> dict[str, int]:
     """Drive plan_for_length(n)(x) at 2 GB batches, then the real plans at
     2 GB real batches; returns the launches of each kernel summed over the
     main-path runs."""
-    launches = {name: 0 for name in K.LAUNCHES}
+    launches = {name: 0 for name in launch_counts()}
     for n in MAIN_LENGTHS:
         case = FFTCase(n)
         plan = plan_for_length(n)
@@ -830,11 +1131,11 @@ def phase5_fdas(gen: torch.Generator) -> dict[str, int]:
           f"FDAS plan {plan}")
     x = _fdas_series(gen)
     ledger = LaunchLedger()
-    K.reset_launches()
+    reset_launches()
     with ledger.capture():
         res = fdas_search(x, bank)
     torch.cuda.synchronize()
-    run = dict(K.LAUNCHES)
+    run = launch_counts()
     counts = ledger.counts()
     check(counts == FDAS_LEDGER, f"fdas: ledger {counts} != {FDAS_LEDGER}")
     for ledger_name, count in counts.items():
@@ -862,7 +1163,6 @@ def phase5_fdas(gen: torch.Generator) -> dict[str, int]:
     xm = x[:1] - x[:1].mean(dim=-1, keepdim=True)
     spec = torch.fft.rfft(xm)
     want = _fdas_oracle_plane(spec, bank)
-    from repro_torch.search import matched_filter_plane
     _, plane_rel = rel_err(matched_filter_plane(spec, bank)[0], want)
     check(plane_rel <= FDAS_RTOL,
           f"fdas: plane vs direct oracle rel err {plane_rel:.3e}")
@@ -905,8 +1205,8 @@ def phase5_fdas(gen: torch.Generator) -> dict[str, int]:
 
 
 def phase6_serving(gen: torch.Generator) -> dict[str, int]:
-    """Serve SERVE_WAVES waves of C2C, R2C, rank-2 and FDAS requests
-    through FFTService(TESLA_V100) on cuda:0; returns the phase's
+    """Serve SERVE_WAVES waves of C2C, R2C, rank-2, FDAS and pulsar
+    requests through FFTService(TESLA_V100) on cuda:0; returns the phase's
     launches."""
     rng = np.random.default_rng(SEED)
     xc = rng.standard_normal((4096, 8192), dtype=np.float32).view(
@@ -924,6 +1224,23 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
                np.float32)[None] for k0, z in tones]
     device = torch.device("cuda", 0)
     bank = TemplateBank.linear(zmax=FDAS_ZMAX)
+    # Pulsar request i: one (1024, 2**17) filterbank carrying pulsar i.
+    dplan = DispersionPlan.from_spec(PULSAR_SPEC, n_trials=PULSAR_TRIALS)
+    fbs = _filterbanks(gen, dplan, [(pulsar,) for pulsar in PULSARS])
+    xp = [fb.cpu().numpy() for fb in fbs]
+    pulsar_refs = [serving_sifted(pulsar_search(
+        fb[None], dplan, bank, n_harmonics=PULSAR_HARMONICS)) for fb in fbs]
+    del fbs
+    pulsar_cells = [{tuple(int(v) for v in row[:3])
+                     for row in ref[0].tolist() if row[0] >= 0}
+                    for ref in pulsar_refs]
+    # Each direct search finds its own pulsar, so the two results differ.
+    check(all(cell in cells for cell, cells in zip(
+        sorted(PULSAR_CELLS), pulsar_cells))
+          and pulsar_cells[0] != pulsar_cells[1],
+          f"serving: direct pulsar searches found {pulsar_cells}")
+    stage_plan = plan_pulsar_stages(PULSAR_SPEC, dplan, bank,
+                                    PULSAR_HARMONICS, TESLA_V100)
     refs = {"c2c": torch.fft.fft(torch.from_numpy(xc).to(device)),
             "r2c": torch.fft.rfft(torch.from_numpy(xr).to(device)),
             "2d": torch.fft.fft2(torch.from_numpy(x2).to(device))}
@@ -932,12 +1249,14 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
     four_step = ["fft-c2c-axis1", "fft-c2c-t"]
     expected_kernels = {"c2c": ["fft-c2c"], "r2c": ["fft-r2c"],
                         "2d": ["fft-c2c-t", "fft-c2c-t"], "1d": four_step,
-                        "fdas": four_step + ["fft-c2c-mul", "fft-c2c"]}
+                        "fdas": four_step + ["fft-c2c-mul", "fft-c2c"],
+                        "pulsar": ["dedisperse", *four_step, "fft-c2c-mul",
+                                   "fft-c2c", "harmonic-sum-plane"]}
     execute_s: list[tuple[str, float]] = []
 
     def stream_of(key) -> str:
-        if key.kind == KIND_FDAS:
-            return "fdas"
+        if key.kind in (KIND_FDAS, KIND_PULSAR):
+            return key.kind
         if key.shape:
             return "2d"
         return key.transform if key.n == 4096 else "1d"
@@ -970,7 +1289,7 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
         return x
 
     svc._stack = timed_stack
-    K.reset_launches()
+    reset_launches()
     for wave in range(SERVE_WAVES):
         hits, misses = svc.cache.stats.hits, svc.cache.stats.misses
         del execute_s[:], stack_s[:]
@@ -982,6 +1301,10 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
                  for i in range(SERVE_2D)]
         reqs += [(svc.submit(x, kind=KIND_FDAS, templates=bank.n_templates),
                   "fdas", i) for i, x in enumerate(xf)]
+        reqs += [(svc.submit(x, kind=KIND_PULSAR, dm_trials=PULSAR_TRIALS,
+                             templates=bank.n_templates,
+                             n_harmonics=PULSAR_HARMONICS), "pulsar", i)
+                 for i, x in enumerate(xp)]
         if wave == 0:
             reqs.append((svc.submit(x1), "1d", 0))
         t0 = time.perf_counter()
@@ -992,7 +1315,29 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
         worst = 0.0
         for (req, kind, i), r in zip(reqs, receipts):
             check(r.request is req, f"wave {wave}: receipts out of order")
-            if kind == "fdas":
+            if kind == "pulsar":
+                # Its own direct search: the same candidate cells, and the
+                # same statistics to rounding; the stage plan's shares.
+                got, want = r.result[0], pulsar_refs[i][0]
+                cells = {tuple(int(v) for v in row[:3])
+                         for row in got.tolist() if row[0] >= 0}
+                _, rel = rel_err(got[:, 4].sort().values,
+                                 want[:, 4].sort().values)
+                check(tuple(r.result.shape) == (1, 16, 5)
+                      and cells == pulsar_cells[i] and rel <= 1e-4,
+                      f"wave {wave} pulsar {i}: cells {cells} != "
+                      f"{pulsar_cells[i]} or statistics rel {rel:.3e}")
+                share = 1 / stage_plan.case.n_rows
+                check([(s.name, s.clock_mhz) for s in r.stages]
+                      == [(s.name, s.f) for s in stage_plan.report.stages]
+                      and all(abs(s.energy_j - m.energy * share)
+                              <= 1e-12 * m.energy
+                              for s, m in zip(r.stages,
+                                              stage_plan.report.stages))
+                      and r.realtime_margin == stage_plan.realtime_margin,
+                      f"wave {wave} pulsar {i}: stages {r.stages}, margin "
+                      f"{r.realtime_margin}")
+            elif kind == "fdas":
                 # Its own unserved search: the same top cell, and the same
                 # candidate powers (rows batched together differ from a
                 # row alone by rounding only).
@@ -1027,7 +1372,7 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
         stats = svc.cache.stats
         if wave == 0:
             check((stats.misses, stats.plan_builds, stats.sweeps)
-                  == (5, 5, 5) and len(svc.cache) == 5,
+                  == (6, 6, 6) and len(svc.cache) == 6,
                   f"wave 0: cache {stats}, {len(svc.cache)} entries")
             key2d = reqs[2 * SERVE_REQUESTS][0].shape_key(TESLA_V100.name)
             key1d = reqs[-1][0].shape_key(TESLA_V100.name)
@@ -1056,7 +1401,7 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
               f"model {energy / transforms:.4e} J/transform, I_ef "
               f"{boost / energy:.4f}; max rel err {worst:.3e}; cache "
               f"{stats}")
-        for kind in ("c2c", "r2c", "2d", "fdas", "1d"):
+        for kind in ("c2c", "r2c", "2d", "fdas", "pulsar", "1d"):
             mine = [r for (_, k, _), r in zip(reqs, receipts) if k == kind]
             if not mine:
                 continue
@@ -1067,10 +1412,15 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
                   f"{len(service)} batches, service (stack, copy, execute) "
                   f"{sum(service.values()) * 1e3:.1f} ms, execute "
                   f"{execute * 1e3:.1f} ms, latency p50 {kl.p50 * 1e3:.1f} ms")
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     check(all(launches[k] > 0 for k in ("fft_c2c", "fft_r2c", "fft_c2c_t",
-                                        "fft_c2c_mul")),
+                                        "fft_c2c_mul", "dedisperse",
+                                        "harmonic_sum_plane")),
           f"serving launched {launches}")
+    pulsar_batches = {r.batch_id for (_, k, _), r in zip(reqs, receipts)
+                      if k == "pulsar"}
+    check(len(pulsar_batches) == 1, f"serving: the {len(xp)} pulsar "
+          f"requests of a wave ran in {len(pulsar_batches)} batches")
     rep = svc.report()
     print(f"phase 6: report: {rep.n_requests} requests, {rep.n_batches} "
           f"batches, {rep.clock_locks} clock locks, "
@@ -1080,6 +1430,259 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
     del svc, refs
     torch.cuda.empty_cache()
     return launches
+
+
+def _pulsar_stages(fb: torch.Tensor, plan: DispersionPlan,
+                   bank: TemplateBank) -> tuple:
+    """pulsar_search's steps one by one, each timed with CUDA events:
+    returns (stage name -> ms, statistic).  The same calls as
+    pulsar_search, in the same order."""
+    names = ("dedisp", "mean+r2c", "matched filter", "power",
+             "harmonic sum", "sift")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    ev[0].record()
+    series = dedisperse_kernel(fb, plan.delays)
+    ev[1].record()
+    x = series - series.mean(dim=-1, keepdim=True)
+    del series
+    spectrum = plan_for_length(x.shape[-1], "r2c")(x)
+    del x
+    sigma2 = (spectrum.real ** 2 + spectrum.imag ** 2).mean(
+        dim=-1, keepdim=True)[..., None]
+    ev[2].record()
+    mf = matched_filter_plane(spectrum, bank)
+    ev[3].record()
+    power = power_plane(mf, sigma2)
+    del mf
+    ev[4].record()
+    stat, level = harmonic_sum_plane(power, PULSAR_HARMONICS)
+    ev[5].record()
+    del power
+    sift_candidates(stat, level, max_harmonic=PULSAR_HARMONICS)
+    ev[6].record()
+    ev[6].synchronize()
+    return ({name: ev[i].elapsed_time(ev[i + 1])
+             for i, name in enumerate(names)}, stat)
+
+
+def _small_recovery(bank: TemplateBank) -> str:
+    """Exact recovery over RIDGE_SEEDS noise draws at the reference test's
+    geometry (16 channels x 2048 samples, 8 DM trials) with ``bank``, at
+    the pulsar phase's normalised power (C a^2 N / 4): how often the
+    candidates are exactly the two injected cells, and where the others
+    lie, as (trial, template, bin) offsets from the nearest injected
+    cell."""
+    spec = FilterbankSpec(nchan=16, ntime=2048)
+    plan = DispersionPlan.from_spec(spec, n_trials=8)
+    power = PULSAR_SPEC.nchan * PULSAR_AMP ** 2 * PULSAR_SPEC.ntime / 4
+    amp = float(np.sqrt(4 * power / (spec.nchan * spec.ntime)))
+    pulsars = ((3, 6.0, 300), (6, -12.0, 611))
+    drifts = np.array(bank.drifts)
+    want = {(d, int(np.argmin(np.abs(drifts - z))), k) for d, z, k in pulsars}
+    exact, offsets = 0, []
+    for seed in range(RIDGE_SEEDS):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+        fb = _filterbanks(gen, plan, (pulsars,), spec, amp)
+        found = _cells(pulsar_search(fb, plan, bank).candidates, 0)
+        exact += found == want
+        for cell in found - want:
+            near = min(want, key=lambda w: (abs(w[0] - cell[0]),
+                                            abs(w[2] - cell[2])))
+            offsets.append(tuple(a - b for a, b in zip(cell, near)))
+    return (f"{exact} of {RIDGE_SEEDS} draws exact at amplitude {amp:.4f} "
+            f"(normalised power {power:.1f}); extra cells at offsets "
+            f"{sorted(offsets)}")
+
+
+def phase7_pulsar(gen: torch.Generator) -> dict[str, int]:
+    """pulsar_search on 2 filterbanks of 1024 x 2**17 samples, 128 DM
+    trials, 85 templates, 8 harmonics; returns the run's launches."""
+    spec = PULSAR_SPEC
+    plan = DispersionPlan.from_spec(spec, n_trials=PULSAR_TRIALS)
+    bank = TemplateBank.linear(zmax=FDAS_ZMAX)
+    drifts = np.array(bank.drifts)
+    want = {(trial, int(np.argmin(np.abs(drifts - z))), k0)
+            for trial, z, k0 in PULSARS}
+    check(want == PULSAR_CELLS and bank.n_templates == 85
+          and plan.max_delay < spec.ntime,
+          f"pulsar geometry: cells {want}, {bank.n_templates} templates, "
+          f"largest delay {plan.max_delay}")
+    fb = _filterbanks(gen, plan, (PULSARS, ()))
+    ledger = LaunchLedger()
+    reset_launches()
+    with ledger.capture():
+        res = pulsar_search(fb, plan, bank, n_harmonics=PULSAR_HARMONICS)
+    torch.cuda.synchronize()
+    run = launch_counts()
+    counts = ledger.counts()
+    check(counts == PULSAR_LEDGER,
+          f"pulsar: ledger {counts} != {PULSAR_LEDGER}")
+    for ledger_name, count in counts.items():
+        kernel = LEDGER_TO_KERNEL[ledger_name]
+        check(run[kernel] == count, f"pulsar: {kernel} launched "
+              f"{run[kernel]} times, the ledger says {count}")
+    nbins = spec.ntime // 2 + 1
+    shape = (2, plan.n_trials, bank.n_templates, nbins)
+    check(tuple(res.stat.shape) == shape == tuple(res.level.shape)
+          and bool(torch.isfinite(res.stat).all())
+          and bool(torch.isfinite(res.power).all()),
+          f"pulsar: bad statistic volume {tuple(res.stat.shape)}")
+    found = [_cells(res.candidates, row) for row in (0, 1)]
+    check(found[0] == want and not found[1],
+          f"pulsar: candidates {found[0]} (want {want}) and {found[1]} on "
+          f"the control")
+    snr = sorted(round(float(v), 2) for v in res.candidates.snr[0] if v > 0)
+    # dedisperse against the gather oracle on 4 DM rows.
+    dm_rows = [0, PULSARS[0][0], PULSARS[1][0], plan.n_trials - 1]
+    series = dedisperse_kernel(fb, plan.delays)
+    _, dd_rel = rel_err(series[:, dm_rows],
+                        dedisperse_ref(fb, plan.delay_array()[dm_rows]))
+    check(dd_rel <= KERNEL_RTOL, f"pulsar: dedisperse vs dedisperse_ref "
+          f"rel err {dd_rel:.3e}")
+    del series
+    torch.cuda.empty_cache()
+    # The statistic and rung against the plane oracle on 64 plane rows,
+    # the injected ones among them.
+    flat = res.power.reshape(-1, nbins)
+    picks = torch.linspace(0, flat.shape[0] - 1, 62).long().tolist()
+    picks += [(trial * bank.n_templates + t) for trial, t, _ in want]
+    ref_stat, ref_lev = harmonic_sum_plane_ref(flat[picks], PULSAR_HARMONICS)
+    _, hs_rel = rel_err(res.stat.reshape(-1, nbins)[picks], ref_stat)
+    ladder = harmonic_sum_ref(flat[picks], PULSAR_HARMONICS)
+    check(hs_rel <= KERNEL_RTOL and _same_rungs(
+        res.level.reshape(-1, nbins)[picks], ref_lev, ladder),
+        f"pulsar: plane vs harmonic_sum_plane_ref rel err {hs_rel:.3e} or "
+        f"rungs differ")
+    del flat, ladder, res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(lambda: pulsar_search(fb, plan, bank,
+                                         n_harmonics=PULSAR_HARMONICS),
+                   reps=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stage_runs = []
+    for _ in range(3):
+        stages, stat = _pulsar_stages(fb, plan, bank)
+        stage_runs.append(stages)
+    del stat
+    torch.cuda.empty_cache()
+    stages = {k: statistics.median(r[k] for r in stage_runs)
+              for k in stage_runs[0]}
+    split = device_breakdown(lambda: pulsar_search(
+        fb, plan, bank, n_harmonics=PULSAR_HARMONICS))
+    missed = sorted(set(LEDGER_TO_KERNEL[k] for k in counts) - set(split))
+    # Late in this long process the profiler can record no event of a
+    # kernel that a fresh process records (dedisperse here): the CUDA-event
+    # time of its one-kernel stage stands in, labelled.
+    for kernel in missed:
+        if kernel in ONE_KERNEL_STAGE:
+            split[f"{kernel} (staged event time)"] = stages[
+                ONE_KERNEL_STAGE[kernel]]
+    busy = sum(split.values())
+    model = plan_pulsar_stages(spec, plan, bank, PULSAR_HARMONICS,
+                               TESLA_V100)
+    margin = 2 * spec.t_acquire / (ms / 1e3)
+    print(f"phase 7: pulsar search, 2 filterbanks of {spec.nchan} x "
+          f"{spec.ntime} samples ({spec.t_acquire:.4f} s each), "
+          f"{plan.n_trials} DM trials (largest delay {plan.max_delay}), "
+          f"{bank.n_templates} templates, {PULSAR_HARMONICS} harmonics; "
+          f"ledger {counts}; candidates {sorted(found[0])} (snr {snr}), "
+          f"control {sorted(found[1])}; dedisperse vs oracle rel "
+          f"{dd_rel:.3e}, plane vs oracle rel {hs_rel:.3e}; search "
+          f"{ms:.4f} ms (median of 5), peak memory {peak_gb:.2f} GB")
+    print("  pulsar stages (ms, median of 3 staged runs): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.4f}")
+    print("  pulsar device time by kernel (ms, one profiled run): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+          + f"; busy {busy:.4f} of {ms:.4f} ms timed "
+          f"(idle share {max(0.0, 1 - busy / ms):.3f}); launched kernels "
+          f"the profiler did not record: {missed or 'none'}")
+    print(f"  real-time margin S = 2 x {spec.t_acquire:.4f} s / "
+          f"{ms / 1e3:.6f} s = {margin:.1f} measured; V100 model "
+          f"{model.realtime_margin:.1f} at its per-stage locks "
+          f"{model.locked} (modelled batch of {model.case.n_rows} "
+          f"filterbanks, I_ef {model.report.i_ef:.4f})")
+    del fb
+    torch.cuda.empty_cache()
+    print(f"  sift at 16 x 2048, 8 trials, {bank.n_templates} templates: "
+          f"{_small_recovery(bank)}")
+    return run
+
+
+def phase8_demo(gen: torch.Generator) -> dict[str, int]:
+    """The Sec. 5.3 demo at (32, 2**20) with 32 harmonics, C2C and R2C;
+    then the spectrum-stats and harmonic-ladder kernels on its spectrum.
+    Returns the launches of the kernels' run."""
+    shape = DEMO_SHAPE
+    b, n, h = shape.batch, shape.n, shape.n_harmonics
+    x = randn(gen, b, n)
+    for real_input in (False, True):
+        kind = "r2c" if real_input else "c2c"
+        inp = x.real.contiguous() if real_input else x
+        fft = plan_nd((n,), kind)
+        y = demo.pulsar_pipeline(inp, h, real_input)
+        ref_spec = (torch.fft.rfft(inp) if real_input else torch.fft.fft(inp))
+        p = demo.power_spectrum(ref_spec, n)
+        ref = demo.candidate_snr(demo.harmonic_sum(p, h),
+                                 *demo.spectrum_stats(p))
+        del ref_spec, p
+        bins = n // 2 + 1 if real_input else n
+        _, rel = rel_err(y, ref)
+        check(tuple(y.shape) == (b, H.levels(h), bins)
+              and bool(torch.isfinite(y).all()) and rel <= 1e-4,
+              f"demo {kind}: shape {tuple(y.shape)}, rel err vs the "
+              f"torch.fft spectrum {rel:.3e}")
+        del y, ref
+        torch.cuda.empty_cache()
+        ms = median_ms(lambda: demo.pulsar_pipeline(inp, h, real_input),
+                       reps=5)
+        fft_ms = median_ms(lambda: fft(inp), reps=5)
+        total = sum(device_breakdown(
+            lambda: demo.pulsar_pipeline(inp, h, real_input)).values())
+        fft_busy = sum(device_breakdown(lambda: fft(inp)).values())
+        model = demo.fft_time_share(
+            dataclasses.replace(shape, real_input=real_input), TESLA_V100)
+        print(f"phase 8: demo {kind} {tuple(inp.shape)}, {h} harmonics: "
+              f"pipeline {ms:.4f} ms, FFT alone {fft_ms:.4f} ms (share "
+              f"of the timed pipeline {fft_ms / ms:.3f}); FFT share of "
+              f"device time {fft_busy / total:.3f} ({fft_busy:.4f} of "
+              f"{total:.4f} ms) vs the V100 model's {model:.3f}; rel err vs "
+              f"a torch.fft spectrum {rel:.3e}")
+        del inp
+        torch.cuda.empty_cache()
+    spec = plan_nd((n,), "c2c")(x)
+    del x
+    reset_launches()
+    p, mean, std = power_spectrum_stats_kernel(spec)
+    ladder = harmonic_sum_kernel(p, h)
+    torch.cuda.synchronize()
+    run = launch_counts()
+    check({k: v for k, v in run.items() if v}
+          == {"power_spectrum_stats": 1, "harmonic_sum": 1},
+          f"demo kernels launched {run}")
+    p_demo = demo.power_spectrum(spec, n)
+    mean_demo, std_demo = demo.spectrum_stats(p_demo)
+    rels = [rel_err(p, p_demo)[1], rel_err(mean, mean_demo[..., 0])[1],
+            rel_err(std, std_demo[..., 0])[1]]
+    check(max(rels) <= KERNEL_RTOL, f"demo: power_spectrum_stats vs the "
+          f"demo's stages rel errs {rels}")
+    del spec, p_demo
+    _, ladder_rel = rel_err(ladder, harmonic_sum_ref(p, h))
+    k = n // h
+    _, clamp_rel = rel_err(ladder[..., :k], demo.harmonic_sum(p, h)[..., :k])
+    check(ladder_rel <= KERNEL_RTOL and clamp_rel <= KERNEL_RTOL,
+          f"demo: harmonic_sum vs the zero-padded oracle rel "
+          f"{ladder_rel:.3e}, vs the demo's clamped ladder below n/H rel "
+          f"{clamp_rel:.3e}")
+    print(f"phase 8: power_spectrum_stats and harmonic_sum on the demo's "
+          f"({b}, {n}) spectrum: launches {run}; vs the demo's stages rel "
+          f"{max(rels):.3e}; ladder vs the zero-padded oracle rel "
+          f"{ladder_rel:.3e}, vs the demo's clamped ladder on k < n/{h} "
+          f"rel {clamp_rel:.3e}")
+    del p, ladder
+    torch.cuda.empty_cache()
+    return run
 
 
 def main() -> int:
@@ -1093,13 +1696,14 @@ def main() -> int:
     measured = phase3_kernels(gen)
     phase3_real_kernels(gen, measured)
     phase3_nd_kernels(gen, measured)
+    phase3_pulsar_kernels(gen, measured)
     phase3_rows_per_block(gen)
     launches = phase4_main_path(gen)
-    for phase in (phase5_fdas, phase6_serving):
+    for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():
-        check(count > 0, f"{kernel} was never launched on the main path")
+        check(count > 0, f"{kernel} was never launched on a main path")
     kernels = []
     for name in KERNELS:
         row = measured[name]

@@ -5,10 +5,12 @@ Layers:
   power_model  P(f) = static(V) + dynamic(f, V) + memory
   perf_model   t(f) with the paper's three regimes (Fig. 6)
   energy       Eqs. (3)-(7): energy, GFLOPS/W, I_ef
-  workloads    the FFT plan model (1-D and N-D) and the overlap-save /
-               FDAS model
+  workloads    the FFT plan model (1-D and N-D), the overlap-save /
+               FDAS model and the four-stage pulsar-search model
   dvfs         optimal & mean-optimal frequency search (Table 3)
-  scheduler    the runtime clock lock around dispatches (Sec. 5.3)
+  scheduler    per-stage clock plans (DVFSScheduler) and the runtime
+               clock lock around dispatches (Sec. 5.3)
+  realtime     the real-time margin S = t_acquire / t_process (Sec. 2.3)
 """
 from repro_torch.core.dvfs import MeanOptimal, SweepResult, mean_optimal, sweep
 from repro_torch.core.energy import (OperatingPoint, efficiency_increase,
@@ -17,8 +19,16 @@ from repro_torch.core.hardware import (JETSON_NANO, TESLA_V100, TITAN_V,
                                        DeviceSpec)
 from repro_torch.core.perf_model import WorkloadProfile
 from repro_torch.core.power_model import PowerModel
-from repro_torch.core.workloads import (ConvCase, FFTCase, conv_workload,
-                                       fdas_total_profile, fdas_workload,
-                                       fft_workload, merge_profiles)
+from repro_torch.core.realtime import (CostModel, RealTimeBudget,
+                                       devices_required, extra_hardware)
+from repro_torch.core.scheduler import (DVFSScheduler, PipelineReport,
+                                        Stage, StageReport,
+                                        predicted_pipeline_i_ef)
+from repro_torch.core.workloads import (ConvCase, FFTCase, PulsarCase,
+                                        conv_workload, fdas_total_profile,
+                                        fdas_workload, fft_workload,
+                                        merge_profiles,
+                                        pulsar_search_total_profile,
+                                        pulsar_search_workload)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

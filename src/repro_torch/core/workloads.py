@@ -8,10 +8,10 @@ pass is one kernel of the multi-kernel plan (``repro_torch.fft.plan`` and
 ``repro_torch.fft.plan_nd`` run exactly that many kernel passes).
 :func:`conv_workload` / :func:`fdas_workload` price the overlap-save
 matched filter and the acceleration search from the engine's own
-``ConvPlan``.
-
-The pulsar-search builder of the reference arrives with the
-pulsar-pipeline slice of the port; until then it raises.
+``ConvPlan``.  :func:`pulsar_search_workload` prices the four stages of
+the end-to-end pulsar search (``repro_torch.search.pipeline``).  Every
+figure is field-identical to the reference's: the model is the paper's,
+whatever card runs the port.
 """
 from __future__ import annotations
 
@@ -406,8 +406,140 @@ def fdas_total_profile(case: ConvCase, device: DeviceSpec, *,
                           fdas_workload(case, device, series_n=series_n))
 
 
-def pulsar_search_workload(*args, **kwargs) -> list[WorkloadProfile]:
-    """Pulsar-search stage profiles: arrive with the pipeline slice."""
-    raise NotImplementedError(
-        "pulsar_search_workload arrives with the pulsar-pipeline slice of "
-        "the port")
+@dataclasses.dataclass(frozen=True)
+class PulsarCase:
+    """One end-to-end pulsar-search configuration
+    (``repro_torch.search.pipeline``).
+
+    A batch holds ``n_rows`` filterbanks of (nchan, ntime) float32
+    samples (the Eq. 6 memory budget applied to the pipeline's *input*);
+    each expands to ``dm_trials`` dedispersed series, which FDAS turns
+    into (dm_trials * templates) power rows of ``nbins`` each for the
+    harmonic-sum and sift stages.
+    """
+
+    nchan: int
+    ntime: int
+    dm_trials: int
+    templates: int
+    taps: int
+    n_harmonics: int = 8
+    precision: str = "fp32"
+    batch_bytes: float = 2e9
+    radices: tuple[int, ...] | None = None
+    name: str = ""
+
+    def __post_init__(self):
+        if min(self.nchan, self.ntime, self.dm_trials, self.templates,
+               self.taps) < 1:
+            raise ValueError(
+                f"PulsarCase needs every dimension >= 1, got nchan="
+                f"{self.nchan} ntime={self.ntime} dm_trials="
+                f"{self.dm_trials} templates={self.templates} "
+                f"taps={self.taps}")
+        if self.n_harmonics < 1 or self.n_harmonics & (self.n_harmonics - 1):
+            raise ValueError(
+                f"n_harmonics must be a power of two, got "
+                f"{self.n_harmonics}")
+        if self.precision not in COMPLEX_BYTES:
+            raise ValueError(f"unknown precision {self.precision!r}")
+        if not self.name:
+            object.__setattr__(
+                self, "name",
+                f"pulsar-c{self.nchan}x{self.ntime}-d{self.dm_trials}"
+                f"-t{self.templates}-{self.precision}")
+
+    @property
+    def sample_bytes(self) -> int:
+        """Bytes of one filterbank sample (real, half the complex size)."""
+        return COMPLEX_BYTES[self.precision] // 2
+
+    @property
+    def n_rows(self) -> int:
+        """Eq. 6: filterbanks per memory-budgeted batch."""
+        return max(int(self.batch_bytes
+                       // (self.nchan * self.ntime * self.sample_bytes)), 1)
+
+    @property
+    def nbins(self) -> int:
+        return self.ntime // 2 + 1
+
+
+def pulsar_search_workload(case: PulsarCase,
+                           device: DeviceSpec) -> list[WorkloadProfile]:
+    """Per-stage profiles of the end-to-end search: dedisp -> fdas ->
+    harmonic-sum -> sift.
+
+    Each stage's traffic follows its kernel's HBM/on-chip pattern (the
+    same discipline as ``fft_workload`` vs ``repro_torch.fft.plan``):
+    dedispersion reads the (C, N) block once and writes D series while
+    re-reading on-chip memory D*C times; FDAS is the merged R2C + overlap-save
+    model over D series per filterbank; the harmonic-sum plane kernel
+    reads the power plane once and writes only (stat, level); sifting
+    is one streaming top-k pass.  These four feed ``dvfs.sweep`` +
+    ``DVFSScheduler`` for the per-stage clock plan.
+    """
+    rows = case.n_rows
+    sb = float(case.sample_bytes)
+    peak = device.peak_flops * PRECISION_PEAK[case.precision]
+    c, n, d, t = case.nchan, case.ntime, case.dm_trials, case.templates
+
+    # --- dedispersion: shift-and-sum, memory-bound ----------------------
+    dd_hbm = (c + d) * n * sb * rows                 # read block, write D
+    dd_flops = float(d) * c * n * rows               # one add per (dm, ch)
+    dd_cache = 2.0 * d * c * n * sb * rows           # on-chip re-reads
+    dedisp = WorkloadProfile(
+        name="dedisp",
+        t_mem=dd_hbm / device.hbm_bandwidth,
+        t_issue=dd_flops / (peak * 0.4),
+        t_cache=dd_cache / device.cache_bandwidth,
+        t_compute=dd_flops / peak,
+        contention=0.01,
+        flops=dd_flops,
+    )
+
+    # --- FDAS (R2C + matched filter) over D series per filterbank -------
+    conv_case = ConvCase(
+        n=case.nbins, templates=t, taps=case.taps,
+        precision=case.precision,
+        batch_bytes=float(rows * d) * case.nbins
+        * COMPLEX_BYTES[case.precision],
+        radices=case.radices)
+    fdas = dataclasses.replace(
+        merge_profiles("fdas", fdas_workload(conv_case, device,
+                                             series_n=n)[:2]),
+        name="fdas")
+
+    # --- harmonic sum: fused plane kernel (stat + level out only) -------
+    plane_rows = float(rows * d) * t
+    hs_hbm = plane_rows * case.nbins * (sb + 2 * sb)  # read P, write 2
+    hs_levels = max(case.n_harmonics.bit_length(), 1)
+    hs_flops = plane_rows * case.nbins * (case.n_harmonics + 3 * hs_levels)
+    hs_cache = 2.0 * plane_rows * case.nbins * sb * hs_levels
+    hsum = WorkloadProfile(
+        name="harmonic-sum",
+        t_mem=hs_hbm / device.hbm_bandwidth,
+        t_issue=hs_flops / (peak * 0.4),
+        t_cache=hs_cache / device.cache_bandwidth,
+        t_compute=hs_flops / peak,
+        contention=0.01,
+        flops=hs_flops,
+    )
+
+    # --- sift: one streaming top-k over the statistic volume ------------
+    sf_bytes = plane_rows * case.nbins * 2 * sb      # read stat + level
+    sf_flops = 5.0 * plane_rows * case.nbins
+    sift = WorkloadProfile(
+        name="sift",
+        t_mem=sf_bytes / device.hbm_bandwidth,
+        t_issue=sf_flops / (peak * 0.4),
+        t_compute=sf_flops / peak,
+        flops=sf_flops,
+    )
+    return [dedisp, fdas, hsum, sift]
+
+
+def pulsar_search_total_profile(case: PulsarCase,
+                                device: DeviceSpec) -> WorkloadProfile:
+    """All four stages merged into one profile (service-level sweeps)."""
+    return merge_profiles(case.name, pulsar_search_workload(case, device))

@@ -9,10 +9,13 @@
   multidim     fft2 / rfft2 / fftn / rfftn over the plan graph
   convolve     batched overlap-save segmented FFT convolution (filter
                banks as fused multiply epilogues, cached filter spectra)
+  pipeline     the paper's Sec. 5.3 demonstration pipeline (plain torch
+               around the planned FFT) and its per-stage cost model
 
 The names below resolve on first use (``repro_torch.fft.fft2``, ...), or
 import the submodules directly.  ``plan_nd`` is not among them: it names
-the submodule (``from repro_torch.fft.plan_nd import plan_nd``).  Nothing is imported eagerly: the kernel
+the submodule (``from repro_torch.fft.plan_nd import plan_nd``).  Nothing
+is imported eagerly: the kernel
 wrappers import ``repro_torch.fft.radix``, and the planner imports the
 kernel wrappers, so an eager import here would be circular.
 """
@@ -27,6 +30,7 @@ _EXPORTS = {
     "ConvPlan": "convolve", "conv_plan": "convolve",
     "overlap_save_conv": "convolve", "select_nfft": "convolve",
     "bluestein_fft": "bluestein",
+    "pulsar_pipeline": "pipeline",
 }
 
 __all__ = sorted(_EXPORTS)

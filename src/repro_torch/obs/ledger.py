@@ -4,7 +4,11 @@ Every public kernel wrapper in ``repro_torch.kernels.*.ops`` calls
 :func:`record_launch` once per kernel launch — with the kernel's name,
 grid, tile and an HBM bytes-moved estimate — under the same names and
 ``bytes_moved`` formulas as ``repro.obs.ledger``'s callers, so that the
-two packages' ledgers can be compared record by record.
+two packages' ledgers can be compared record by record.  The names: the
+FFT family (``fft-c2c``, ``fft-c2c-t``, ``fft-c2c-axis1``, ``fft-c2c-mul``,
+``fft-r2c``, ``fft-r2c-t``, ``fft-c2r``, ``transpose``) and the pulsar
+pipeline's ``dedisperse``, ``harmonic-sum-plane``, ``harmonic-sum`` and
+``power-spectrum-stats``.
 
 Recording semantics differ from the reference on purpose.  The reference
 records while ``jax.jit`` *traces* a wrapper, so a jitted executable

@@ -1,9 +1,10 @@
 """Plan + frequency-sweep cache: plan and sweep once per shape (the
-counterpart of ``repro.serving.cache`` for FFT and FDAS requests).
+counterpart of ``repro.serving.cache`` for FFT, FDAS and pulsar requests).
 
 The two expensive per-shape artefacts of the paper's method are the plan
 (``repro_torch.fft.plan``, the N-D plan graph ``repro_torch.fft.plan_nd``,
-or the FDAS search's overlap-save plan) and the DVFS frequency sweep over
+the FDAS search's overlap-save plan, or the pulsar search's dispersion
+plan with its per-stage clock plan) and the DVFS frequency sweep over
 the device clock grid (``repro_torch.core.dvfs``) that yields the
 minimum-energy operating point (Sec. 4).  Both depend only on the shape
 key, so the service computes them once per distinct key; differing
@@ -27,11 +28,14 @@ from repro_torch.core.perf_model import WorkloadProfile
 from repro_torch.core.power_model import PowerModel
 from repro_torch.core.workloads import (ConvCase, FFTCase,
                                         fdas_total_profile, fft_workload)
+from repro_torch.data.synthetic import FilterbankSpec
 from repro_torch.fft.plan import FFTPlan, plan_for_length
 from repro_torch.fft.plan_nd import plan_nd
 from repro_torch.search.fdas import fdas_search, serving_candidates
+from repro_torch.search.pipeline import (DispersionPlan, plan_pulsar_stages,
+                                         pulsar_search, serving_sifted)
 from repro_torch.search.templates import TemplateBank
-from repro_torch.serving.request import KIND_FDAS, ShapeKey
+from repro_torch.serving.request import KIND_FDAS, KIND_PULSAR, ShapeKey
 from repro_torch.tune.context import plan_config
 
 
@@ -54,11 +58,18 @@ class CacheEntry:
     """Everything the executor needs for one shape."""
 
     key: ShapeKey
-    plan: Any                   # FFTPlan; NDPlan for N-D; ConvPlan for FDAS
+    plan: Any                   # FFTPlan; NDPlan for N-D; ConvPlan for
+                                # FDAS; DispersionPlan for pulsar
     fn: Callable                # the plan's function for the shape
     profile: WorkloadProfile    # analytic workload model of one full batch
     sweep: dvfs.SweepResult     # full clock-grid sweep for ``profile``
     n_fft_model: int            # transforms the modelled batch contains
+    # Pulsar-pipeline entries only: the per-stage DVFS plan (clock +
+    # modelled J per stage, scheduler.PipelineReport), the locked clocks
+    # and the end-to-end real-time margin at those clocks.
+    stages: Any | None = None
+    locked: dict | None = None
+    realtime_margin: float | None = None
 
     def point_for(self, time_budget: float | None) -> OperatingPoint:
         """Operating point under a real-time budget — from cached points."""
@@ -106,9 +117,13 @@ class PlanSweepCache:
     def _tuned_config(key: ShapeKey):
         """The tuned config this key's plan build will resolve to (None
         for FDAS keys: their segment is part of the key, or the cost
-        model's)."""
+        model's).  Pulsar keys resolve the config of their inner R2C over
+        the filterbank's time axis."""
         if key.kind == KIND_FDAS:
             return None
+        if key.kind == KIND_PULSAR:
+            return plan_config((key.shape[-1] if key.shape else key.n,),
+                               "r2c")
         return plan_config(key.shape or (key.n,), key.transform)
 
     def entry(self, key: ShapeKey) -> CacheEntry:
@@ -128,14 +143,17 @@ class PlanSweepCache:
 
     def _build(self, key: ShapeKey) -> CacheEntry:
         self.stats.plan_builds += 1
-        if key.kind == KIND_FDAS:
+        extras: dict = {}
+        if key.kind == KIND_PULSAR:
+            plan, fn, profile, n_fft, extras = self._build_pulsar(key)
+        elif key.kind == KIND_FDAS:
             plan, fn, profile, n_fft = self._build_fdas(key)
         else:
             plan, fn, profile, n_fft = self._build_fft(key)
         self.stats.sweeps += 1
         sweep = self._sweep_fn(profile, self.device, self._power_model)
         return CacheEntry(key=key, plan=plan, fn=fn, profile=profile,
-                          sweep=sweep, n_fft_model=n_fft)
+                          sweep=sweep, n_fft_model=n_fft, **extras)
 
     def _build_fft(self, key: ShapeKey):
         if key.shape:
@@ -170,6 +188,39 @@ class PlanSweepCache:
         # Per-transform receipts divide by the row count the swept profile
         # models: ConvCase.n_rows (real half-spectrum rows).
         return case.plan, fn, profile, case.n_rows
+
+    def _build_pulsar(self, key: ShapeKey):
+        """Pulsar-pipeline entries: the full search (dedispersion -> FDAS
+        -> harmonic sum -> sift) with a per-stage clock plan.
+
+        The geometry comes from the key alone — a default
+        ``FilterbankSpec`` at the key's (nchan, ntime), the default DM grid
+        at ``dm_trials``, the linear bank at ``templates`` — so identical
+        submissions share one entry and one set of sweeps.  The merged
+        four-stage profile feeds the entry-level sweep (single-clock
+        serving); ``plan_pulsar_stages`` prices the per-stage locks the
+        receipts report.
+        """
+        if len(key.shape) != 2:
+            raise ValueError(
+                f"pulsar keys need a (nchan, ntime) shape, got {key.shape}")
+        nchan, ntime = key.shape
+        spec = FilterbankSpec(nchan=nchan, ntime=ntime)
+        dplan = DispersionPlan.from_spec(spec, n_trials=key.dm_trials)
+        bank = _fdas_bank(key.templates)
+        stage_plan = plan_pulsar_stages(
+            spec, dplan, bank, key.n_harmonics, self.device,
+            batch_bytes=self.batch_bytes, power_model=self._power_model,
+            sweep_fn=self._sweep_fn)
+
+        def fn(x, _plan=dplan, _bank=bank, _h=key.n_harmonics):
+            return serving_sifted(
+                pulsar_search(x, _plan, _bank, n_harmonics=_h))
+
+        extras = {"stages": stage_plan.report, "locked": stage_plan.locked,
+                  "realtime_margin": stage_plan.realtime_margin}
+        return (dplan, fn, stage_plan.total_profile, stage_plan.case.n_rows,
+                extras)
 
 
 def _fdas_bank(templates: int) -> TemplateBank:

@@ -1,8 +1,10 @@
 """Request and receipt types for the energy-aware FFT service.
 
 The counterpart of ``repro.serving.request`` for the requests the port
-serves: ``KIND_FFT`` (1-D and N-D, C2C and R2C) and ``KIND_FDAS`` (the
-acceleration search).  A request is a batch of same-shape transforms
+serves: ``KIND_FFT`` (1-D and N-D, C2C and R2C), ``KIND_FDAS`` (the
+acceleration search) and ``KIND_PULSAR`` (the end-to-end pulsar search,
+whose receipts carry per-stage DVFS shares and the real-time margin).  A
+request is a batch of same-shape transforms
 submitted by one client; a receipt is everything the paper would report
 about serving it: which clock it ran at, its modelled energy (Eqs. 3-4),
 and its measured queue + service latency.
@@ -24,10 +26,8 @@ _REQUEST_IDS = itertools.count()
 
 #: Request kinds the service understands.
 KIND_FFT = "fft"            # batched 1-D or N-D transforms
+KIND_PULSAR = "pulsar"      # end-to-end pulsar search (search.pipeline)
 KIND_FDAS = "fdas"          # Fourier-domain acceleration search
-
-#: Request kinds of the reference that later slices of the port bring.
-_LATER_KINDS = {"pulsar": "the pulsar-pipeline slice"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,17 +40,20 @@ class ShapeKey:
     transforms and the transform-axes lengths otherwise, so a 2-D key and
     a 1-D key of the same total points are distinct entries; ``n`` is
     always the total points per transform.  FDAS keys carry the bank size
-    and the overlap-save segment (0 = auto).
+    and the overlap-save segment (0 = auto); pulsar keys the filterbank
+    shape, the DM-grid size, the bank size and the harmonic count.
     """
 
     kind: str
     n: int
     precision: str
+    n_harmonics: int = 0            # pulsar requests only; 0 otherwise
     device: str = ""
     transform: str = "c2c"          # "c2c" | "r2c": distinct plans + sweeps
     shape: tuple[int, ...] = ()     # N-D transform-axes lengths; () for 1-D
-    templates: int = 0              # fdas: acceleration-bank size
+    templates: int = 0              # fdas/pulsar: acceleration-bank size
     segment: int = 0                # fdas: overlap-save nfft (0 = auto)
+    dm_trials: int = 0              # pulsar: dedispersion DM-grid size
 
     @property
     def last_axis(self) -> int:
@@ -60,10 +63,13 @@ class ShapeKey:
     @property
     def elem_bytes(self) -> int:
         """Per-point device bytes of this shape's payload: real (half) for
-        pow2 R2C along the last transform axis, complex otherwise (non-pow2
-        r2c runs the full C2C plan).  In lockstep with
-        ``core.workloads.FFTCase.elem_bytes``."""
+        pow2 R2C along the last transform axis and for pulsar filterbanks,
+        complex otherwise (non-pow2 r2c runs the full C2C plan).  In
+        lockstep with ``core.workloads.FFTCase.elem_bytes`` and
+        ``PulsarCase.sample_bytes``."""
         full = COMPLEX_BYTES[self.precision]
+        if self.kind == KIND_PULSAR:
+            return full // 2
         if self.transform == "r2c" and is_pow2(self.last_axis):
             return full // 2
         return full
@@ -76,17 +82,21 @@ class FFTRequest:
     ``x`` is a numpy array or torch tensor: (batch, *shape) or (*shape,)
     with ``ndim`` transform axes (1 for the paper's 1-D workload, 2+ for
     N-D transforms through the plan graph).  FDAS requests carry real
-    (batch, n) time series and the bank size ``templates``.
+    (batch, n) time series and the bank size ``templates``; pulsar
+    requests carry (batch, nchan, ntime) or (nchan, ntime) filterbanks,
+    the DM-grid size ``dm_trials``, ``templates`` and ``n_harmonics``.
     """
 
     x: Any
     precision: str = "fp32"
     kind: str = KIND_FFT
     latency_budget: float | None = None  # max tolerable slowdown vs boost
+    n_harmonics: int = 32                # pulsar kind only
     transform: str = "c2c"               # "c2c" or "r2c" (real payloads)
     ndim: int = 1                        # transform rank
-    templates: int = 16                  # fdas kind only: bank size
+    templates: int = 16                  # fdas/pulsar: bank size
     segment: int = 0                     # fdas kind only: nfft (0 = auto)
+    dm_trials: int = 16                  # pulsar kind only: DM-grid size
     request_id: int = dataclasses.field(
         default_factory=lambda: next(_REQUEST_IDS))
     t_enqueue: float = 0.0               # stamped by the service
@@ -98,22 +108,26 @@ class FFTRequest:
             raise ValueError(
                 f"unknown precision {self.precision!r}; "
                 f"have {sorted(COMPLEX_BYTES)}")
-        if self.kind in _LATER_KINDS:
-            raise NotImplementedError(
-                f"{self.kind!r} requests arrive with "
-                f"{_LATER_KINDS[self.kind]} of the port")
-        if self.kind not in (KIND_FFT, KIND_FDAS):
+        if self.kind not in (KIND_FFT, KIND_PULSAR, KIND_FDAS):
             raise ValueError(f"unknown request kind {self.kind!r}")
-        if self.kind == KIND_FDAS and self.templates < 1:
+        if self.kind in (KIND_FDAS, KIND_PULSAR) and self.templates < 1:
             raise ValueError(
                 f"{self.kind} requests need templates >= 1, "
                 f"got {self.templates}")
         if self.transform not in ("c2c", "r2c"):
             raise ValueError(f"unknown transform {self.transform!r}; "
                              "have ('c2c', 'r2c')")
+        if self.kind == KIND_PULSAR:
+            # Pulsar payloads are rank-2 filterbanks (nchan, ntime); the
+            # transform rank is implied, not caller-chosen.
+            if self.dm_trials < 1:
+                raise ValueError(
+                    f"pulsar requests need dm_trials >= 1, "
+                    f"got {self.dm_trials}")
+            self.ndim = 2
         if self.ndim < 1:
             raise ValueError(f"transform rank must be >= 1, got {self.ndim}")
-        if self.ndim > 1 and self.kind != KIND_FFT:
+        if self.ndim > 1 and self.kind not in (KIND_FFT, KIND_PULSAR):
             raise ValueError("N-D payloads are FFT requests only")
         # Reject malformed payloads at submit time so one bad request can
         # never poison a whole serving cycle.
@@ -147,13 +161,32 @@ class FFTRequest:
 
     def shape_key(self, device_name: str) -> ShapeKey:
         """FDAS keys carry (n, segment, templates): distinct banks or
-        segment lengths plan and sweep separately."""
+        segment lengths plan and sweep separately.  Pulsar keys carry the
+        whole pipeline configuration — filterbank shape, DM-grid size,
+        bank size, harmonic count — and pin the inner R2C as
+        ``transform``."""
         fdas = self.kind == KIND_FDAS
-        return ShapeKey(kind=self.kind, n=self.n, precision=self.precision,
-                        device=device_name, transform=self.transform,
-                        shape=self.shape if self.ndim > 1 else (),
-                        templates=self.templates if fdas else 0,
-                        segment=self.segment if fdas else 0)
+        pulsar = self.kind == KIND_PULSAR
+        return ShapeKey(
+            kind=self.kind, n=self.n, precision=self.precision,
+            n_harmonics=self.n_harmonics if pulsar else 0,
+            device=device_name,
+            transform="r2c" if pulsar else self.transform,
+            shape=self.shape if self.ndim > 1 else (),
+            templates=self.templates if (fdas or pulsar) else 0,
+            segment=self.segment if fdas else 0,
+            dm_trials=self.dm_trials if pulsar else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class StageReceipt:
+    """One pipeline stage's share of a request: the clock the per-stage
+    DVFS plan locks it to and its modelled time/energy share."""
+
+    name: str                   # "dedisp" | "fdas" | "harmonic-sum" | "sift"
+    clock_mhz: float            # the stage's locked clock
+    time_s: float               # modelled stage time of this share
+    energy_j: float             # modelled stage energy of this share
 
 
 @dataclasses.dataclass
@@ -172,6 +205,9 @@ class RequestReceipt:
     energy_j: float             # model-predicted energy of this share
     boost_energy_j: float       # same share executed at the boost clock
     result: Any = None          # transform output (None if not retained)
+    # --- pulsar-pipeline requests only -----------------------------------
+    stages: list[StageReceipt] | None = None   # per-stage clock + J shares
+    realtime_margin: float | None = None       # S = t_acquire / t_process
     # --- kernel launch ledger (repro_torch.obs.ledger) ---------------------
     # The launch signature of this request's shape: one LaunchRecord per
     # kernel launch of the first batch of the shape the process served.

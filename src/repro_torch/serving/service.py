@@ -1,8 +1,11 @@
 """The energy-aware streaming FFT service, on the card.
 
 The counterpart of ``repro.serving.service`` for ``KIND_FFT`` requests
-(1-D and N-D, C2C and R2C) and ``KIND_FDAS`` requests (the acceleration
-search, answered with its packed candidates).  Request lifecycle:
+(1-D and N-D, C2C and R2C), ``KIND_FDAS`` requests (the acceleration
+search, answered with its packed candidates) and ``KIND_PULSAR`` requests
+(the end-to-end pulsar search, answered with its sifted candidates, with
+per-stage DVFS shares and the real-time margin on each receipt).  Request
+lifecycle:
 
   enqueue      submit() stamps arrival time and parks the request
   batch        drain() coalesces pending requests into Eq. 6-sized batches
@@ -24,7 +27,7 @@ The energy numbers come from the analytic DVFS model of ``device_spec``
 The reference's SLO admission, fault injection, degradation ladder,
 power telemetry, tracing, metrics, drift detection, journal and mesh
 sharding arrive with later slices of the port: their arguments are not
-parameters here yet.
+parameters here yet.  So does the degraded (sweep-free) pulsar build.
 """
 from __future__ import annotations
 
@@ -43,8 +46,8 @@ from repro_torch.obs.metrics import latency_summary
 from repro_torch.serving.batcher import Batch, coalesce
 from repro_torch.serving.cache import CacheEntry, CacheStats, PlanSweepCache
 from repro_torch.serving.dispatch import Dispatcher
-from repro_torch.serving.request import (KIND_FDAS, KIND_FFT, FFTRequest,
-                                         RequestReceipt)
+from repro_torch.serving.request import (KIND_FFT, FFTRequest,
+                                         RequestReceipt, StageReceipt)
 
 _EXEC_DTYPE = {"fp16": np.complex64, "fp32": np.complex64,
                "fp64": np.complex128}
@@ -153,8 +156,9 @@ class FFTService:
 
     def submit(self, x: Any, *, precision: str = "fp32",
                kind: str = KIND_FFT, latency_budget: float | None = None,
-               transform: str = "c2c", ndim: int = 1, templates: int = 16,
-               segment: int = 0) -> FFTRequest:
+               n_harmonics: int = 32, transform: str = "c2c", ndim: int = 1,
+               templates: int = 16, segment: int = 0,
+               dm_trials: int = 16) -> FFTRequest:
         """Enqueue one request (a (batch, *shape) or (*shape,) array or
         tensor).
 
@@ -167,12 +171,21 @@ class FFTService:
         the bank and ``segment`` pins the overlap-save FFT length (0 =
         cost-model auto-selection), and both are part of the cache key.
         The result of an FDAS request is its (batch, k, 3) candidates.
-        The request's receipt becomes available after the next drain():
+        ``kind="pulsar"`` runs the end-to-end pulsar search
+        (``repro_torch.search.pipeline``) on (batch, nchan, ntime) or
+        (nchan, ntime) filterbanks: ``dm_trials`` sizes the dedispersion
+        grid, ``templates``/``n_harmonics`` the bank and the harmonic
+        ladder, and all three join the cache key; the result is the
+        (batch, k, 5) sifted candidates, and the receipt carries per-stage
+        DVFS shares (clock, modelled J) and the real-time margin.  The
+        request's receipt becomes available after the next drain():
         ``service.receipt(request)``.
         """
         req = FFTRequest(x=x, precision=precision, kind=kind,
-                         latency_budget=latency_budget, transform=transform,
-                         ndim=ndim, templates=templates, segment=segment)
+                         latency_budget=latency_budget,
+                         n_harmonics=n_harmonics, transform=transform,
+                         ndim=ndim, templates=templates, segment=segment,
+                         dm_trials=dm_trials)
         req.t_enqueue = self._timer()
         self._pending.append(req)
         return req
@@ -219,11 +232,12 @@ class FFTService:
         """The batch's payloads as one (rows, *shape) tensor on ``device``
         at the execution dtype.  Numpy payloads are stacked on the host
         and copied once; tensor payloads are stacked on ``device`` and
-        never visit the host.  R2C payloads and FDAS time series execute
-        real (FDAS in float32, as the reference)."""
+        never visit the host.  R2C payloads execute real; FDAS time series
+        and pulsar filterbanks execute real in float32, as the
+        reference's."""
         key = batch.key
-        real = key.transform == "r2c" or key.kind == KIND_FDAS
-        if key.kind == KIND_FDAS:
+        real = key.transform == "r2c" or key.kind != KIND_FFT
+        if key.kind != KIND_FFT:
             dtype = np.float32
         else:
             dtype = (_REAL_EXEC_DTYPE if real else _EXEC_DTYPE)[key.precision]
@@ -290,6 +304,15 @@ class FFTService:
             rows = req.batch
             result = y[offset:offset + rows]
             offset += rows
+            stages = None
+            if entry.stages is not None:
+                # Pipeline entries: scale the modelled batch's per-stage
+                # plan (clock + J/stage) to this request's row share.
+                share = rows / max(entry.n_fft_model, 1)
+                stages = [StageReceipt(name=s.name, clock_mhz=s.f,
+                                       time_s=s.time * share,
+                                       energy_j=s.energy * share)
+                          for s in entry.stages.stages]
             self._store(RequestReceipt(
                 request=req,
                 batch_id=batch.batch_id,
@@ -301,6 +324,8 @@ class FFTService:
                 energy_j=per_energy * rows,
                 boost_energy_j=per_boost * rows,
                 result=result,
+                stages=stages,
+                realtime_margin=entry.realtime_margin,
                 launches=list(launches),
             ))
 

@@ -298,3 +298,97 @@ def test_service_serves_2d_and_fdas_on_the_card(gen):
     cands = svc.receipt(rf).result
     assert cands.shape == (2, 16, 3)
     assert torch.equal(cands[..., 2], want.candidates.power)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,nchan,n,ndm", [
+    (1, 1, 1, 1), (3, 5, 1025, 9), (2, 64, 4096, 17), (1, 1024, 2048, 8)])
+def test_dedisperse_kernel_matches_plain_on_the_card(gen, batch, nchan, n,
+                                                     ndm):
+    """Ragged DM tiles and sample tiles, and a delay of N - 1 in every
+    channel of the last trial."""
+    import numpy as np
+    from repro_torch.kernels.dedisp import dedisp_kernel as D
+    from repro_torch.kernels.dedisp import dedisperse_kernel, dedisperse_ref
+    fb = _real(gen, batch, nchan, n)
+    rng = np.random.default_rng(n)
+    delays = rng.integers(0, n, size=(ndm, nchan))
+    delays[-1] = n - 1
+    D.reset_launches()
+    got = dedisperse_kernel(fb, delays)
+    assert D.LAUNCHES == {"dedisperse": 1}
+    table = torch.from_numpy(delays.astype(np.int32)).cuda()
+    want = D.dedisperse_plain(fb, table)
+    assert _rel(got, want) <= RTOL
+    assert _rel(got, dedisperse_ref(fb, delays)) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", (1, 2, 8, 32))
+@pytest.mark.parametrize("rows,n", [(1, 1), (3, 1025), (37, 4096),
+                                    (5, 65537)])
+def test_harmonic_sum_kernels_match_plain_on_the_card(gen, rows, n, h):
+    import importlib
+    from repro_torch.kernels.harmonic_sum import (harmonic_sum_kernel,
+                                                  harmonic_sum_plane)
+    H = importlib.import_module(
+        "repro_torch.kernels.harmonic_sum.harmonic_sum_kernel")
+    p = 3.0 * torch.rand(rows, n, device="cuda", generator=gen)
+    H.reset_launches()
+    stat, lev = harmonic_sum_plane(p, h)
+    ladder = harmonic_sum_kernel(p, h)
+    assert H.LAUNCHES == {"harmonic_sum_plane": 1, "harmonic_sum": 1}
+    want_stat, want_lev = H.harmonic_sum_plane_plain(p, h)
+    assert _rel(stat, want_stat) <= RTOL
+    assert torch.equal(lev, want_lev)
+    assert _rel(ladder, H.harmonic_sum_plain(p, h)) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1), (7, 1025), (3, 2**20)])
+def test_power_spectrum_stats_kernel_matches_plain_on_the_card(gen, rows, n):
+    from repro_torch.kernels.spectrum import (power_spectrum_stats_kernel,
+                                              spectrum_kernel as S)
+    x = _rand(gen, rows, n)
+    S.reset_launches()
+    p, mean, std = power_spectrum_stats_kernel(x)
+    assert S.LAUNCHES == {"power_spectrum_stats": 1}
+    wp, wmean, wvar = S.power_spectrum_stats_plain(x)
+    assert _rel(p, wp) <= RTOL and _rel(mean, wmean) <= RTOL
+    want_std = torch.sqrt(torch.clamp_min(wvar, 0.0))
+    # One bin has no spread: both stds are exactly 0.
+    assert (torch.equal(std, want_std) if n == 1
+            else _rel(std, want_std) <= RTOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_pulsar_search_on_the_card(gen):
+    """The small search on the card through every kernel: the CPU run's
+    candidates, and its statistic within 1e-4."""
+    from repro_torch.data.synthetic import (FilterbankSpec, InjectedPulsar,
+                                            synthetic_filterbank)
+    from repro_torch.obs.ledger import LaunchLedger
+    from repro_torch.search import (DispersionPlan, TemplateBank,
+                                    pulsar_search)
+    spec = FilterbankSpec(nchan=16, ntime=2048)
+    plan = DispersionPlan.from_spec(spec, n_trials=8)
+    bank = TemplateBank.linear(zmax=4.0, n_templates=5)
+    fb = torch.from_numpy(synthetic_filterbank(
+        spec, (InjectedPulsar(dm=plan.dms[3], k0=300, z=2.0, amp=0.12),
+               InjectedPulsar(dm=plan.dms[6], k0=611, z=-4.0, amp=0.12)),
+        noise=1.0, seed=2))
+    ledger = LaunchLedger()
+    with ledger.capture():
+        got = pulsar_search(fb.cuda(), plan, bank)
+    torch.cuda.synchronize()
+    assert ledger.counts() == {"dedisperse": 1, "fft-r2c": 1,
+                               "fft-c2c-mul": 1, "fft-c2c": 1,
+                               "harmonic-sum-plane": 1}
+    want = pulsar_search(fb, plan, bank)
+    assert _rel(got.stat.cpu(), want.stat) <= 1e-4
+    for name in ("dm", "template", "bin"):
+        assert torch.equal(getattr(got.candidates, name).cpu(),
+                           getattr(want.candidates, name))

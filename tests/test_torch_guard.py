@@ -22,7 +22,16 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("repro_torch.fft.plan", "repro_torch.core.dvfs",
                  "repro_torch.fft.plan_nd", "repro_torch.fft.multidim",
                  "repro_torch.fft.convolve", "repro_torch.search.fdas",
-                 "repro_torch.search.templates"):
+                 "repro_torch.search.templates", "repro_torch.search.sift",
+                 "repro_torch.search.pipeline", "repro_torch.fft.pipeline",
+                 "repro_torch.data.synthetic", "repro_torch.core.realtime",
+                 "repro_torch.core.scheduler",
+                 "repro_torch.kernels.dedisp.ops",
+                 "repro_torch.kernels.dedisp.dedisp_kernel",
+                 "repro_torch.kernels.harmonic_sum.ops",
+                 "repro_torch.kernels.harmonic_sum.harmonic_sum_kernel",
+                 "repro_torch.kernels.spectrum.ops",
+                 "repro_torch.kernels.spectrum.spectrum_kernel"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"

@@ -66,11 +66,13 @@ def test_sweep_options_are_identical():
 
 
 def test_builders_of_later_slices_raise():
-    """Only the pulsar-search builder waits for its slice; the N-D and
-    FDAS builders price (their parity is in test_torch_plan_nd.py and
-    test_torch_fdas.py)."""
+    """No workload model waits for a later slice any more: the N-D, FDAS
+    and pulsar-search models all price (their parity is in
+    test_torch_plan_nd.py, test_torch_fdas.py and test_torch_pipeline.py)."""
     assert port.fft_workload(port.FFTCase(shape=(64, 64)),
                              port.TESLA_V100).t_mem > 0
-    from repro_torch.core import workloads
-    with pytest.raises(NotImplementedError, match="slice"):
-        workloads.pulsar_search_workload()
+    kw = dict(nchan=16, ntime=2048, dm_trials=8, templates=5, taps=33)
+    assert [_asdict(p) for p in port.pulsar_search_workload(
+        port.PulsarCase(**kw), port.TESLA_V100)] == [
+            _asdict(p) for p in ref.workloads.pulsar_search_workload(
+                ref.workloads.PulsarCase(**kw), ref.TESLA_V100)]

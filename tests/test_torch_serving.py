@@ -319,8 +319,14 @@ def test_malformed_payload_rejected_at_submit():
     ({"kind": "pulsar"}, "pulsar"),
 ])
 def test_later_kinds_name_their_slice(kw, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        service().submit(np.zeros((2, 8, 8), np.complex64), **kw)
+    """The pulsar slice has landed: a pulsar request is accepted as a
+    rank-2 filterbank keyed on its whole pipeline configuration (served
+    in test_torch_serving_pulsar.py)."""
+    req = service().submit(np.zeros((2, 8, 8), np.complex64), **kw)
+    key = req.shape_key("d")
+    assert (req.kind, req.ndim, req.batch) == (slice_name, 2, 2)
+    assert (key.shape, key.transform, key.dm_trials, key.templates,
+            key.n_harmonics) == ((8, 8), "r2c", 16, 16, 32)
 
 
 def test_failed_batch_requeues_unserved_requests():

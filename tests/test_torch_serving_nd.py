@@ -5,6 +5,7 @@ counts and validation errors, results within 1e-5 * max |ref| for pow2
 transforms, and the same FDAS candidates as (template, bin) sets (ties in
 ``torch.topk`` may order differently).  The port serves on the CPU here
 (``devices=[cpu]``: the kernels' plain versions)."""
+import dataclasses
 import itertools
 
 import numpy as np
@@ -166,5 +167,15 @@ def test_nd_payloads_stack_as_rows_of_the_shape():
 
 
 def test_pulsar_requests_still_name_their_slice():
-    with pytest.raises(NotImplementedError, match="pulsar"):
-        FFTRequest(x=np.zeros((2, 8, 8), np.float32), kind="pulsar")
+    """Pulsar requests are served now: the port accepts what the reference
+    accepts and rejects a DM grid of no trials with its error."""
+    x = np.zeros((2, 8, 8), np.float32)
+    port = FFTRequest(x=x, kind="pulsar")
+    ref = RefRequest(x=x, kind="pulsar")
+    assert dataclasses.asdict(port.shape_key("d")) == \
+        dataclasses.asdict(ref.shape_key("d"))
+    with pytest.raises(ValueError) as ref_err:
+        RefRequest(x=x, kind="pulsar", dm_trials=0)
+    with pytest.raises(ValueError) as port_err:
+        FFTRequest(x=x, kind="pulsar", dm_trials=0)
+    assert str(port_err.value) == str(ref_err.value)
