@@ -11,17 +11,20 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. build every CUDA kernel of the port from ``src/repro_torch/csrc``
      (the six libraries ``fft_c2c``, ``fft_real``, ``transpose``,
      ``dedisp``, ``harmonic_sum`` and ``spectrum``, one ``nvcc`` each, in
-     parallel);
+     parallel) and check that no instance of the register-pass kernels
+     (``fft_c2c``, ``fft_r2c``) spills registers;
   2. print the card's name and power limit (``nvidia-smi``);
   3. hold each kernel (the C2C variants: fft_c2c, fft_c2c_t with and
      without twiddle, fft_c2c_axis1 with and without twiddle, forward and
      inverse; fft_r2c, fft_c2r; fft_r2c_t, transpose and fft_c2c_mul;
      dedisperse, harmonic_sum_plane, harmonic_sum and
      power_spectrum_stats) against its plain torch version on the card,
-     at small, ragged shapes and at the shapes the main paths give it;
-     time the kernel, the plain version and, where one call computes the
-     same function, that PyTorch call (else the nearest torch
-     composition);
+     at small, ragged shapes and at the shapes the main paths give it —
+     fft_c2c and fft_r2c at every pow2 length (2..8192, 4..16384), both
+     radix sets, forward and inverse, two tiles — and time the kernel,
+     the plain version and, where one call computes the same function,
+     that PyTorch call (else the nearest torch composition); fft_c2c and
+     fft_r2c over a sweep of 2 GB batches, with the blocks one SM holds;
   4. drive the main path — ``plan_for_length(n)(x)`` on a 2 GB batch
      (``FFTCase(n).n_fft`` transforms) for n = 1024, 8192, 2**20 and
      19321 = 139**2, then ``plan_for_length(n, "r2c")`` and ``"c2r"`` on
@@ -171,10 +174,22 @@ LEDGER_TO_KERNEL = {"fft-c2c": "fft_c2c", "fft-c2c-t": "fft_c2c_t",
                     "harmonic-sum": "harmonic_sum",
                     "power-spectrum-stats": "power_spectrum_stats"}
 #: The CUDA kernels' names; each is the prefix of its __global__ function
-#: (``<name>_kernel``), which names it in profiler traces.
+#: (``<name>_kernel``, ``<name>_regs_kernel<P>`` for the register-pass
+#: kernels), which names it in profiler traces.
 KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
            "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
            "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
+#: The register-pass kernels (csrc/stockham_regs.cuh) and their symbols.
+PASS_KERNELS = {"fft_c2c": "fft_c2c_regs_kernel",
+                "fft_r2c": "fft_r2c_regs_kernel"}
+#: Phase 3 holds them against their plain versions at every pow2 length,
+#: both radix sets, forward and inverse (C2C), and times 2 GB batches.
+PASS_C2C_LENGTHS = tuple(2**k for k in range(1, 14))
+PASS_R2C_LENGTHS = tuple(2**k for k in range(2, 15))
+PASS_RADICES = ((4, 2), (8, 4, 2))
+PASS_BATCH = 37                  # ragged against every block size
+SWEEP_C2C = (256, 1024, 2048, 4096, 8192)
+SWEEP_R2C = (1024, 4096, 16384)
 #: The modules whose ``LAUNCHES`` count the kernels' launches.
 COUNTERS = (K, D, H, S)
 SOURCES = {
@@ -287,6 +302,23 @@ def median_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, reps: int = 10) -> float:
+    """Mean time of ``reps`` runs launched back to back between one pair
+    of CUDA events, after one warm-up run: the host enqueues the next run
+    while the card executes, so its own time per run drops out once a run
+    takes longer than the host needs to launch it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def randn(gen: torch.Generator, *shape: int) -> torch.Tensor:
     return torch.randn(*shape, dtype=torch.complex64, device="cuda",
                        generator=gen)
@@ -318,7 +350,8 @@ def device_breakdown(fn) -> dict[str, float]:
         if (ev.device_type != torch.autograd.DeviceType.CUDA
                 or "spin_kernel" in ev.name):
             continue
-        name = next((k for k in KERNELS if f"{k}_kernel" in ev.name),
+        name = next((k for k in KERNELS
+                     if PASS_KERNELS.get(k, f"{k}_kernel") in ev.name),
                     "torch (other kernels)")
         out[name] = out.get(name, 0.0) + ev.device_time / 1e3
     return out
@@ -335,6 +368,27 @@ def phase1_build() -> None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {stem}: {line.strip()}")
+    for stem in ("fft_c2c", "fft_real"):
+        spills = _pass_kernel_spills(libs[stem].with_suffix(".so.log"))
+        check(spills and not any(spills.values()),
+              f"{stem}: register-pass kernels spill: {spills}")
+        print(f"  {stem}: register-pass kernels without spill: "
+              f"{sorted(spills)}")
+
+
+def _pass_kernel_spills(log) -> dict[str, int]:
+    """Spill-store bytes of each register-pass kernel instance in an
+    ``nvcc -Xptxas -v`` log, by mangled name."""
+    out: dict[str, int] = {}
+    name = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif (name and "spill stores" in line
+              and any(sym in name for sym in PASS_KERNELS.values())):
+            out[name] = int(line.split("bytes spill stores")[0]
+                            .split(",")[-1])
+    return out
 
 
 def phase2_card() -> str:
@@ -405,12 +459,17 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
     print(f"phase 3: {checked} kernel-vs-plain checks, max relative error "
           f"{worst:.3e} (limit {KERNEL_RTOL})")
 
-    # The main path's shapes, forward, as the plans launch them; the
-    # first row of each kernel is its headline in the kernels line.
+    # fft_c2c at every length, then the 2 GB sweep, 1024 its headline in
+    # the kernels line.  Then the other kernels at the main path's shapes,
+    # forward, as the plans launch them; the first row of each kernel is
+    # its headline.
     results: dict[str, dict] = {}
+    phase3_pass_lengths(gen, "fft_c2c")
+    for n in SWEEP_C2C:
+        row = _pass_sweep_row(gen, "fft_c2c", n)
+        if n == 1024:
+            results["fft_c2c"] = row
     main_shapes = [
-        ("fft_c2c", (FFTCase(1024).n_fft, 1024), None),
-        ("fft_c2c", (FFTCase(8192).n_fft, 8192), None),
         ("fft_c2c_axis1", (FFTCase(2**20).n_fft, 1024, 1024), (1024, 1024)),
         ("fft_c2c_t", (FFTCase(2**20).n_fft, 1024, 1024), None),
         ("fft_c2c_axis1", (FFTCase(19321).n_fft, 256, 256), (256, 256)),
@@ -427,9 +486,7 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
         # without twiddle: fft_c2c_t's row FFT written as (B, C, R) is the
         # FFT along dim -2 of the transposed view.  With a twiddle it is
         # the FFT part alone, timed as a yardstick.
-        if name == "fft_c2c":
-            lib, lib_call = (lambda: torch.fft.fft(x)), "torch.fft.fft(x)"
-        elif name == "fft_c2c_t":
+        if name == "fft_c2c_t":
             lib = lambda: torch.fft.fft(x.transpose(1, 2), dim=-2)  # noqa: E731
             lib_call = "torch.fft.fft(x.transpose(1, 2), dim=-2)"
         else:
@@ -490,8 +547,9 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
 def phase3_real_kernels(gen: torch.Generator,
                         results: dict[str, dict]) -> None:
     """fft_r2c and fft_c2r against their plain versions on the card (both
-    radix sets, ragged batches), then timed at the main path's shapes;
-    adds one row per kernel to ``results``."""
+    radix sets, ragged batches), fft_r2c at every length and swept over 2 GB
+    batches, fft_c2r timed at the main path's shapes; adds one row per
+    kernel to ``results``."""
     worst = 0.0
     checked = 0
     for n in (8, 64, 1024, 16384):
@@ -513,24 +571,25 @@ def phase3_real_kernels(gen: torch.Generator,
     print(f"phase 3: {checked} real-kernel-vs-plain checks, max relative "
           f"error {worst:.3e} (limit {KERNEL_RTOL})")
 
-    # The main path's shapes: FFTCase(n, transform="r2c").n_fft rows, 2 GB
-    # of float32 input; the C2R input is a true half-spectrum (torch.fft's
-    # irfft drops the imaginary parts of bins 0 and N/2, the merge reads
-    # them).
-    for name, n in (("fft_r2c", 1024), ("fft_r2c", 16384),
-                    ("fft_c2r", 1024), ("fft_c2r", 16384)):
+    # fft_r2c at every length, then the 2 GB sweep (FFTCase(n,
+    # transform="r2c").n_fft rows of float32 input), 1024 its headline.
+    phase3_pass_lengths(gen, "fft_r2c")
+    for n in SWEEP_R2C:
+        row = _pass_sweep_row(gen, "fft_r2c", n)
+        if n == 1024:
+            results["fft_r2c"] = row
+    # fft_c2r at the main path's shapes; its input is a true half-spectrum
+    # (torch.fft's irfft drops the imaginary parts of bins 0 and N/2, the
+    # merge reads them).
+    name = "fft_c2r"
+    for n in (1024, 16384):
         b = FFTCase(n, transform="r2c").n_fft
         m = n // 2
         real = torch.randn(b, n, device="cuda", generator=gen)
-        if name == "fft_r2c":
-            x, shape = real, (b, n)
-            fn, plain = ops.fft_kernel_r2c, K.fft_r2c_plain
-            lib, lib_call = (lambda: torch.fft.rfft(x)), "torch.fft.rfft(x)"
-        else:
-            x, shape = torch.fft.rfft(real), (b, m + 1)
-            fn, plain = ops.fft_kernel_c2r, K.fft_c2r_plain
-            lib = lambda: torch.fft.irfft(x, n=n)  # noqa: E731
-            lib_call = f"torch.fft.irfft(x, n={n})"
+        x, shape = torch.fft.rfft(real), (b, m + 1)
+        fn, plain = ops.fft_kernel_c2r, K.fft_c2r_plain
+        lib = lambda: torch.fft.irfft(x, n=n)  # noqa: E731
+        lib_call = f"torch.fft.irfft(x, n={n})"
         del real
         y = fn(x)
         y_plain = plain(x)
@@ -566,6 +625,83 @@ def phase3_real_kernels(gen: torch.Generator,
         results.setdefault(name, row)
         del x
         torch.cuda.empty_cache()
+
+
+def phase3_pass_lengths(gen: torch.Generator, name: str) -> None:
+    """The register-pass kernel ``name`` (fft_c2c or fft_r2c) against its
+    plain version at every pow2 length, both radix sets, forward and
+    inverse (C2C), on a ragged batch, with the default transforms per
+    block and with tile_b = 3 (1 where three do not fit a block)."""
+    worst, checked = 0.0, 0
+    lengths = PASS_C2C_LENGTHS if name == "fft_c2c" else PASS_R2C_LENGTHS
+    for n in lengths:
+        m = n if name == "fft_c2c" else n // 2
+        fits3 = 3 * m // K.pass_points(m) <= K.PASS_THREADS
+        for radices in PASS_RADICES:
+            if name == "fft_c2c":
+                x = randn(gen, PASS_BATCH, n)
+                cases = [(inv, lambda tb, inv=inv: ops.fft_kernel_c2c(
+                    x, inverse=inv, radices=radices, tile_b=tb),
+                    K.fft_c2c_plain(x, inverse=inv, radices=radices))
+                    for inv in (False, True)]
+            else:
+                x = torch.randn(PASS_BATCH, n, device="cuda", generator=gen)
+                cases = [(False, lambda tb: ops.fft_kernel_r2c(
+                    x, radices=radices, tile_b=tb),
+                    K.fft_r2c_plain(x, radices=radices))]
+            for inverse, fn, want in cases:
+                for tile_b in (None, 3 if fits3 else 1):
+                    _, rel = rel_err(fn(tile_b), want)
+                    check(rel <= KERNEL_RTOL,
+                          f"{name} n={n} radices={radices} inverse="
+                          f"{inverse} tile_b={tile_b}: rel err {rel:.3e}")
+                    worst = max(worst, rel)
+                    checked += 1
+    torch.cuda.synchronize()
+    print(f"phase 3: {name} at every pow2 length {lengths[0]}..{lengths[-1]}"
+          f": {checked} kernel-vs-plain checks (radices {PASS_RADICES}, "
+          f"batch {PASS_BATCH}, tile_b default and 3), max relative error "
+          f"{worst:.3e} (limit {KERNEL_RTOL})")
+
+
+def _pass_sweep_row(gen: torch.Generator, name: str, n: int) -> dict:
+    """One row of the 2 GB length sweep of a register-pass kernel: the
+    kernel against its plain version, then ms, GB/s, bound, plain ms,
+    library ms and the blocks one SM holds (cudaOccupancy...)."""
+    if name == "fft_c2c":
+        b = FFTCase(n).n_fft
+        x = randn(gen, b, n)
+        fn, plain = ops.fft_kernel_c2c, K.fft_c2c_plain
+        lib, lib_call = (lambda: torch.fft.fft(x)), "torch.fft.fft(x)"
+        m, split = n, False
+        # Read x, write y (16 bytes a point), the compact twiddle table.
+        nbytes = 16 * b * n + 8 * (n - 1)
+        flops = mixed_radix_flop_count(n, batch=b)
+    else:
+        b = FFTCase(n, transform="r2c").n_fft
+        x = torch.randn(b, n, device="cuda", generator=gen)
+        fn, plain = ops.fft_kernel_r2c, K.fft_r2c_plain
+        lib, lib_call = (lambda: torch.fft.rfft(x)), "torch.fft.rfft(x)"
+        m, split = n // 2, True
+        # Read the reals (4 bytes each), write N/2+1 bins (8 bytes each),
+        # the compact table of N/2 and the split table.
+        nbytes = 4 * b * n + 8 * b * (m + 1) + 8 * (m - 1) + 8 * (m + 1)
+        flops = r2c_flop_count(n, DEFAULT_RADICES, batch=b)
+    launch = K.pass_launch(m, b, DEFAULT_RADICES, split=split)
+    resident = K.resident_blocks(name, launch)
+    row = _timed_row(name, tuple(x.shape), lambda: fn(x), lambda: plain(x),
+                     lib, lib_call, None, nbytes, flops, _close)
+    row["resident_blocks"] = resident
+    queued, lib_queued = queued_ms(lambda: fn(x)), queued_ms(lib)
+    print(f"    {name} n={n}: {launch.points} points a thread, "
+          f"{launch.threads} threads and {launch.shared_bytes} shared bytes "
+          f"a block, passes {launch.passes}, {resident} blocks resident "
+          f"per SM (planner's estimate {launch.resident_blocks}); 10 runs "
+          f"back to back {queued:.4f} ms a run ({nbytes / queued / 1e6:.1f} "
+          f"GB/s), library {lib_queued:.4f} ms")
+    del x
+    torch.cuda.empty_cache()
+    return row
 
 
 def _timed_row(name: str, shape, fn, plain, lib, lib_call: str | None,

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/fft/fft_kernel.py:
 //   repro_fft_c2c        <- fft_pallas (def :360; body _c2c_body :137;
-//                           stages _mixed_radix_stages :68)
+//                           stages _mixed_radix_stages :68), in register
+//                           passes
 //   repro_fft_c2c_axis1  <- fft_axis1_twiddle_pallas (:515, body :202) and
 //                           fft_axis1_pallas (:483): a null twiddle
 //                           pointer selects the variant without twiddle
@@ -14,22 +15,42 @@
 //
 // What bounds them: memory.  A length-n transform does ~4.25 n log2 n
 // float operations on 16 n bytes of device-memory traffic (one complex64
-// read and one write per point), ~1-2 operations per byte at n <= 8192,
-// against the H100's ~20 float32 operations per byte of HBM bandwidth.
-// The least time of a launch is therefore bytes_moved / 3.35 TB/s.
+// read and one write per point, 16 B a point), ~1-2 operations per byte
+// at n <= 8192, against the H100's ~20 float32 operations per byte of HBM
+// bandwidth.  The least time of a launch is therefore bytes_moved /
+// 3.35 TB/s.
 //
-// What the design does about it: each thread block loads whole transforms
-// into shared memory once, runs every Stockham stage of the radix schedule
-// there (ping-pong between two shared buffers, one __syncthreads per
-// stage), applies the optional four-step twiddle in the epilogue and
-// writes each point once — in the kernel's layout: natural (c2c), the same
-// (B, R, C) layout for the column FFT (axis1), or transposed to (B, C, R)
-// (t).  Device memory sees exactly one read and one write of the batch.
-// Complex data stays interleaved (float2) end to end: the TPU kernels'
-// split re/im planes would cost extra passes here.  A ragged batch is
-// masked in the kernel (the last block runs fewer transforms), never
-// padded.  Length 8192 needs 128 KB of shared memory per block, which is
-// only available as dynamic shared memory after cudaFuncSetAttribute.
+// What the designs do about it: device memory sees exactly one read and
+// one write of the batch; complex data stays interleaved (float2) end to
+// end, since the TPU kernels' split re/im planes would cost extra passes;
+// a ragged batch is masked in the kernel (the last block runs fewer
+// transforms), never padded.
+//
+// repro_fft_c2c runs register-resident Stockham passes
+// (stockham_regs.cuh): each thread loads 16 points of a transform (32 at
+// n = 8192, where a transform takes 256 threads) straight from device
+// memory into registers, coalesced, runs up to five stages on them, and
+// exchanges with the other threads of its transform through one padded
+// shared buffer (n + n/16 slots, 68 KB at 8192) between passes: 2 or 3
+// exchanges at n = 8192 instead of the 7 shared round trips of one stage
+// each.  The last pass stores straight from registers, in natural order.
+// The twiddles are one compact table of n - 1 float2 read through L1.
+// With 256 threads a block, a launch bound that keeps every instance
+// without spills, and one buffer, three blocks share an SM at 16 points a
+// thread and two at n = 8192 (radix-8 schedules, a tuning option: two
+// and one), so one block's loads overlap another's passes.  The plan (the
+// stages grouped into passes) comes from the host (fft_kernel.pass_table);
+// each (points, family) instance is compiled for its own passes only.
+//
+// repro_fft_c2c_t, _axis1 and _mul keep the shared-memory stages of
+// stockham(): each thread block loads whole transforms into shared memory
+// once, runs every Stockham stage of the radix schedule there (ping-pong
+// between two shared buffers, one __syncthreads per stage), applies the
+// optional four-step twiddle in the epilogue and writes each point once —
+// in the kernel's layout: the same (B, R, C) layout for the column FFT
+// (axis1), or transposed to (B, C, R) (t).  Length 8192 needs 128 KB of
+// shared memory per block, which is only available as dynamic shared
+// memory after cudaFuncSetAttribute.
 //
 // The bank multiply (c2c_mul) is the overlap-save/FDAS forward pass.  It
 // writes T times what it reads — 8 n (B + T + B T) bytes, write-bound —
@@ -43,40 +64,43 @@
 // Consecutive threads write consecutive points of one (row, template)
 // product, so the store is fully coalesced.
 //
-// The stages themselves (stockham.cuh) are the reference's arithmetic,
-// operation for operation; the plain torch version beside the wrapper
-// (repro_torch/kernels/fft/fft_kernel.py) runs the same schedule and
-// tables.
+// The stages themselves (stockham.cuh, stockham_regs.cuh) are the
+// reference's arithmetic, operation for operation; the plain torch
+// version beside the wrapper (repro_torch/kernels/fft/fft_kernel.py) runs
+// the same schedule and tables.
 //
 // Interface: plain C functions on device pointers, launched on the given
 // stream; each returns the cudaError_t of its launch (0 on success).
 
-#include "stockham.cuh"
+#include "stockham_regs.cuh"
 
 namespace {
 
-// (B, n) -> (B, n): block i transforms rows [i*per_block, ...) of the batch.
-__global__ void __launch_bounds__(kThreads)
-    fft_c2c_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                   long long batch, int per_block,
-                   const __grid_constant__ Schedule s,
-                   const float* __restrict__ tw_re,
-                   const float* __restrict__ tw_im) {
+// (B, n) -> (B, n) in register passes (stockham_regs.cuh): block i
+// transforms rows [i*per_block, ...), each on n / P threads; F is the
+// schedule's largest radix.
+template <int P, int F>
+__global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
+    fft_c2c_regs_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                        long long batch, int per_block,
+                        const __grid_constant__ RegPlan s,
+                        const float2* __restrict__ tw) {
   extern __shared__ float2 smem[];
   const int n = s.n;
-  const long long first = static_cast<long long>(blockIdx.x) * per_block;
-  const int count = static_cast<int>(min(static_cast<long long>(per_block),
-                                         batch - first));
-  const int elems = count * n;
-  float2* a = smem;
-  float2* b = smem + static_cast<size_t>(per_block) * n;
-  const float2* src = x + first * n;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) a[e] = src[e];
-  __syncthreads();
-  const float2* res = stockham(a, b, count, s, tw_re, tw_im);
-  float2* dst = y + first * n;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x)
-    dst[e] = scaled(res[e], s.scale);
+  const int tr = threadIdx.x >> s.log_t;
+  const int lane = threadIdx.x & ((1 << s.log_t) - 1);
+  const long long row = static_cast<long long>(blockIdx.x) * per_block + tr;
+  const bool live = row < batch;  // the last block may be ragged
+  float2 v[P];
+  if (live) {
+    load_global<P, F>(v, x + row * n, s, lane);
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = make_float2(0.f, 0.f);
+  }
+  reg_passes_but_last<P, F>(v, smem + tr * padded(n), s, tw, lane);
+  run_pass<P, F>(v, s, s.npasses - 1, tw, lane);
+  if (live) store_global<P, F>(v, y + row * n, s, lane);
 }
 
 // (B, R, C) -> (B, C, R): FFT of each row (n = C), written transposed;
@@ -192,22 +216,45 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 int repro_fft_c2c(const void* x, void* y, long long batch, int n,
-                  int per_block, const int* radices, int nstages,
+                  int points, int per_block, const int* table, int npasses,
                   int inverse, const float* dft_re, const float* dft_im,
-                  const float* tw_re, const float* tw_im, void* stream) {
-  Schedule s;
-  cudaError_t err =
-      make_schedule(&s, n, radices, nstages, inverse, dft_re, dft_im);
+                  const void* tw, void* stream) {
+  RegPlan s;
+  cudaError_t err = make_reg_plan(&s, n, points, table, npasses, inverse,
+                                  dft_re, dft_im);
   if (err != cudaSuccess) return err;
+  if (per_block < 1) return cudaErrorInvalidValue;
   const long long blocks = (batch + per_block - 1) / per_block;
-  size_t smem = 0;
-  err = prepare(fft_c2c_kernel, blocks, per_block, n, &smem);
-  if (err != cudaSuccess) return err;
-  fft_c2c_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), batch,
-      per_block, s, tw_re, tw_im);
-  return cudaGetLastError();
+  const int threads = per_block << s.log_t;
+  const size_t smem =
+      npasses > 1 ? static_cast<size_t>(per_block) * padded(n) * sizeof(float2)
+                  : 0;
+  return with_instance(points, s.family, [&](auto pf) {
+    constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
+    cudaError_t e =
+        prepare_passes(fft_c2c_regs_kernel<P, F>, blocks, threads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fft_c2c_regs_kernel<P, F><<<static_cast<unsigned>(blocks), threads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(x), static_cast<float2*>(y), batch,
+        per_block, s, static_cast<const float2*>(tw));
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Blocks of `threads` threads and `smem` bytes that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for the instance of
+// `points` points and family `family`, or -1 on error.
+int repro_fft_c2c_resident_blocks(int points, int family, int threads,
+                                  long long smem) {
+  int blocks = -1;
+  with_instance(points, family, [&](auto pf) {
+    blocks = resident_blocks(
+        fft_c2c_regs_kernel<decltype(pf)::kP, decltype(pf)::kF>, threads,
+        smem);
+    return 0;
+  });
+  return blocks;
 }
 
 int repro_fft_c2c_mul(const void* x, void* y, long long batch, int n,

@@ -30,12 +30,18 @@ the launch fails — there is no fallback between the two.  ``LAUNCHES``
 counts kernel launches (only launches; the plain versions never count),
 so a caller can show that work went through the kernels.
 
+``fft_c2c`` and ``fft_r2c`` run the schedule in register-resident passes
+(``csrc/stockham_regs.cuh``) that the host plans here (:func:`pass_launch`,
+:func:`pass_table`), reading the same twiddle numbers from a compact table
+(:func:`compact_twiddles`); the other kernels run it in shared memory.
+
 The plain R2C/C2R versions run the Hermitian split and merge of the torch
 engine (``repro_torch.fft.stockham``); the kernels read its split table.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -98,6 +104,228 @@ def transforms_per_block(points: int, count: int,
         raise ValueError(f"{tile} transforms of {points} points per block "
                          f"exceed {MAX_SHARED_BYTES} bytes of shared memory")
     return tile
+
+
+# ---------------------------------------------------------------------------
+# Register-pass plan and launch geometry of fft_c2c and fft_r2c
+# ---------------------------------------------------------------------------
+
+#: One SM of an H100: threads, registers, shared memory (228 KB) and the
+#: shared memory the runtime reserves per block.
+SM_THREADS = 2048
+SM_REGISTERS = 65536
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_SHARED = 1024
+
+#: Threads per block of the register-pass kernels, and the most a block
+#: may run (their ``__launch_bounds__``).
+PASS_THREADS = 256
+#: Points one thread holds: 16 (n if shorter), and more where a transform
+#: would otherwise take more than a block: 32 at n = 8192.
+PASS_POINTS = 16
+PASS_MAX_POINTS = 2**13 // PASS_THREADS
+#: Most stages of one pass (PASS_MAX_POINTS = 2**5: five radix-2 stages).
+PASS_STAGES = 5
+#: The passes the planner makes, by kernel instance: (points a thread,
+#: family), the family being the schedule's largest radix; over every set
+#: of radices from (2, 4, 8) and every length.  The kernels compile each
+#: instance for its own passes only (``REPRO_PASS_SHAPES`` in
+#: ``csrc/stockham_regs.cuh``).
+PASS_SHAPES = {
+    (2, 2): ((2,),), (4, 2): ((2, 2),), (4, 4): ((4,),),
+    (8, 2): ((2, 2, 2),), (8, 4): ((2, 4),), (8, 8): ((8,),),
+    (16, 2): ((2,), (2, 2), (2, 2, 2), (2, 2, 2, 2)),
+    (16, 4): ((4,), (2, 4), (4, 4)),
+    (16, 8): ((4,), (8,), (2, 2), (2, 8)),
+    (32, 2): ((2, 2, 2), (2, 2, 2, 2, 2)),
+    (32, 4): ((4, 4), (2, 4, 4)),
+    (32, 8): ((8,), (2, 8)),
+}
+#: Ints per pass in the plan table the launch reads (``csrc/
+#: stockham_regs.cuh``, ``make_reg_plan``): log2 R, log2 H, stages, the
+#: radix of each stage, the twiddle offset of each stage.
+PASS_FIELDS = 3 + 2 * PASS_STAGES
+#: Blocks per SM the launch bound of each kernel instance (points a
+#: thread, family) sizes the registers for, 65536 / (256 * blocks) a
+#: thread: 85 at 3, 128 at 2 (32 points take 64), 255 at 1.  The most at
+#: which no instance spills (``pass_min_blocks`` in
+#: ``csrc/stockham_regs.cuh``); 3 where not listed.  The radix-8
+#: butterflies need more registers.
+PASS_MIN_BLOCKS = {(16, 8): 2, (32, 2): 2, (32, 4): 2, (32, 8): 1}
+
+
+def pass_registers(points: int, family: int) -> int:
+    """Registers a thread of instance (points, family) may use."""
+    blocks = PASS_MIN_BLOCKS.get((points, family), 3)
+    return min(SM_REGISTERS // (PASS_THREADS * blocks), 255)
+
+
+def pass_points(n: int) -> int:
+    """Points one thread holds in a length-``n`` transform."""
+    return max(min(n, PASS_POINTS), n // PASS_THREADS)
+
+
+def padded(n: int) -> int:
+    """Shared-memory slots of one transform's exchange buffer: one pad
+    slot after every 16 points (``csrc/stockham_regs.cuh``, ``pad``)."""
+    return n + n // 16
+
+
+@functools.lru_cache(maxsize=None)
+def register_passes(n: int, radices: tuple[int, ...] = DEFAULT_RADICES
+                    ) -> tuple[tuple[int, ...], ...]:
+    """The stages of ``schedule(n, radices)`` grouped into register passes,
+    front first: each pass takes the next stages while their radices
+    multiply to at most the points a thread holds."""
+    points = pass_points(n)
+    passes: list[tuple[int, ...]] = []
+    cur: list[int] = []
+    prod = 1
+    for r in schedule(n, tuple(radices)):
+        if prod * r > points:
+            passes.append(tuple(cur))
+            cur, prod = [], 1
+        cur.append(r)
+        prod *= r
+    if cur:
+        passes.append(tuple(cur))
+    return tuple(passes)
+
+
+@functools.lru_cache(maxsize=None)
+def pass_table(n: int, radices: tuple[int, ...] = DEFAULT_RADICES
+               ) -> np.ndarray:
+    """The plan the kernel runs: one row of ``PASS_FIELDS`` ints a pass.
+
+    A pass of radices (r1, .., rk), R = r1*..*rk points an item, starts at
+    sub-length M and leaves H = M / R.  Item (li, jj), jj < H, holds the R
+    points li*M + q*H + jj; stage i butterflies the digit of q at register
+    stride S_i = r_{i+1}*..*rk, with twiddle column b*H + jj (b the lower
+    digits) read at the stage's offset in :func:`compact_twiddles`.  The
+    point in register q = k1*S_1 + .. + kk*S_k goes to
+    item + (k1 + r1*k2 + r1*r2*k3 + ..) * n / R: the Stockham order.  The
+    kernel knows the strides and output offsets of each pass's radices at
+    compile time; the row gives the radices, R, H and the offsets."""
+    passes = register_passes(n, tuple(radices))
+    table = np.zeros((len(passes), PASS_FIELDS), np.int32)
+    m, tw = n, 0
+    for row, radix in zip(table, passes):
+        r_all = int(np.prod(radix))
+        h = m // r_all
+        row[0] = r_all.bit_length() - 1
+        row[1] = h.bit_length() - 1
+        row[2] = len(radix)
+        row[3:3 + len(radix)] = radix
+        for i, r in enumerate(radix):
+            row[3 + PASS_STAGES + i] = tw
+            tw += (r - 1) * int(np.prod(radix[i + 1:])) * h   # r - 1 rows
+        m = h
+    assert tw == n - 1 and m == 1
+    table.setflags(write=False)
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def compact_twiddles(n: int, radices: tuple[int, ...],
+                     device: torch.device) -> torch.Tensor:
+    """The stage twiddles the pass kernels read, as one complex64 table of
+    n - 1 entries: stage after stage, branch k = 1..r-1 after branch, the
+    h = M/r columns of each — the first h entries of each row of
+    :func:`stage_tables`, the same float32 numbers."""
+    twr, twi = packed_stage_twiddles(n, tuple(radices))
+    re, im = [], []
+    row, m = 0, n
+    for r in schedule(n, tuple(radices)):
+        h = m // r
+        for k in range(r - 1):
+            re.append(twr[row + k, :h])
+            im.append(twi[row + k, :h])
+        row += r - 1
+        m = h
+    re = np.concatenate(re) if re else np.zeros(1, np.float32)
+    im = np.concatenate(im) if im else np.zeros(1, np.float32)
+    return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class PassLaunch:
+    """Launch geometry of a register-pass kernel (``fft_c2c``, ``fft_r2c``)
+    for ``n`` complex points a transform (N/2 for R2C)."""
+
+    n: int
+    passes: tuple[tuple[int, ...], ...]
+    points: int            # points a thread holds
+    per_block: int         # transforms a block runs
+    threads: int           # threads a block runs: per_block * n / points
+    shared_bytes: int      # the block's exchange buffers
+    blocks: int
+
+    @property
+    def family(self) -> int:
+        """The schedule's largest radix: with ``points``, the kernel
+        instance that runs the plan."""
+        return max(max(p) for p in self.passes)
+
+    @property
+    def exchanges(self) -> int:
+        """Round trips through shared memory between passes."""
+        return len(self.passes) - 1
+
+    @property
+    def resident_blocks(self) -> int:
+        """Blocks one SM can hold at once, from the thread, register
+        (:func:`pass_registers` a thread) and shared-memory budgets; the
+        card's own count comes from
+        ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+        (:func:`resident_blocks`)."""
+        fits = [SM_THREADS // self.threads,
+                SM_REGISTERS // (self.threads
+                                 * pass_registers(self.points, self.family))]
+        if self.shared_bytes:
+            fits.append(SM_SHARED_BYTES
+                        // (self.shared_bytes + BLOCK_RESERVED_SHARED))
+        return min(fits)
+
+
+@functools.lru_cache(maxsize=1024)
+def pass_launch(n: int, count: int,
+                radices: tuple[int, ...] = DEFAULT_RADICES,
+                override: int | None = None, *,
+                split: bool = False) -> PassLaunch:
+    """Launch geometry of ``count`` length-``n`` transforms: ``n / points``
+    threads a transform, ``PASS_THREADS`` a block (one transform a block
+    from n = 4096), at most ``count`` transforms a block.  ``override``
+    (the ``tile_b`` tuning axis) sets the transforms per block, validated
+    against the thread and shared-memory limits.
+    Shared memory holds one padded buffer a transform when the plan has an
+    exchange, or when ``split`` (R2C) needs the spectrum in shared memory
+    for its Hermitian split."""
+    if n < 2:
+        raise ValueError(f"register-pass kernels need n >= 2, got {n}")
+    passes = register_passes(n, tuple(radices))
+    points = pass_points(n)
+    per_transform = n // points
+    if override is not None and override < 1:
+        raise ValueError(f"batch tile override must be >= 1, got {override}")
+    tile = min(override or max(PASS_THREADS // per_transform, 1),
+               max(count, 1))
+    threads = tile * per_transform
+    shared = (tile * padded(n) * _ELEM_BYTES
+              if split or len(passes) > 1 else 0)
+    if threads > PASS_THREADS:
+        raise ValueError(f"{tile} transforms of {n} points per block need "
+                         f"{threads} threads (at most {PASS_THREADS})")
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"{tile} transforms of {n} points per block "
+                         f"exceed {MAX_SHARED_BYTES} bytes of shared memory")
+    family = max(max(p) for p in passes)
+    if not set(passes) <= set(PASS_SHAPES.get((points, family), ())):
+        raise ValueError(f"the {n}-point plan {passes} has a pass the "
+                         f"kernels do not compile for {points} points a "
+                         f"thread and family {family}")
+    return PassLaunch(n=n, passes=passes, points=points, per_block=tile,
+                      threads=threads, shared_bytes=shared,
+                      blocks=blocks(count, tile))
 
 
 def blocks(count: int, per_block: int, outer: int = 1) -> int:
@@ -319,9 +547,11 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fft_c2c")
     lib.repro_fft_error_string.argtypes = [_I]
     lib.repro_fft_error_string.restype = ctypes.c_char_p
-    lib.repro_fft_c2c.argtypes = [_P, _P, _LL, _I, _I, _P, _I, _I,
-                                  _P, _P, _P, _P, _P]
+    lib.repro_fft_c2c.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _I,
+                                  _P, _P, _P, _P]
     lib.repro_fft_c2c.restype = _I
+    lib.repro_fft_c2c_resident_blocks.argtypes = [_I, _I, _I, _LL]
+    lib.repro_fft_c2c_resident_blocks.restype = _I
     lib.repro_fft_c2c_mul.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _P, _I,
                                       _I, _P, _P, _P, _P, _P]
     lib.repro_fft_c2c_mul.restype = _I
@@ -337,10 +567,14 @@ def _real_library() -> ctypes.CDLL:
     lib = load_library("fft_real")
     lib.repro_fft_error_string.argtypes = [_I]
     lib.repro_fft_error_string.restype = ctypes.c_char_p
-    for fn in (lib.repro_fft_r2c, lib.repro_fft_c2r):
-        fn.argtypes = [_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _P,
-                       _P, _P]
-        fn.restype = _I
+    lib.repro_fft_r2c.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _P, _P,
+                                  _P, _P, _P]
+    lib.repro_fft_r2c.restype = _I
+    lib.repro_fft_r2c_resident_blocks.argtypes = [_I, _I, _I, _LL]
+    lib.repro_fft_r2c_resident_blocks.restype = _I
+    lib.repro_fft_c2r.argtypes = [_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P,
+                                  _P, _P, _P]
+    lib.repro_fft_c2r.restype = _I
     lib.repro_fft_r2c_t.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _P,
                                     _P, _P, _P, _P, _P]
     lib.repro_fft_r2c_t.restype = _I
@@ -376,6 +610,36 @@ def _check_twiddle(ftw: torch.Tensor | None, shape: tuple[int, int],
                          f"{ftw.dtype} on {ftw.device}")
 
 
+@dataclasses.dataclass(frozen=True)
+class _PassArgs:
+    """The C arguments of a register-pass launch between its length and
+    its stream, with the tables they point into (kept alive here)."""
+
+    c_args: tuple
+    tables: tuple
+
+
+@functools.lru_cache(maxsize=1024)
+def _pass_args(n: int, count: int, radices: tuple[int, ...],
+               per_block: int, inverse: bool, split: bool,
+               device: torch.device) -> _PassArgs:
+    """Launch arguments of ``count`` length-``n`` transforms (``split``:
+    the R2C's half length, with its split table), cached per shape so that
+    a call spends its host time on the launch alone."""
+    launch = pass_launch(n, count, radices, per_block, split=split)
+    table = pass_table(n, radices)
+    dr, di = _dft8(inverse)
+    tw = compact_twiddles(n, radices, device)
+    head = (launch.points, launch.per_block, table.ctypes.data, len(table))
+    if split:
+        sw = _split_factors(2 * n, device, torch.complex64)
+        return _PassArgs(head + (dr.ctypes.data, di.ctypes.data,
+                                 tw.data_ptr(), sw.data_ptr()),
+                         (table, dr, di, tw, sw))
+    return _PassArgs(head + (int(inverse), dr.ctypes.data, di.ctypes.data,
+                             tw.data_ptr()), (table, dr, di, tw))
+
+
 def _schedule_args(n: int, radices: tuple[int, ...], inverse: bool,
                    device: torch.device):
     """The C arguments every launch shares (kept alive by the caller)."""
@@ -388,8 +652,9 @@ def _schedule_args(n: int, radices: tuple[int, ...], inverse: bool,
 def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
             radices: tuple[int, ...] = DEFAULT_RADICES,
             per_block: int) -> torch.Tensor:
-    """Batched pow2 C2C FFT over the last axis of a (B, N) tensor,
-    ``per_block`` transforms per thread block."""
+    """Batched pow2 C2C FFT over the last axis of a (B, N) tensor in
+    register passes (:func:`pass_launch`), ``per_block`` transforms per
+    thread block."""
     _check(x, 2, "fft_c2c")
     b, n = x.shape
     if x.device.type == "cpu":
@@ -397,13 +662,12 @@ def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
     y = torch.empty_like(x)
     if b == 0:
         return y
-    sched, dr, di, twr, twi = _schedule_args(n, radices, inverse, x.device)
+    args = _pass_args(n, b, tuple(radices), per_block, inverse, False,
+                      x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().repro_fft_c2c(
-            x.data_ptr(), y.data_ptr(), b, n, per_block, sched.ctypes.data,
-            len(sched), int(inverse), dr.ctypes.data, di.ctypes.data,
-            twr.data_ptr(), twi.data_ptr(), stream)
+        err = _library().repro_fft_c2c(x.data_ptr(), y.data_ptr(), b, n,
+                                       *args.c_args, stream)
     _raise_on(err, "fft_c2c", _library())
     return y
 
@@ -540,7 +804,8 @@ def _check_real(x: torch.Tensor, what: str, ndim: int = 2) -> None:
 def fft_r2c(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
             per_block: int) -> torch.Tensor:
     """Batched packed R2C FFT of a (B, N) float32 tensor -> (B, N/2+1)
-    complex64, ``per_block`` transforms per thread block."""
+    complex64: the N/2-point C2C in register passes (:func:`pass_launch`),
+    then the Hermitian split, ``per_block`` transforms per thread block."""
     _check_real(x, "fft_r2c")
     b, n = x.shape
     m = _real_length(n)
@@ -549,8 +814,15 @@ def fft_r2c(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     y = torch.empty((b, m + 1), dtype=torch.complex64, device=x.device)
     if b == 0:
         return y
-    return _launch_real("fft_r2c", _real_library().repro_fft_r2c, x, y, n,
-                        radices, False, per_block)
+    args = _pass_args(m, b, tuple(radices), per_block, False, True,
+                      x.device)
+    lib = _real_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_fft_r2c(x.data_ptr(), y.data_ptr(), b, n,
+                                *args.c_args, stream)
+    _raise_on(err, "fft_r2c", lib)
+    return y
 
 
 def fft_r2c_t(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
@@ -599,7 +871,7 @@ def fft_c2r(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
 def _launch_real(name: str, fn, x: torch.Tensor, y: torch.Tensor, n: int,
                  radices: tuple[int, ...], inverse: bool,
                  per_block: int) -> torch.Tensor:
-    """Launch the R2C/C2R kernel: stage tables of the half length N/2, the
+    """Launch the C2R kernel: stage tables of the half length N/2, the
     complex64 split table of N."""
     sched, dr, di, twr, twi = _schedule_args(n // 2, radices, inverse,
                                              x.device)
@@ -612,6 +884,20 @@ def _launch_real(name: str, fn, x: torch.Tensor, y: torch.Tensor, n: int,
                  sw.data_ptr(), stream)
     _raise_on(err, name, _real_library())
     return y
+
+
+def resident_blocks(name: str, launch: PassLaunch) -> int:
+    """Blocks of ``launch`` that one SM of the current card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) for the pass
+    kernel ``name`` (``fft_c2c`` or ``fft_r2c``)."""
+    fn = {"fft_c2c": lambda: _library().repro_fft_c2c_resident_blocks,
+          "fft_r2c": lambda: _real_library().repro_fft_r2c_resident_blocks
+          }[name]()
+    got = fn(launch.points, launch.family, launch.threads,
+             launch.shared_bytes)
+    if got < 0:
+        raise RuntimeError(f"occupancy query of {name} failed for {launch}")
+    return got
 
 
 def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:

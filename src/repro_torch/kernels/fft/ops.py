@@ -25,7 +25,8 @@ from repro_torch.fft.radix import DEFAULT_RADICES
 from repro_torch.kernels.fft import fft_kernel
 from repro_torch.obs.ledger import record_launch
 
-# One fused pass handles transforms that fit shared memory, double-buffered.
+# One fused kernel handles transforms that fit shared memory: the register
+# passes of fft_c2c/fft_r2c, the double-buffered stages of the others.
 MAX_KERNEL_N = 2**13
 
 
@@ -62,7 +63,8 @@ def fft_kernel_c2c(x: torch.Tensor, *, inverse: bool = False,
     """Batched pow2 C2C FFT (..., N) through the ``fft_c2c`` kernel.
 
     Longer-than-one-pass transforms go through ``repro_torch.fft.plan``.
-    ``tile_b`` overrides the transforms per thread block (autotuner hook).
+    ``tile_b`` overrides the transforms per thread block (autotuner hook);
+    the kernel runs register passes (``fft_kernel.pass_launch``).
     """
     x = _complex64(x)
     n = x.shape[-1]
@@ -72,11 +74,12 @@ def fft_kernel_c2c(x: torch.Tensor, *, inverse: bool = False,
         return x
     lead = x.shape[:-1]
     b = _batch(x.shape, 1)
-    tile = fft_kernel.transforms_per_block(n, b, tile_b)
+    launch = fft_kernel.pass_launch(n, b, tuple(radices), tile_b)
     y = fft_kernel.fft_c2c(x.reshape(b, n), inverse=inverse,
-                           radices=radices, per_block=tile)
-    record_launch("fft-c2c", grid=(fft_kernel.blocks(b, tile),),
-                  tile=(tile, n), bytes_moved=16 * b * n, shape=(b, n))
+                           radices=radices, per_block=launch.per_block)
+    record_launch("fft-c2c", grid=(launch.blocks,),
+                  tile=(launch.per_block, n), bytes_moved=16 * b * n,
+                  shape=(b, n))
     return y.reshape(*lead, n)
 
 
@@ -189,7 +192,8 @@ def fft_kernel_r2c(x: torch.Tensor, *,
     """Batched pow2 R2C FFT: (..., N) real -> (..., N/2+1) complex64.
 
     Packs N reals as N/2 complex points, so it takes N up to
-    2 * MAX_KERNEL_N; the Hermitian split runs inside the kernel.
+    2 * MAX_KERNEL_N; the N/2-point FFT runs in register passes
+    (``fft_kernel.pass_launch``) and the Hermitian split inside the kernel.
     """
     x = _real32(x)
     n = x.shape[-1]
@@ -198,11 +202,13 @@ def fft_kernel_r2c(x: torch.Tensor, *,
         return stockham.rfft(x)
     lead = x.shape[:-1]
     b = _batch(x.shape, 1)
-    tile = fft_kernel.transforms_per_block(n // 2, b, tile_b)
-    y = fft_kernel.fft_r2c(x.reshape(b, n), radices=radices, per_block=tile)
-    record_launch("fft-r2c", grid=(fft_kernel.blocks(b, tile),),
-                  tile=(tile, n), bytes_moved=4 * b * (n + 2 * (n // 2 + 1)),
-                  shape=(b, n))
+    launch = fft_kernel.pass_launch(n // 2, b, tuple(radices), tile_b,
+                                    split=True)
+    y = fft_kernel.fft_r2c(x.reshape(b, n), radices=radices,
+                           per_block=launch.per_block)
+    record_launch("fft-r2c", grid=(launch.blocks,),
+                  tile=(launch.per_block, n),
+                  bytes_moved=4 * b * (n + 2 * (n // 2 + 1)), shape=(b, n))
     return y.reshape(*lead, n // 2 + 1)
 
 

@@ -44,10 +44,13 @@ def test_source_flags_and_new_headers_rename_the_library(csrc, monkeypatch):
 
 
 def test_the_port_ships_its_shared_header():
-    """Both kernel sources include the one shared header, so it is part of
-    every library's name."""
+    """Both kernel sources include the shared headers (the register passes,
+    which include the shared-memory stages), so they are part of every
+    library's name."""
     headers = sorted(p.name for p in common.CSRC_DIR.glob("*.cuh"))
-    assert headers == ["stockham.cuh"]
+    assert headers == ["stockham.cuh", "stockham_regs.cuh"]
+    regs = (common.CSRC_DIR / "stockham_regs.cuh").read_text()
+    assert '#include "stockham.cuh"' in regs
     for stem in ("fft_c2c", "fft_real"):
         text = (common.CSRC_DIR / f"{stem}.cu").read_text()
-        assert '#include "stockham.cuh"' in text
+        assert '#include "stockham_regs.cuh"' in text

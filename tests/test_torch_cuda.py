@@ -75,6 +75,51 @@ def test_plans_launch_the_kernels(gen, n, expected):
     assert _rel(y, fft_ref(x)) <= (2e-5 if n & (n - 1) == 0 else 1e-4)
 
 
+#: Every pow2 length of the register-pass kernels.
+C2C_LENGTHS = tuple(2**k for k in range(1, 14))
+R2C_LENGTHS = tuple(2**k for k in range(2, 15))
+
+
+def _tiles(n: int) -> tuple:
+    """The default transforms per block, and one override that fits."""
+    return (None, 3 if 3 * n // K.pass_points(n) <= K.PASS_THREADS
+            else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", (False, True))
+@pytest.mark.parametrize("radices", ((4, 2), (8, 4, 2)))
+@pytest.mark.parametrize("n", C2C_LENGTHS)
+def test_c2c_register_passes_match_plain_at_every_length(gen, n, radices,
+                                                         inverse):
+    x = _rand(gen, 37, n)                       # ragged against every tile
+    want = K.fft_c2c_plain(x, inverse=inverse, radices=radices)
+    for tile_b in _tiles(n):
+        assert _rel(ops.fft_kernel_c2c(x, inverse=inverse, radices=radices,
+                                       tile_b=tile_b), want) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radices", ((4, 2), (8, 4, 2)))
+@pytest.mark.parametrize("n", R2C_LENGTHS)
+def test_r2c_register_passes_match_plain_at_every_length(gen, n, radices):
+    x = torch.randn(37, n, device="cuda", generator=gen)
+    want = K.fft_r2c_plain(x, radices=radices)
+    for tile_b in _tiles(n // 2):
+        assert _rel(ops.fft_kernel_r2c(x, radices=radices, tile_b=tile_b),
+                    want) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,split", [("fft_c2c", 8192, False),
+                                          ("fft_r2c", 8192, True)])
+def test_two_blocks_resident_at_the_longest_lengths(gen, name, n, split):
+    launch = K.pass_launch(n, 30517, split=split)
+    assert K.resident_blocks(name, launch) >= 2
+
+
 def _real(gen, *shape):
     return torch.randn(*shape, device="cuda", generator=gen)
 

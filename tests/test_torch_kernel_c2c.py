@@ -78,11 +78,19 @@ def test_plain_versions_never_count_launches():
                                    "fft_c2r": 0, "transpose": 0}
 
 
+#: Threads and shared bytes of each geometry case: 16 points a thread (32
+#: at 8192), one padded exchange buffer (n + n/16 slots) a transform.
+PASS_GEOMETRY = {1024: (256, 4 * 1088 * 8), 8192: (256, 8704 * 8),
+                 64: (28, 7 * 68 * 8)}
+
+
 @pytest.mark.parametrize("n,count,tile,blocks", [
     (1024, 244140, 4, 61035),       # the 2 GB main-path batch
-    (8192, 30517, 1, 30517),        # 128 KB of shared memory per block
+    (8192, 30517, 1, 30517),        # 68 KB of shared memory per block
     (64, 7, 7, 1),                  # small batch: one ragged block
 ])
 def test_launch_geometry(n, count, tile, blocks):
-    assert fft_kernel.transforms_per_block(n, count) == tile
-    assert fft_kernel.blocks(count, tile) == blocks
+    launch = fft_kernel.pass_launch(n, count)
+    assert (launch.per_block, launch.blocks) == (tile, blocks)
+    assert (launch.threads, launch.shared_bytes) == PASS_GEOMETRY[n]
+    assert launch.resident_blocks >= 2

@@ -1,0 +1,330 @@
+"""The register-pass plan of the ``fft_c2c`` and ``fft_r2c`` kernels
+(``repro_torch.kernels.fft.fft_kernel.register_passes``, ``pass_table``,
+``compact_twiddles``, ``pass_launch``) and a torch emulation of the
+kernels' gather / butterfly / scatter order (``csrc/stockham_regs.cuh``).
+
+The emulation runs the plan table the kernel reads, thread by thread and
+register by register, with the plain versions' float32 operations: it must
+agree with ``fft_c2c_plain`` and ``fft_r2c_plain`` bit for bit
+(``torch.equal``), so an index error shows here, before a run on the card.
+"""
+import itertools
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.fft.radix import DEFAULT_RADICES
+from repro_torch.fft.stockham import _rfft_split
+from repro_torch.kernels.common import CSRC_DIR, MAX_SHARED_BYTES
+from repro_torch.kernels.fft import fft_kernel as K
+
+LENGTHS = tuple(2**k for k in range(1, 14))          # C2C: 2 .. 8192
+REAL_LENGTHS = tuple(2**k for k in range(2, 15))     # R2C: 4 .. 16384
+RADIX_SETS = ((4, 2), (8, 4, 2))
+BATCH = 3
+
+
+def _rand(seed: int, shape) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The planner
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("radices", RADIX_SETS + ((2,),))
+@pytest.mark.parametrize("n", LENGTHS)
+def test_passes_cover_the_schedule_within_the_budgets(n, radices):
+    passes = K.register_passes(n, radices)
+    assert sum(passes, ()) == K.schedule(n, radices)
+    assert np.prod([np.prod(p) for p in passes]) == n
+    for p in passes:
+        assert np.prod(p) <= K.pass_points(n) <= K.PASS_MAX_POINTS
+        assert 1 <= len(p) <= K.PASS_STAGES
+    launch = K.pass_launch(n, 10**6, radices)
+    assert set(passes) <= set(K.PASS_SHAPES[launch.points, launch.family])
+    assert launch.threads <= K.PASS_THREADS
+    assert launch.threads == launch.per_block * n // launch.points
+    assert launch.shared_bytes <= MAX_SHARED_BYTES
+    if n == 8192:
+        assert launch.exchanges <= 3
+        assert launch.exchanges == (2 if radices != (8, 4, 2) else 3)
+
+
+@pytest.mark.parametrize("radices", RADIX_SETS)
+@pytest.mark.parametrize("n,split", [(8192, False), (8192, True)])
+def test_two_blocks_per_sm_at_the_longest_lengths(n, split, radices):
+    """C2C 8192 and R2C 16384 (its half length 8192, split in shared
+    memory): a 64 KB transform plus padding on 256 threads of 32 points,
+    two blocks on one SM with the default radices.  The radix-8 schedule's
+    instance takes up to 255 registers a thread, one block."""
+    launch = K.pass_launch(n, 30517, radices, split=split)
+    assert launch.shared_bytes == 8 * K.padded(n) < 72 * 2**10
+    assert launch.threads == 256 and launch.points == 32
+    assert launch.per_block == 1
+    assert launch.resident_blocks == (2 if radices == DEFAULT_RADICES else 1)
+
+
+@pytest.mark.parametrize("radices", RADIX_SETS + ((2,),))
+@pytest.mark.parametrize("n", LENGTHS)
+def test_pass_table_offsets_stay_inside_the_transform(n, radices):
+    table = K.pass_table(n, radices)
+    passes = K.register_passes(n, radices)
+    assert table.shape == (len(passes), K.PASS_FIELDS)
+    for row, radix in zip(table, passes):
+        r = 1 << int(row[0])
+        assert tuple(row[3:3 + int(row[2])]) == radix and r == np.prod(radix)
+        # Output k of an item lands k * n / R past it: a permutation.
+        assert sorted(_out(radix, q) for q in range(r)) == list(range(r))
+    # Each stage's r - 1 rows of h twiddles follow the last stage's.
+    offsets = [int(o) for row in table
+               for o in row[3 + K.PASS_STAGES:3 + K.PASS_STAGES + row[2]]]
+    assert offsets[0] == 0 and offsets == sorted(offsets)
+    assert len(K.compact_twiddles(n, radices, torch.device("cpu"))) \
+        == max(n - 1, 1)
+
+
+@pytest.mark.parametrize("radices", RADIX_SETS)
+@pytest.mark.parametrize("n", (2, 64, 8192))
+def test_compact_twiddles_are_the_stage_table_rows(n, radices):
+    """Bit for bit the first h entries of each packed row."""
+    twr, twi = K.stage_tables(n, radices, torch.device("cpu"))
+    tw = K.compact_twiddles(n, radices, torch.device("cpu"))
+    row, m, at = 0, n, 0
+    for r in K.schedule(n, radices):
+        h = m // r
+        for k in range(r - 1):
+            assert torch.equal(tw.real[at:at + h], twr[row + k, :h])
+            assert torch.equal(tw.imag[at:at + h], twi[row + k, :h])
+            at += h
+        row += r - 1
+        m = h
+    assert at == n - 1
+
+
+@pytest.mark.parametrize("radices", [c for k in (1, 2, 3) for c in
+                                     itertools.combinations((8, 4, 2), k)])
+def test_every_radix_set_plans_passes_the_kernels_compile(radices):
+    for n in LENGTHS:
+        try:
+            K.schedule(n, radices)
+        except ValueError:
+            continue                 # no factorisation into these radices
+        launch = K.pass_launch(n, 7, radices)
+        assert set(launch.passes) <= set(
+            K.PASS_SHAPES[launch.points, launch.family])
+
+
+def test_pass_shapes_are_the_kernel_source_lists():
+    """PASS_SHAPES names the passes REPRO_PASS_SHAPES compiles, and
+    REPRO_PASS_INSTANCES its (points, family) instances."""
+    src = (CSRC_DIR / "stockham_regs.cuh").read_text()
+
+    def macro(name):
+        body = re.search(rf"#define {name}\(X\)(.*?)\n\n", src, re.S)
+        return [tuple(int(v) for v in m.split(","))
+                for m in re.findall(r"X\(([\d, ]+)\)", body.group(1))]
+
+    shapes = {}
+    for p, f, *radix in macro("REPRO_PASS_SHAPES"):
+        shapes.setdefault((p, f), []).append(tuple(radix))
+    assert {k: sorted(v) for k, v in shapes.items()} \
+        == {k: sorted(v) for k, v in K.PASS_SHAPES.items()}
+    assert sorted(macro("REPRO_PASS_INSTANCES")) == sorted(K.PASS_SHAPES)
+
+
+def test_tile_override_is_honoured_and_validated():
+    assert K.pass_launch(1024, 1001, override=3).per_block == 3
+    assert K.pass_launch(1024, 2, override=3).per_block == 2
+    assert K.pass_launch(64, 7).per_block == 7
+    with pytest.raises(ValueError, match=">= 1"):
+        K.pass_launch(1024, 10, override=0)
+    with pytest.raises(ValueError, match="threads"):
+        K.pass_launch(8192, 10, override=2)
+
+
+# ---------------------------------------------------------------------------
+# The emulation
+# ---------------------------------------------------------------------------
+
+def _stride(radix, i):
+    """Shape::stride: the register stride of stage i's digit."""
+    return int(np.prod(radix[i + 1:]))
+
+
+def _out(radix, q):
+    """Shape::out: register q = k1*S_1 + .. holds output k1 + r1*k2 + .."""
+    kk, place = 0, 1
+    for i, r in enumerate(radix):
+        kk += (q // _stride(radix, i)) % r * place
+        place *= r
+    return kk
+
+
+def _radix(row):
+    return tuple(int(r) for r in row[3:3 + int(row[2])])
+
+
+def _gather_at(row, i, lane, log_t):
+    """gather: register g*R + q reads li*M + q*H + jj of item g."""
+    log_r, log_h = int(row[0]), int(row[1])
+    g, q = i >> log_r, i & ((1 << log_r) - 1)
+    item = lane + (g << log_t)
+    base = (((item >> log_h) << log_r) << log_h) + (item & ((1 << log_h) - 1))
+    return base + (q << log_h)
+
+
+def _scatter_at(row, i, lane, log_t, n):
+    """scatter: register g*R + q goes to item + out(q) * n/R."""
+    log_r = int(row[0])
+    g, q = i >> log_r, i & ((1 << log_r) - 1)
+    return lane + (g << log_t) + _out(_radix(row), q) * (n >> log_r)
+
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _stage(vr, vi, row, st, twr, twi, lane, log_t, inverse, dft):
+    """reg_stage: one stage on every thread's registers, item by item and
+    column by column, the twiddles of a column read once."""
+    p_pts = vr.shape[-1]
+    sign = 1.0 if inverse else -1.0
+    log_r, log_h = int(row[0]), int(row[1])
+    r = int(row[3 + st])
+    s = _stride(_radix(row), st)
+    off = int(row[3 + K.PASS_STAGES + st])
+    h = s << log_h
+    items = p_pts >> log_r
+    per = p_pts // (items * r * s)           # butterflies of an item
+    hmask = (1 << log_h) - 1
+    if items == 1 or log_h <= log_t:
+        # Every item's column is lane mod H: one twiddle set for all.
+        for b in range(s):
+            ws = _twiddles(twr, twi, off, h, r, (b << log_h) + (lane & hmask))
+            for a in range(items * per):
+                _butterfly(vr, vi, a * r * s + b, r, s, ws, sign, dft)
+        return
+    for g in range(items):
+        jj = (lane + (g << log_t)) & hmask
+        for b in range(s):
+            ws = _twiddles(twr, twi, off, h, r, (b << log_h) + jj)
+            for a in range(per):
+                _butterfly(vr, vi, (g * per + a) * r * s + b, r, s, ws,
+                           sign, dft)
+
+
+def _twiddles(twr, twi, off, h, r, j):
+    """load_twiddles: branch k's twiddle of column j, k = 1..r-1."""
+    return [(twr[off + k * h + j], twi[off + k * h + j])
+            for k in range(r - 1)]
+
+
+def _butterfly(vr, vi, o, r, s, ws, sign, dft):
+    """One butterfly of ``reg_stage`` at register o, stride s, with the
+    plain version's operations in its order."""
+    parts = [(vr[..., o + p * s], vi[..., o + p * s])
+             for p in range(r)]
+    if r == 2:
+        (ar, ai), (br, bi) = parts
+        outs = [(ar + br, ai + bi)]
+        branches = [(ar - br, ai - bi)]
+    elif r == 4:
+        (x0r, x0i), (x1r, x1i), (x2r, x2i), (x3r, x3i) = parts
+        t0r, t0i = x0r + x2r, x0i + x2i
+        t1r, t1i = x0r - x2r, x0i - x2i
+        t2r, t2i = x1r + x3r, x1i + x3i
+        t3r, t3i = x1r - x3r, x1i - x3i
+        u3r, u3i = -sign * t3i, sign * t3r
+        outs = [(t0r + t2r, t0i + t2i)]
+        branches = [(t1r + u3r, t1i + u3i), (t0r - t2r, t0i - t2i),
+                    (t1r - u3r, t1i - u3i)]
+    else:
+        dr, di = dft
+        accr, acci = parts[0]
+        for pr, pi in parts[1:]:
+            accr, acci = accr + pr, acci + pi
+        outs = [(accr, acci)]
+        branches = []
+        for k in range(1, r):
+            accr, acci = parts[0]
+            for p in range(1, r):
+                cr, ci = float(dr[p, k]), float(di[p, k])
+                pr, pi = parts[p]
+                accr = accr + pr * cr - pi * ci
+                acci = acci + pr * ci + pi * cr
+            branches.append((accr, acci))
+    for k, (br_, bi_) in enumerate(branches):
+        outs.append(_cmul(br_, bi_, *ws[k]))
+    for k, (outr, outi) in enumerate(outs):
+        vr[..., o + k * s] = outr
+        vi[..., o + k * s] = outi
+
+
+def _emulate(re, im, n, radices, inverse):
+    """The kernel on (B, n) float32 planes: returns the planes it stores
+    (before the inverse's 1/n)."""
+    table = K.pass_table(n, radices)
+    tw = K.compact_twiddles(n, radices, torch.device("cpu"))
+    twr, twi = tw.real, (-tw.imag if inverse else tw.imag)
+    dft = K._dft8(inverse)
+    p_pts = K.pass_points(n)
+    log_t = (n // p_pts).bit_length() - 1
+    lane = torch.arange(n // p_pts)
+    b = re.shape[0]
+    vr = torch.empty(b, len(lane), p_pts)
+    vi = torch.empty(b, len(lane), p_pts)
+
+    def load(src_r, src_i, row):
+        for i in range(p_pts):
+            at = _gather_at(row, i, lane, log_t)
+            vr[..., i], vi[..., i] = src_r[:, at], src_i[:, at]
+
+    def store(row):
+        dst_r = torch.full((b, n), float("nan"))
+        dst_i = torch.full((b, n), float("nan"))
+        seen = torch.zeros(n, dtype=torch.int64)
+        for i in range(p_pts):
+            at = _scatter_at(row, i, lane, log_t, n)
+            dst_r[:, at], dst_i[:, at] = vr[..., i], vi[..., i]
+            seen[at] += 1
+        assert torch.equal(seen, torch.ones(n, dtype=torch.int64))
+        return dst_r, dst_i
+
+    load(re, im, table[0])
+    for p, row in enumerate(table):
+        if p > 0:
+            load(buf_r, buf_i, row)  # noqa: F821 - the previous exchange
+        for st in range(int(row[2])):
+            _stage(vr, vi, row, st, twr, twi, lane, log_t, inverse, dft)
+        buf_r, buf_i = store(row)
+    return buf_r, buf_i
+
+
+@pytest.mark.parametrize("inverse", (False, True))
+@pytest.mark.parametrize("radices", RADIX_SETS)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_emulated_c2c_is_the_plain_version_bit_for_bit(n, radices, inverse):
+    x = _rand(n, (BATCH, n, 2))
+    re, im = torch.from_numpy(x[..., 0]), torch.from_numpy(x[..., 1])
+    yr, yi = _emulate(re, im, n, radices, inverse)
+    if inverse:
+        yr, yi = yr / n, yi / n
+    want = K.fft_c2c_plain(torch.complex(re, im), inverse=inverse,
+                           radices=radices)
+    assert torch.equal(torch.complex(yr, yi), want)
+
+
+@pytest.mark.parametrize("radices", RADIX_SETS)
+@pytest.mark.parametrize("n", REAL_LENGTHS)
+def test_emulated_r2c_is_the_plain_version_bit_for_bit(n, radices):
+    """The half-length passes on the packed reals, then the split."""
+    x = torch.from_numpy(_rand(n + 1, (BATCH, n)))
+    m = n // 2
+    v = x.reshape(BATCH, m, 2)
+    zr, zi = _emulate(v[..., 0], v[..., 1], m, radices, False)
+    got = _rfft_split(torch.complex(zr, zi), n)
+    assert torch.equal(got, K.fft_r2c_plain(x, radices=radices))
