@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the six libraries ``fft_c2c``, ``fft_real``, ``transpose``,
      ``dedisp``, ``harmonic_sum`` and ``spectrum``, one ``nvcc`` each, in
      parallel) and check that no instance of the register-pass kernels
-     (``fft_c2c``, ``fft_r2c``) spills registers;
+     (``fft_c2c``, ``fft_r2c``, ``fft_c2r``, ``fft_r2c_t``) spills
+     registers;
   2. print the card's name and power limit (``nvidia-smi``);
   3. hold each kernel (the C2C variants: fft_c2c, fft_c2c_t with and
      without twiddle, fft_c2c_axis1 with and without twiddle, forward and
@@ -20,11 +21,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      dedisperse, harmonic_sum_plane, harmonic_sum and
      power_spectrum_stats) against its plain torch version on the card,
      at small, ragged shapes and at the shapes the main paths give it —
-     fft_c2c and fft_r2c at every pow2 length (2..8192, 4..16384), both
-     radix sets, forward and inverse, two tiles — and time the kernel,
-     the plain version and, where one call computes the same function,
-     that PyTorch call (else the nearest torch composition); fft_c2c and
-     fft_r2c over a sweep of 2 GB batches, with the blocks one SM holds;
+     fft_c2c, fft_r2c and fft_c2r at every pow2 length (2..8192,
+     4..16384), both radix sets, forward and inverse, two tiles; fft_r2c_t
+     at every C (4..16384) on ragged row counts with each cluster size —
+     and time the kernel, the plain version and, where one call computes
+     the same function, that PyTorch call (else the nearest torch
+     composition); fft_c2c, fft_r2c and fft_c2r over a sweep of 2 GB
+     batches, with the blocks one SM holds; fft_r2c_t at the rfft2 pass
+     (16, 4096, 8192) with 1, 4 and 8 rows a cluster;
   4. drive the main path — ``plan_for_length(n)(x)`` on a 2 GB batch
      (``FFTCase(n).n_fft`` transforms) for n = 1024, 8192, 2**20 and
      19321 = 139**2, then ``plan_for_length(n, "r2c")`` and ``"c2r"`` on
@@ -174,14 +178,17 @@ LEDGER_TO_KERNEL = {"fft-c2c": "fft_c2c", "fft-c2c-t": "fft_c2c_t",
                     "harmonic-sum": "harmonic_sum",
                     "power-spectrum-stats": "power_spectrum_stats"}
 #: The CUDA kernels' names; each is the prefix of its __global__ function
-#: (``<name>_kernel``, ``<name>_regs_kernel<P>`` for the register-pass
-#: kernels), which names it in profiler traces.
+#: (``<name>_kernel``, ``<name>_regs_kernel<P, F>`` for the register-pass
+#: kernels), which names it in profiler traces; no symbol is a substring
+#: of another's (phase 1 checks).
 KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
            "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
            "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
 #: The register-pass kernels (csrc/stockham_regs.cuh) and their symbols.
 PASS_KERNELS = {"fft_c2c": "fft_c2c_regs_kernel",
-                "fft_r2c": "fft_r2c_regs_kernel"}
+                "fft_r2c": "fft_r2c_regs_kernel",
+                "fft_c2r": "fft_c2r_regs_kernel",
+                "fft_r2c_t": "fft_r2c_t_regs_kernel"}
 #: Phase 3 holds them against their plain versions at every pow2 length,
 #: both radix sets, forward and inverse (C2C), and times 2 GB batches.
 PASS_C2C_LENGTHS = tuple(2**k for k in range(1, 14))
@@ -190,6 +197,10 @@ PASS_RADICES = ((4, 2), (8, 4, 2))
 PASS_BATCH = 37                  # ragged against every block size
 SWEEP_C2C = (256, 1024, 2048, 4096, 8192)
 SWEEP_R2C = (1024, 4096, 16384)
+#: fft_r2c_t: the ragged row counts of its every-length check, and the
+#: rfft2 pass where its cluster size is swept.
+R2C_T_RAGGED_ROWS = (7, 13, 4097)
+R2C_T_SHAPE = (16, 4096, 8192)
 #: The modules whose ``LAUNCHES`` count the kernels' launches.
 COUNTERS = (K, D, H, S)
 SOURCES = {
@@ -350,11 +361,15 @@ def device_breakdown(fn) -> dict[str, float]:
         if (ev.device_type != torch.autograd.DeviceType.CUDA
                 or "spin_kernel" in ev.name):
             continue
-        name = next((k for k in KERNELS
-                     if PASS_KERNELS.get(k, f"{k}_kernel") in ev.name),
+        name = next((k for k in KERNELS if _symbol(k) in ev.name),
                     "torch (other kernels)")
         out[name] = out.get(name, 0.0) + ev.device_time / 1e3
     return out
+
+
+def _symbol(kernel: str) -> str:
+    """The __global__ function name of ``kernel``."""
+    return PASS_KERNELS.get(kernel, f"{kernel}_kernel")
 
 
 def phase1_build() -> None:
@@ -368,12 +383,21 @@ def phase1_build() -> None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {stem}: {line.strip()}")
+    symbols = [_symbol(k) for k in KERNELS]
+    check(not any(a != b and a in b for a in symbols for b in symbols),
+          f"a kernel symbol is a substring of another's: {symbols}")
+    spills: dict[str, int] = {}
     for stem in ("fft_c2c", "fft_real"):
-        spills = _pass_kernel_spills(libs[stem].with_suffix(".so.log"))
-        check(spills and not any(spills.values()),
-              f"{stem}: register-pass kernels spill: {spills}")
-        print(f"  {stem}: register-pass kernels without spill: "
-              f"{sorted(spills)}")
+        spills.update(_pass_kernel_spills(libs[stem].with_suffix(".so.log")))
+    check(not any(spills.values()),
+          f"register-pass kernels spill: "
+          f"{ {k: v for k, v in spills.items() if v} }")
+    for kernel, sym in PASS_KERNELS.items():
+        found = sum(sym + "I" in name for name in spills)
+        check(found == len(K.PASS_SHAPES), f"{found} instances of {sym} in "
+              f"the ptxas logs, not {len(K.PASS_SHAPES)}")
+        print(f"  {kernel}: {found} instances (points, family) "
+              f"{sorted(K.PASS_SHAPES)}, none spills")
 
 
 def _pass_kernel_spills(log) -> dict[str, int]:
@@ -547,9 +571,8 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
 def phase3_real_kernels(gen: torch.Generator,
                         results: dict[str, dict]) -> None:
     """fft_r2c and fft_c2r against their plain versions on the card (both
-    radix sets, ragged batches), fft_r2c at every length and swept over 2 GB
-    batches, fft_c2r timed at the main path's shapes; adds one row per
-    kernel to ``results``."""
+    radix sets, ragged batches), then each at every length and swept over
+    2 GB batches; adds one row per kernel to ``results``."""
     worst = 0.0
     checked = 0
     for n in (8, 64, 1024, 16384):
@@ -571,67 +594,23 @@ def phase3_real_kernels(gen: torch.Generator,
     print(f"phase 3: {checked} real-kernel-vs-plain checks, max relative "
           f"error {worst:.3e} (limit {KERNEL_RTOL})")
 
-    # fft_r2c at every length, then the 2 GB sweep (FFTCase(n,
-    # transform="r2c").n_fft rows of float32 input), 1024 its headline.
-    phase3_pass_lengths(gen, "fft_r2c")
-    for n in SWEEP_R2C:
-        row = _pass_sweep_row(gen, "fft_r2c", n)
-        if n == 1024:
-            results["fft_r2c"] = row
-    # fft_c2r at the main path's shapes; its input is a true half-spectrum
-    # (torch.fft's irfft drops the imaginary parts of bins 0 and N/2, the
-    # merge reads them).
-    name = "fft_c2r"
-    for n in (1024, 16384):
-        b = FFTCase(n, transform="r2c").n_fft
-        m = n // 2
-        real = torch.randn(b, n, device="cuda", generator=gen)
-        x, shape = torch.fft.rfft(real), (b, m + 1)
-        fn, plain = ops.fft_kernel_c2r, K.fft_c2r_plain
-        lib = lambda: torch.fft.irfft(x, n=n)  # noqa: E731
-        lib_call = f"torch.fft.irfft(x, n={n})"
-        del real
-        y = fn(x)
-        y_plain = plain(x)
-        abs_err, rel = rel_err(y, y_plain)
-        check(rel <= KERNEL_RTOL, f"{name} {shape}: rel err {rel:.3e}")
-        del y_plain
-        y_lib = lib()
-        _, lib_rel = rel_err(y_lib, y)
-        check(tuple(y_lib.shape) == tuple(y.shape)
-              and lib_rel <= PLAN_RTOL["stockham"],
-              f"{name} {shape}: {lib_call} differs, rel {lib_rel:.3e}")
-        del y, y_lib
-        torch.cuda.empty_cache()
-        ms = median_ms(lambda: fn(x))
-        plain_ms = median_ms(lambda: plain(x), reps=3)
-        library_ms = median_ms(lib)
-        # Read the input once, write the output once (4 bytes a real, 8 a
-        # bin), plus the stage table of N/2 and the split table.
-        nbytes = 4 * b * n + 8 * b * (m + 1)
-        twr, _ = K.stage_tables(m, DEFAULT_RADICES, x.device)
-        nbytes += twr.numel() * 8 + (m + 1) * 8
-        flops = r2c_flop_count(n, DEFAULT_RADICES, batch=b)
-        bound_ms, bound_by = bound(nbytes, flops)
-        row = {"name": name, "shape": list(shape), "twiddle": False,
-               "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms}
-        print(f"  {name} {shape}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
-              f"GB/s), bound {bound_ms:.4f} ms ({bound_by}), plain "
-              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms [{lib_call}, "
-              f"rel diff {lib_rel:.3e}], max abs err {abs_err:.3e} "
-              f"(rel {rel:.3e})")
-        results.setdefault(name, row)
-        del x
-        torch.cuda.empty_cache()
+    # fft_r2c and fft_c2r at every length, then the 2 GB sweep
+    # (FFTCase(n, transform="r2c").n_fft rows), 1024 the headline of each.
+    for name in ("fft_r2c", "fft_c2r"):
+        phase3_pass_lengths(gen, name)
+        for n in SWEEP_R2C:
+            row = _pass_sweep_row(gen, name, n)
+            if n == 1024:
+                results[name] = row
 
 
 def phase3_pass_lengths(gen: torch.Generator, name: str) -> None:
-    """The register-pass kernel ``name`` (fft_c2c or fft_r2c) against its
-    plain version at every pow2 length, both radix sets, forward and
-    inverse (C2C), on a ragged batch, with the default transforms per
-    block and with tile_b = 3 (1 where three do not fit a block)."""
+    """The register-pass kernel ``name`` (fft_c2c, fft_r2c or fft_c2r)
+    against its plain version at every pow2 length, both radix sets,
+    forward and inverse (C2C), on a ragged batch, with the default
+    transforms per block and with tile_b = 3 (1 where three do not fit a
+    block).  The C2R input is any complex tensor (kernel and plain
+    version run the same merge)."""
     worst, checked = 0.0, 0
     lengths = PASS_C2C_LENGTHS if name == "fft_c2c" else PASS_R2C_LENGTHS
     for n in lengths:
@@ -644,11 +623,16 @@ def phase3_pass_lengths(gen: torch.Generator, name: str) -> None:
                     x, inverse=inv, radices=radices, tile_b=tb),
                     K.fft_c2c_plain(x, inverse=inv, radices=radices))
                     for inv in (False, True)]
-            else:
+            elif name == "fft_r2c":
                 x = torch.randn(PASS_BATCH, n, device="cuda", generator=gen)
                 cases = [(False, lambda tb: ops.fft_kernel_r2c(
                     x, radices=radices, tile_b=tb),
                     K.fft_r2c_plain(x, radices=radices))]
+            else:
+                x = randn(gen, PASS_BATCH, n // 2 + 1)
+                cases = [(True, lambda tb: ops.fft_kernel_c2r(
+                    x, radices=radices, tile_b=tb),
+                    K.fft_c2r_plain(x, radices=radices))]
             for inverse, fn, want in cases:
                 for tile_b in (None, 3 if fits3 else 1):
                     _, rel = rel_err(fn(tile_b), want)
@@ -678,13 +662,22 @@ def _pass_sweep_row(gen: torch.Generator, name: str, n: int) -> dict:
         nbytes = 16 * b * n + 8 * (n - 1)
         flops = mixed_radix_flop_count(n, batch=b)
     else:
-        b = FFTCase(n, transform="r2c").n_fft
-        x = torch.randn(b, n, device="cuda", generator=gen)
-        fn, plain = ops.fft_kernel_r2c, K.fft_r2c_plain
-        lib, lib_call = (lambda: torch.fft.rfft(x)), "torch.fft.rfft(x)"
+        b = FFTCase(n, transform=name[4:]).n_fft
         m, split = n // 2, True
-        # Read the reals (4 bytes each), write N/2+1 bins (8 bytes each),
-        # the compact table of N/2 and the split table.
+        if name == "fft_r2c":
+            x = torch.randn(b, n, device="cuda", generator=gen)
+            fn, plain = ops.fft_kernel_r2c, K.fft_r2c_plain
+            lib, lib_call = (lambda: torch.fft.rfft(x)), "torch.fft.rfft(x)"
+        else:
+            # A true half-spectrum: torch.fft.irfft drops the imaginary
+            # parts of bins 0 and N/2, the merge reads them.
+            x = torch.fft.rfft(torch.randn(b, n, device="cuda",
+                                           generator=gen))
+            fn, plain = ops.fft_kernel_c2r, K.fft_c2r_plain
+            lib = lambda: torch.fft.irfft(x, n=n)  # noqa: E731
+            lib_call = f"torch.fft.irfft(x, n={n})"
+        # Read or write the reals (4 bytes each) and the N/2+1 bins (8
+        # bytes each), the compact table of N/2 and the split table.
         nbytes = 4 * b * n + 8 * b * (m + 1) + 8 * (m - 1) + 8 * (m + 1)
         flops = r2c_flop_count(n, DEFAULT_RADICES, batch=b)
     launch = K.pass_launch(m, b, DEFAULT_RADICES, split=split)
@@ -803,18 +796,34 @@ def phase3_nd_kernels(gen: torch.Generator, results: dict[str, dict]) -> None:
     print(f"phase 3: {checked} N-D/FDAS kernel-vs-plain checks, max relative "
           f"error {worst:.3e} (limit {KERNEL_RTOL}; transposes exact)")
 
-    # fft_r2c_t at the first pass of rfft2 (16, 4096, 8192).
-    b, r, c = 16, 4096, 8192
+    phase3_r2c_t_lengths(gen)
+    # fft_r2c_t at the first pass of rfft2 (16, 4096, 8192): read the
+    # reals, write the transposed bins, the compact table and split table.
+    b, r, c = R2C_T_SHAPE
     m = c // 2
     x = torch.randn(b, r, c, device="cuda", generator=gen)
-    twr, _ = K.stage_tables(m, DEFAULT_RADICES, x.device)
-    results["fft_r2c_t"] = _timed_row(
+    row = _timed_row(
         "fft_r2c_t", (b, r, c), lambda: ops.fft_kernel_r2c_t(x),
         lambda: K.fft_r2c_t_plain(x),
         lambda: torch.fft.rfft(x.transpose(1, 2), dim=-2),
         "torch.fft.rfft(x.transpose(1, 2), dim=-2)", None,
-        4 * b * r * c + 8 * b * (m + 1) * r + twr.numel() * 8 + (m + 1) * 8,
+        4 * b * r * c + 8 * b * (m + 1) * r + 8 * (m - 1) + 8 * (m + 1),
         r2c_flop_count(c, DEFAULT_RADICES, batch=b * r), _close)
+    launch = K.pass_launch(m, r, DEFAULT_RADICES, split=True)
+    g = K.r2c_t_cluster(launch.per_block, r)
+    row["resident_blocks"] = K.resident_blocks("fft_r2c_t", launch)
+    row["active_clusters"] = K.active_clusters(launch, g)
+    yardstick = lambda: torch.fft.rfft(x).transpose(1, 2).contiguous()  # noqa: E731
+    print(f"    fft_r2c_t {(b, r, c)}: {launch.points} points a thread, "
+          f"{launch.threads} threads and {launch.shared_bytes} shared bytes "
+          f"a block, clusters of {g} blocks ({K.R2C_T_ROWS} rows), "
+          f"{row['resident_blocks']} blocks resident per SM, "
+          f"{row['active_clusters']} clusters at once; 10 runs back to "
+          f"back {queued_ms(lambda: ops.fft_kernel_r2c_t(x)):.4f} ms a run; "
+          f"yardstick torch.fft.rfft(x).transpose(1, 2).contiguous() "
+          f"{median_ms(yardstick):.4f} ms, back to back "
+          f"{queued_ms(yardstick):.4f} ms")
+    results["fft_r2c_t"] = row
     del x
     torch.cuda.empty_cache()
     # transpose at the Bluestein fft2's transpose node (13, 1024, 19321).
@@ -841,6 +850,37 @@ def phase3_nd_kernels(gen: torch.Generator, results: dict[str, dict]) -> None:
         mixed_radix_flop_count(n, batch=rows) + 6 * rows * t * n, _close)
     del x, bank
     torch.cuda.empty_cache()
+
+
+def phase3_r2c_t_lengths(gen: torch.Generator) -> None:
+    """fft_r2c_t against its plain version at every pow2 C (4..16384) on
+    ragged row counts, with the default and one-row blocks and every
+    cluster size the planner chooses for them (one block's rows, 4 and 8
+    rows a cluster)."""
+    worst, checked, sizes = 0.0, 0, set()
+    for c in PASS_R2C_LENGTHS:
+        for rows in R2C_T_RAGGED_ROWS:
+            x = torch.randn(2, rows, c, device="cuda", generator=gen)
+            want = K.fft_r2c_t_plain(x)
+            for tile_b in (None, 1):
+                launch = K.pass_launch(c // 2, rows, override=tile_b,
+                                       split=True)
+                for g in {K.r2c_t_cluster(launch.per_block, rows, cr)
+                          for cr in (launch.per_block, 4, 8)}:
+                    _, rel = rel_err(K.fft_r2c_t(x, per_block=launch.per_block,
+                                                 cluster=g), want)
+                    check(rel <= KERNEL_RTOL, f"fft_r2c_t c={c} rows={rows} "
+                          f"per_block={launch.per_block} cluster={g}: rel "
+                          f"err {rel:.3e}")
+                    worst = max(worst, rel)
+                    checked += 1
+                    sizes.add(g)
+            del x, want
+    torch.cuda.synchronize()
+    print(f"phase 3: fft_r2c_t at every pow2 C {PASS_R2C_LENGTHS[0]}.."
+          f"{PASS_R2C_LENGTHS[-1]}, rows {R2C_T_RAGGED_ROWS}: {checked} "
+          f"kernel-vs-plain checks (clusters of {sorted(sizes)} blocks), "
+          f"max relative error {worst:.3e} (limit {KERNEL_RTOL})")
 
 
 def _filterbanks(gen: torch.Generator, plan: DispersionPlan,
@@ -1050,32 +1090,54 @@ def phase3_pulsar_kernels(gen: torch.Generator,
 
 
 def phase3_rows_per_block(gen: torch.Generator) -> None:
-    """The transposed-write kernels at the N-D plans' widest rows, timed
-    with 1, 2 and 3 rows per block (the heuristic's 64 KB budget gives
-    one): each row's output bins are written R apart, so one row a block
-    stores 8-byte runs.  Each variant is checked against one row a block."""
-    for name, shape, points in (("fft_c2c_t", (16, 4096, 4096), 4096),
-                                ("fft_r2c_t", (16, 4096, 8192), 4096)):
-        if name == "fft_c2c_t":
-            x = randn(gen, *shape)
-            launch = lambda p: K.fft_c2c_t(x, per_block=p)  # noqa: E731
-        else:
-            x = torch.randn(*shape, device="cuda", generator=gen)
-            launch = lambda p: K.fft_r2c_t(x, per_block=p)  # noqa: E731
-        y1 = launch(1)
-        times = []
-        for per_block in (1, 2, 3):
-            check(K.transforms_per_block(points, shape[1], per_block)
-                  == per_block, f"{name}: {per_block} rows do not fit")
-            if per_block > 1:
-                _, rel = rel_err(launch(per_block), y1)
-                check(rel <= KERNEL_RTOL, f"{name} {shape} {per_block} rows "
-                      f"a block: rel err {rel:.3e}")
-            ms = median_ms(lambda: launch(per_block))
-            times.append(f"{per_block} rows {ms:.4f} ms")
-        print(f"  {name} {shape} rows per block: " + ", ".join(times))
-        del x, y1
-        torch.cuda.empty_cache()
+    """The transposed-write kernels at the N-D plans' widest rows.
+    fft_c2c_t, timed with 1, 2 and 3 rows per block (the heuristic's 64 KB
+    budget gives one): each row's output bins are written R apart, so one
+    row a block stores 8-byte runs.  fft_r2c_t (one row a block at C =
+    8192), timed with clusters that store 1 (one block), 4 and 8 rows
+    together; the fastest is reported beside the planner's R2C_T_ROWS.
+    Each variant is checked against the first."""
+    shape = (16, 4096, 4096)
+    x = randn(gen, *shape)
+    y1 = K.fft_c2c_t(x, per_block=1)
+    times = []
+    for per_block in (1, 2, 3):
+        check(K.transforms_per_block(shape[-1], shape[1], per_block)
+              == per_block, f"fft_c2c_t: {per_block} rows do not fit")
+        if per_block > 1:
+            _, rel = rel_err(K.fft_c2c_t(x, per_block=per_block), y1)
+            check(rel <= KERNEL_RTOL, f"fft_c2c_t {shape} {per_block} rows "
+                  f"a block: rel err {rel:.3e}")
+        ms = median_ms(lambda: K.fft_c2c_t(x, per_block=per_block))
+        times.append(f"{per_block} rows {ms:.4f} ms")
+    print(f"  fft_c2c_t {shape} rows per block: " + ", ".join(times))
+    del x, y1
+    torch.cuda.empty_cache()
+
+    b, r, c = R2C_T_SHAPE
+    x = torch.randn(b, r, c, device="cuda", generator=gen)
+    launch = K.pass_launch(c // 2, r, DEFAULT_RADICES, split=True)
+    per_block = launch.per_block
+    y1 = K.fft_r2c_t(x, per_block=per_block, cluster=1)
+    times, best = [], None
+    for cluster_rows in (per_block, 4, 8):
+        g = K.r2c_t_cluster(per_block, r, cluster_rows)
+        launch_g = lambda: K.fft_r2c_t(x, per_block=per_block,  # noqa: E731
+                                       cluster=g)
+        _, rel = rel_err(launch_g(), y1)
+        check(rel <= KERNEL_RTOL, f"fft_r2c_t {R2C_T_SHAPE} clusters of {g}: "
+              f"rel err {rel:.3e}")
+        ms, queued = median_ms(launch_g), queued_ms(launch_g)
+        times.append(f"{per_block * g} rows (G = {g}, "
+                     f"{K.active_clusters(launch, g)} clusters at once) "
+                     f"{ms:.4f} ms, back to back {queued:.4f} ms")
+        if best is None or ms < best[1]:
+            best = (per_block * g, ms)
+    print(f"  fft_r2c_t {R2C_T_SHAPE} rows a cluster, {per_block} a block: "
+          + "; ".join(times) + f"; fastest {best[0]} rows (planner's "
+          f"R2C_T_ROWS = {K.R2C_T_ROWS})")
+    del x, y1
+    torch.cuda.empty_cache()
 
 
 def _drive(label: str, plan, x: torch.Tensor, expected: dict[str, int],

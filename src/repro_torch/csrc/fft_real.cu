@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/fft/fft_kernel.py:
 //   repro_fft_r2c    <- rfft_pallas (def :386; bodies _r2c_body :313,
-//                       _r2c_tile :278), in register passes
+//                       _r2c_tile :278)
 //   repro_fft_r2c_t  <- rfft_t_pallas (def :547; body _r2c_t_body :297):
 //                       the same packed R2C of each row of (B, R, C),
 //                       written transposed to (B, C/2+1, R) — the first
@@ -23,36 +23,47 @@
 // a launch is bytes_moved / 3.35 TB/s.
 //
 // What the designs do about it: one read and one write of the batch; a
-// ragged batch is masked in the kernel, never padded.  The output row of
-// R2C is N/2+1 float2 long (odd), so stores are per element and never
-// vectorised across rows.
+// ragged batch is masked in the kernel, never padded.  All three run the
+// half-length FFT in register-resident Stockham passes (stockham_regs.cuh,
+// as repro_fft_c2c): 16 points a thread (32 at N = 2^14), passes exchange
+// through one padded shared buffer a transform, of split_slots(N/2) slots
+// so that it also holds the N/2+1 bins in natural order (68 KB at N =
+// 2^14: two blocks share an SM, so one block's loads overlap another's
+// passes).  Bin k of the split or merge needs bin N/2 - k, which another
+// thread holds, so each kernel goes through that buffer once more than
+// fft_c2c:
 //
-// repro_fft_r2c runs the half-length FFT in register-resident Stockham
-// passes (stockham_regs.cuh, as repro_fft_c2c): the packed reals go
-// straight from device memory into registers, 16 points a thread (32 at
-// N = 2^14), passes exchange through one padded shared buffer a
-// transform, and the last pass writes Z to that buffer in natural order;
-// after one __syncthreads the block's threads split the bins, consecutive
-// threads on consecutive bins of a row (bin k needs Z[k] and Z[N/2 - k],
-// which other threads hold).  At N = 2^14 a block needs 68 KB of shared
-// memory and two blocks share an SM, so one block's loads overlap
-// another's passes; the split costs one exchange more than fft_c2c.
+// R2C: the packed reals go straight from device memory into registers;
+// the last pass writes Z to the buffer in natural order and, after one
+// __syncthreads, consecutive threads split consecutive bins of a row.
 //
-// repro_fft_r2c_t and repro_fft_c2r keep the shared-memory stages of
-// stockham(): a block keeps whole transforms in shared memory,
-// double-buffered, and does the split or merge there: bin k needs bin
-// N/2 - k, so C2R stages all N/2+1 bins of a row before merging and sizes
-// its buffers for N/2+1 points.
+// C2R: the block's rows' N/2+1 bins are staged in the buffer in natural
+// order by asynchronous copies (cp.async; consecutive threads on
+// consecutive bins), so that a thread has all its loads in flight at
+// once without holding them in registers.  After one __syncthreads the
+// threads merge the rows in place, a thread taking the pair k, N/2 - k,
+// which no other thread reads (merging inside the first pass's gather
+// held more registers than the launch bounds of the 16- and 32-point
+// instances allow, and a lower bound cost more than this pass).  After a second __syncthreads
+// the first pass gathers Z, the inverse passes run, and the last pass
+// stores each Z[k] straight from registers as one float2, which is the
+// interleave.  The first pass's store into the buffer waits for every
+// thread's reads.
 //
-// R2C_T (the transposed write) splits straight from the stage buffer into
-// the (C/2+1, R) output plane of its batch entry: consecutive threads take
-// consecutive rows of one bin, so the store is coalesced along R over the
-// block's tile of rows (per_block * 8 bytes per bin; one row per block at
-// C = 8192, where the store degenerates to single 8-byte writes).  Bin C/2
-// (Nyquist) is the plane's last row, read as Z[0] like bin 0, in the same
-// loop.  A ragged R is masked (the last block of a batch entry runs fewer
-// rows), never padded: the reference needs R % tile == 0, the port does
-// not.
+// R2C_T (the transposed write): one row a block at C = 8192 would store
+// each output bin as a lone 8-byte write R apart, a whole 32-byte sector
+// each (4x the 2.15 GB output's traffic).  So a thread-block cluster of G
+// blocks (cudaLaunchKernelEx, G a runtime value <= 8) takes G consecutive
+// row tiles of one batch entry.  Each block runs its rows as R2C does and
+// splits them in place in its buffer (a thread takes the pair k, N/2 - k,
+// which no other thread reads); after cluster.sync() block j of the
+// cluster stores the j-th share of the bins of all G * per_block rows,
+// reading the other blocks' buffers through distributed shared memory:
+// consecutive threads take consecutive rows of one bin, so one bin is a
+// contiguous run of G * per_block * 8 bytes (64 B at 8 rows).  A second
+// cluster.sync() keeps every buffer alive until the others have read it.
+// Rows past R are masked; a masked block still reaches both barriers.
+// Bin C/2 (Nyquist) is the plane's last row, split from Z[0] like bin 0.
 //
 // The split and merge follow the reference kernel's operations in its
 // order; the plain torch versions (repro_torch/kernels/fft/fft_kernel.py)
@@ -63,32 +74,50 @@
 // Interface: plain C functions on device pointers, launched on the given
 // stream; each returns the cudaError_t of its launch (0 on success).
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
+
 #include "stockham_regs.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-// Bin k (0 <= k <= m) of the Hermitian split of one row's packed
-// half-length spectrum z (m points): X[k] = Ze[k] + W[k] * Zo[k], in the
-// reference's _r2c_tile order.  Bin m reads Z[0], as the reference's wrap.
-__device__ __forceinline__ float2 split_bin(const float2* z, int k, int m,
-                                            const float2* __restrict__ sw) {
-  const float2 f = z[k & (m - 1)];                    // Z[k], Z[m] = Z[0]
-  const float2 g = z[(m - k) & (m - 1)];              // Z[m-k]
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+// Bin X[k] of the Hermitian split from f = Z[k], g = Z[m-k] and w = W[k],
+// in the reference's _r2c_tile order.
+__device__ __forceinline__ float2 split_of(float2 f, float2 g, float2 w) {
   const float rr = g.x, ri = -g.y;                    // conj(Z[m-k])
   const float dr = f.x - rr, di = f.y - ri;
   const float qr = 0.5f * di, qi = -0.5f * dr;        // Zo = -i/2 * d
-  const float2 w = __ldg(sw + k);
-  const float wr = w.x, wi = w.y;
-  const float pr = qr * wr - qi * wi, pi = qr * wi + qi * wr;
+  const float pr = qr * w.x - qi * w.y, pi = qr * w.y + qi * w.x;
   return make_float2(0.5f * (f.x + rr) + pr, 0.5f * (f.y + ri) + pi);
 }
 
+// Point Z[k] of the Hermitian merge from v = X[k], u = X[m-k] and w =
+// W[k], in the reference's _c2r_body order: Z = Ze + i * Zo, Zo with the
+// conjugated split table.
+__device__ __forceinline__ float2 merge_of(float2 v, float2 u, float2 w) {
+  const float rr = u.x, ri = -u.y;                    // conj(X[m-k])
+  const float er = 0.5f * (v.x + rr), ei = 0.5f * (v.y + ri);  // Ze
+  const float dr = v.x - rr, di = v.y - ri;
+  const float wr = w.x, wi = -w.y;                    // conj(W)
+  const float hr = 0.5f * dr, hi = 0.5f * di;
+  const float qr = hr * wr - hi * wi, qi = hr * wi + hi * wr;  // Zo
+  return make_float2(er - qi, ei + qr);               // Z = Ze + i * Zo
+}
+
+// Bin k (0 <= k <= m) of the split of one row's spectrum z (m points);
+// bin m reads Z[0], as the reference's wrap.
+__device__ __forceinline__ float2 split_bin(const float2* z, int k, int m,
+                                            const float2* __restrict__ sw) {
+  return split_of(z[k & (m - 1)], z[(m - k) & (m - 1)], __ldg(sw + k));
+}
+
 // (B, N) f32 -> (B, N/2+1) c64.  s is the forward plan of m = N/2 in
-// register passes (stockham_regs.cuh); block i transforms rows
-// [i*per_block, ...), each on m / P threads.  The last pass writes Z to
-// shared memory in natural order; after one __syncthreads the block's
-// threads split the N/2+1 bins of its rows, consecutive threads on
-// consecutive bins.  F is the schedule's largest radix.
+// register passes; block i transforms rows [i*per_block, ...), each on
+// m / P threads.  F is the schedule's largest radix.
 template <int P, int F>
 __global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
     fft_r2c_regs_kernel(const float2* __restrict__ x, float2* __restrict__ y,
@@ -99,7 +128,7 @@ __global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
   extern __shared__ float2 smem[];
   const int m = s.n;
   const int m1 = m + 1;
-  const int stride = padded(m);
+  const int stride = split_slots(m);
   const int tr = threadIdx.x >> s.log_t;
   const int lane = threadIdx.x & ((1 << s.log_t) - 1);
   const long long first = static_cast<long long>(blockIdx.x) * per_block;
@@ -133,90 +162,220 @@ __global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
   }
 }
 
-// (B, R, C) f32 -> (B, C/2+1, R) c64: the packed R2C of each row, written
-// transposed.  s is the forward schedule of m = C/2; block i handles rows
-// [r0, r0 + per_block) of one batch entry.
-__global__ void __launch_bounds__(kThreads)
-    fft_r2c_t_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                     int rows, int per_block, long long blocks_per_batch,
-                     const __grid_constant__ Schedule s,
-                     const float* __restrict__ tw_re,
-                     const float* __restrict__ tw_im,
-                     const float2* __restrict__ sw) {
+// (B, N/2+1) c64 -> (B, N) f32.  s is the inverse plan of m = N/2 (scale
+// 1/m); block i transforms rows [i*per_block, ...), each on m / P threads.
+template <int P, int F>
+__global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
+    fft_c2r_regs_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                        long long batch, int per_block,
+                        const __grid_constant__ RegPlan s,
+                        const float2* __restrict__ tw,
+                        const float2* __restrict__ sw) {
   extern __shared__ float2 smem[];
   const int m = s.n;
   const int m1 = m + 1;
-  const long long bid = blockIdx.x;
-  const long long batch = bid / blocks_per_batch;
-  const int r0 = static_cast<int>(bid - batch * blocks_per_batch) * per_block;
-  const int count = min(per_block, rows - r0);
-  float2* a = smem;
-  float2* b = smem + static_cast<size_t>(per_block) * m;
-  const float2* src = x + (static_cast<size_t>(batch) * rows + r0) * m;
-  const int elems = count * m;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) a[e] = src[e];
-  __syncthreads();
-  const float2* z = stockham(a, b, count, s, tw_re, tw_im);
-  float2* dst = y + static_cast<size_t>(batch) * m1 * rows + r0;
-  const int outs = count * m1;
-  // Consecutive threads write consecutive rows of one output bin.
-  for (int e = threadIdx.x; e < outs; e += blockDim.x) {
-    const int k = e / count;
-    const int t = e - k * count;
-    dst[static_cast<size_t>(k) * rows + t] = split_bin(z + t * m, k, m, sw);
-  }
-}
-
-// (B, N/2+1) c64 -> (B, N) f32.  s is the inverse schedule of m = N/2.
-__global__ void __launch_bounds__(kThreads)
-    fft_c2r_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                   long long batch, int per_block,
-                   const __grid_constant__ Schedule s,
-                   const float* __restrict__ tw_re,
-                   const float* __restrict__ tw_im,
-                   const float2* __restrict__ sw) {
-  extern __shared__ float2 smem[];
-  const int m = s.n;
-  const int m1 = m + 1;
-  const int log_m = __ffs(m) - 1;
+  const int stride = split_slots(m);
+  const int tr = threadIdx.x >> s.log_t;
+  const int lane = threadIdx.x & ((1 << s.log_t) - 1);
   const long long first = static_cast<long long>(blockIdx.x) * per_block;
   const int count = static_cast<int>(min(static_cast<long long>(per_block),
                                          batch - first));
-  float2* a = smem;                                     // merged Z
-  float2* b = smem + static_cast<size_t>(per_block) * m1;  // staged bins
+  // Bin k of row t is input e = t * m1 + k, staged at t * stride + k by
+  // asynchronous copies (cp.async): a thread keeps all its loads in
+  // flight without holding them in registers.  The threads step through
+  // e, carrying (t, k).
   const float2* src = x + first * m1;
-  const int ins = count * m1;
-  for (int e = threadIdx.x; e < ins; e += blockDim.x) b[e] = src[e];
+  const int dt = blockDim.x / m1, dk = blockDim.x - dt * m1;
+  int t = threadIdx.x / m1;
+  int k = threadIdx.x - t * m1;
+  while (t < count) {
+    __pipeline_memcpy_async(smem + t * stride + k, src + t * m1 + k,
+                            sizeof(float2));
+    t += dt;
+    k += dk;
+    if (k >= m1) {
+      k -= m1;
+      ++t;
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
-  const int elems = count * m;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int t = e >> log_m;
-    const int k = e & (m - 1);
-    const float2 v = b[t * m1 + k];                     // X[k]
-    const float2 u = b[t * m1 + m - k];                 // X[m-k]
-    const float rr = u.x, ri = -u.y;                    // conj(X[m-k])
-    const float er = 0.5f * (v.x + rr), ei = 0.5f * (v.y + ri);  // Ze
-    const float dr = v.x - rr, di = v.y - ri;
-    const float2 w = __ldg(sw + k);
-    const float wr = w.x, wi = -w.y;                    // conj(W)
-    const float hr = 0.5f * dr, hi = 0.5f * di;
-    const float qr = hr * wr - hi * wi, qi = hr * wi + hi * wr;  // Zo
-    a[e] = make_float2(er - qi, ei + qr);               // Z = Ze + i * Zo
+  // Merge the rows in place: pair k of row t (k = 0..m/2) turns X[k],
+  // X[m-k] into Z[k], Z[m-k] (pair 0: Z[0] from X[0] and X[m]).
+  const int pairs = m / 2 + 1;
+  t = threadIdx.x / pairs;
+  k = threadIdx.x - t * pairs;
+  while (t < count) {
+    float2* z = smem + t * stride;
+    const float2 f = z[k], h = z[m - k];
+    const float2 lo = merge_of(f, h, __ldg(sw + k));
+    const float2 hi = merge_of(h, f, __ldg(sw + m - k));
+    z[k] = lo;
+    if (k > 0) z[m - k] = hi;
+    k += blockDim.x;
+    while (k >= pairs) {
+      k -= pairs;
+      ++t;
+    }
   }
   __syncthreads();
-  // The stages ping-pong between a and b (both hold count * m points).
-  const float2* res = stockham(a, b, count, s, tw_re, tw_im);
-  float2* dst = y + first * m;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x)
-    dst[e] = scaled(res[e], s.scale);
+  float2* buf = smem + tr * stride;
+  float2 v[P];
+  if (tr < count) {
+    with_shape<P, F>(s.pass[0].code, [&](auto sh) {
+      gather<P, decltype(sh)>(v, s.pass[0], lane, s.log_t,
+                              [&](int at) { return buf[at]; });
+    });
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = make_float2(0.f, 0.f);
+  }
+  reg_passes_but_last<P, F>(v, buf, s, tw, lane, /*staged=*/true);
+  run_pass<P, F>(v, s, s.npasses - 1, tw, lane);
+  if (tr < count) store_global<P, F>(v, y + (first + tr) * m, s, lane);
 }
 
-// Checks the real length and builds the schedule of its half length.
-cudaError_t half_schedule(Schedule* s, int n, const int* radices,
-                          int nstages, int inverse, const float* dft_re,
-                          const float* dft_im) {
+// (B, R, C) f32 -> (B, C/2+1, R) c64: the packed R2C of each row, written
+// transposed.  s is the forward plan of m = C/2.  The launch is a grid of
+// clusters of G blocks: cluster c takes rows [r0c, r0c + G * per_block)
+// of batch entry c / tiles (tiles clusters a batch entry), its block of
+// rank j the rows [r0c + j * per_block, ...).
+template <int P, int F>
+__global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
+    fft_r2c_t_regs_kernel(const float2* __restrict__ x,
+                          float2* __restrict__ y, int rows, int per_block,
+                          int tiles, const __grid_constant__ RegPlan s,
+                          const float2* __restrict__ tw,
+                          const float2* __restrict__ sw) {
+  extern __shared__ float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int m = s.n;
+  const int m1 = m + 1;
+  const int pairs = m / 2 + 1;
+  const int stride = split_slots(m);
+  const int tr = threadIdx.x >> s.log_t;
+  const int lane = threadIdx.x & ((1 << s.log_t) - 1);
+  const int cid = static_cast<int>(blockIdx.x) / g;
+  const int batch = cid / tiles;
+  const int rows_c = g * per_block;
+  const int r0c = (cid - batch * tiles) * rows_c;
+  const int r0 = r0c + rank * per_block;
+  const int count = max(0, min(per_block, rows - r0));
+  float2 v[P];
+  if (tr < count) {
+    load_global<P, F>(
+        v, x + (static_cast<long long>(batch) * rows + r0 + tr) * m, s, lane);
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = make_float2(0.f, 0.f);
+  }
+  float2* buf = smem + tr * stride;
+  reg_passes_but_last<P, F>(v, buf, s, tw, lane);
+  run_pass<P, F>(v, s, s.npasses - 1, tw, lane);
+  if (s.npasses > 1) __syncthreads();  // every read of the buffer is done
+  store_shared<P, F, false>(v, buf, s, s.npasses - 1, lane);
+  __syncthreads();
+  // Split the block's rows in place: pair k of row t (k = 0..m/2) turns
+  // Z[k], Z[m-k] into X[k], X[m-k] (pair 0: X[0] and X[m] from Z[0]).
+  {
+    int t = threadIdx.x / pairs;
+    int k = threadIdx.x - t * pairs;
+    while (t < count) {
+      float2* z = smem + t * stride;
+      const float2 f = z[k], h = z[(m - k) & (m - 1)];
+      const float2 lo = split_of(f, h, __ldg(sw + k));
+      const float2 hi = split_of(h, f, __ldg(sw + m - k));
+      z[k] = lo;
+      z[m - k] = hi;
+      k += blockDim.x;
+      while (k >= pairs) {
+        k -= pairs;
+        ++t;
+      }
+    }
+  }
+  cluster.sync();  // every block's bins are in its buffer
+  // Block `rank` stores bins [k0, k1) of the cluster's rows_c rows: bin k
+  // of cluster row t lies in block t / per_block, row t % per_block.
+  const int share = (m1 + g - 1) / g;
+  const int k1 = min(m1, (rank + 1) * share);
+  // The threads step by (dt, dk), carrying t = owner * per_block + row.
+  float2* dst = y + static_cast<long long>(batch) * m1 * rows + r0c;
+  const int dt = blockDim.x % rows_c, dk = blockDim.x / rows_c;
+  const int dq = dt / per_block, dr = dt - dq * per_block;
+  int t = threadIdx.x % rows_c;
+  int k = rank * share + threadIdx.x / rows_c;
+  int owner = t / per_block;
+  int row = t - owner * per_block;
+  while (k < k1) {
+    if (r0c + t < rows) {
+      const float2* z = cluster.map_shared_rank(smem, owner) + row * stride;
+      __stcs(dst + static_cast<long long>(k) * rows + t, z[k]);
+    }
+    t += dt;
+    k += dk;
+    owner += dq;
+    row += dr;
+    if (row >= per_block) {
+      row -= per_block;
+      ++owner;
+    }
+    if (t >= rows_c) {
+      t -= rows_c;
+      owner -= g;
+      ++k;
+    }
+  }
+  cluster.sync();  // the other blocks have read this block's buffer
+}
+
+// The register plan of a packed real transform of length n (pow2 >= 4):
+// the plan of its half length.
+cudaError_t half_plan(RegPlan* s, int n, int points, const int* table,
+                      int npasses, int inverse, const float* dft_re,
+                      const float* dft_im) {
   if (n < 4 || (n & (n - 1)) != 0) return cudaErrorInvalidValue;
-  return make_schedule(s, n / 2, radices, nstages, inverse, dft_re, dft_im);
+  return make_reg_plan(s, n / 2, points, table, npasses, inverse, dft_re,
+                       dft_im);
+}
+
+size_t split_shared(int per_block, int m) {
+  return static_cast<size_t>(per_block) * split_slots(m) * sizeof(float2);
+}
+
+// The launch configuration of fft_r2c_t: `blocks` blocks in clusters of
+// `cluster` (attr must outlive cfg).
+cudaLaunchConfig_t cluster_config(long long blocks, int threads, size_t smem,
+                                  int cluster, void* stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Calls f(kernel) with the instance (P, F) of kernel `which` (0 fft_r2c,
+// 1 fft_c2r, 2 fft_r2c_t).
+template <typename Fn>
+int with_real_kernel(int which, int points, int family, Fn&& f) {
+  return with_instance(points, family, [&](auto pf) {
+    constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
+    if (which == 0) return f(fft_r2c_regs_kernel<P, F>);
+    if (which == 1) return f(fft_c2r_regs_kernel<P, F>);
+    if (which == 2) return f(fft_r2c_t_regs_kernel<P, F>);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 }  // namespace
@@ -227,17 +386,14 @@ int repro_fft_r2c(const void* x, void* y, long long batch, int n,
                   int points, int per_block, const int* table, int npasses,
                   const float* dft_re, const float* dft_im, const void* tw,
                   const void* sw, void* stream) {
-  if (n < 4 || (n & (n - 1)) != 0) return cudaErrorInvalidValue;
-  const int m = n / 2;
   RegPlan s;
   cudaError_t err =
-      make_reg_plan(&s, m, points, table, npasses, 0, dft_re, dft_im);
+      half_plan(&s, n, points, table, npasses, 0, dft_re, dft_im);
   if (err != cudaSuccess) return err;
   if (per_block < 1) return cudaErrorInvalidValue;
   const long long blocks = (batch + per_block - 1) / per_block;
   const int threads = per_block << s.log_t;
-  const size_t smem =
-      static_cast<size_t>(per_block) * padded(m) * sizeof(float2);
+  const size_t smem = split_shared(per_block, s.n);
   return with_instance(points, s.family, [&](auto pf) {
     constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
     cudaError_t e =
@@ -252,61 +408,104 @@ int repro_fft_r2c(const void* x, void* y, long long batch, int n,
   });
 }
 
+int repro_fft_c2r(const void* x, void* y, long long batch, int n,
+                  int points, int per_block, const int* table, int npasses,
+                  const float* dft_re, const float* dft_im, const void* tw,
+                  const void* sw, void* stream) {
+  RegPlan s;
+  cudaError_t err =
+      half_plan(&s, n, points, table, npasses, 1, dft_re, dft_im);
+  if (err != cudaSuccess) return err;
+  if (per_block < 1) return cudaErrorInvalidValue;
+  const long long blocks = (batch + per_block - 1) / per_block;
+  const int threads = per_block << s.log_t;
+  const size_t smem = split_shared(per_block, s.n);
+  return with_instance(points, s.family, [&](auto pf) {
+    constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
+    cudaError_t e =
+        prepare_passes(fft_c2r_regs_kernel<P, F>, blocks, threads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fft_c2r_regs_kernel<P, F><<<static_cast<unsigned>(blocks), threads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(x), static_cast<float2*>(y), batch,
+        per_block, s, static_cast<const float2*>(tw),
+        static_cast<const float2*>(sw));
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// (B, R, C) f32 -> (B, C/2+1, R) c64 in clusters of `cluster` blocks of
+// per_block rows each.
+int repro_fft_r2c_t(const void* x, void* y, long long batch, int rows,
+                    int cols, int cluster, int points, int per_block,
+                    const int* table, int npasses, const float* dft_re,
+                    const float* dft_im, const void* tw, const void* sw,
+                    void* stream) {
+  RegPlan s;
+  cudaError_t err =
+      half_plan(&s, cols, points, table, npasses, 0, dft_re, dft_im);
+  if (err != cudaSuccess) return err;
+  if (batch < 1 || rows < 1 || per_block < 1 || cluster < 1 ||
+      cluster > kMaxCluster)
+    return cudaErrorInvalidValue;
+  const int rows_c = per_block * cluster;
+  const long long tiles = (rows + rows_c - 1) / rows_c;
+  const long long blocks = batch * tiles * cluster;
+  const int threads = per_block << s.log_t;
+  const size_t smem = split_shared(per_block, s.n);
+  return with_instance(points, s.family, [&](auto pf) {
+    constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
+    auto kernel = fft_r2c_t_regs_kernel<P, F>;
+    cudaError_t e = prepare_passes(kernel, blocks, threads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(blocks, threads, smem, cluster, stream, &attr);
+    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float2*>(x),
+                           static_cast<float2*>(y), rows, per_block,
+                           static_cast<int>(tiles), s,
+                           static_cast<const float2*>(tw),
+                           static_cast<const float2*>(sw));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 // Blocks of `threads` threads and `smem` bytes that one SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for the instance of
-// `points` points and family `family`, or -1 on error.
-int repro_fft_r2c_resident_blocks(int points, int family, int threads,
-                                  long long smem) {
+// `points` points and family `family` of kernel `which` (0 fft_r2c, 1
+// fft_c2r, 2 fft_r2c_t), or -1 on error.
+int repro_fft_real_resident_blocks(int which, int points, int family,
+                                   int threads, long long smem) {
   int blocks = -1;
-  with_instance(points, family, [&](auto pf) {
-    blocks = resident_blocks(
-        fft_r2c_regs_kernel<decltype(pf)::kP, decltype(pf)::kF>, threads,
-        smem);
+  with_real_kernel(which, points, family, [&](auto kernel) {
+    blocks = resident_blocks(kernel, threads, smem);
     return 0;
   });
   return blocks;
 }
 
-int repro_fft_r2c_t(const void* x, void* y, long long batch, int rows,
-                    int cols, int per_block, const int* radices, int nstages,
-                    const float* dft_re, const float* dft_im,
-                    const float* tw_re, const float* tw_im, const void* sw,
-                    void* stream) {
-  Schedule s;
-  cudaError_t err =
-      half_schedule(&s, cols, radices, nstages, 0, dft_re, dft_im);
-  if (err != cudaSuccess) return err;
-  if (rows < 1 || per_block < 1) return cudaErrorInvalidValue;
-  const long long per_batch = (rows + per_block - 1) / per_block;
-  size_t smem = 0;
-  err = prepare(fft_r2c_t_kernel, batch * per_batch, per_block, cols / 2,
-                &smem);
-  if (err != cudaSuccess) return err;
-  fft_r2c_t_kernel<<<static_cast<unsigned>(batch * per_batch), kThreads,
-                     smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), rows,
-      per_block, per_batch, s, tw_re, tw_im, static_cast<const float2*>(sw));
-  return cudaGetLastError();
-}
-
-int repro_fft_c2r(const void* x, void* y, long long batch, int n,
-                  int per_block, const int* radices, int nstages,
-                  const float* dft_re, const float* dft_im,
-                  const float* tw_re, const float* tw_im,
-                  const void* sw, void* stream) {
-  Schedule s;
-  cudaError_t err =
-      half_schedule(&s, n, radices, nstages, 1, dft_re, dft_im);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (batch + per_block - 1) / per_block;
-  size_t smem = 0;
-  err = prepare(fft_c2r_kernel, blocks, per_block, n / 2 + 1, &smem);
-  if (err != cudaSuccess) return err;
-  fft_c2r_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), batch,
-      per_block, s, tw_re, tw_im, static_cast<const float2*>(sw));
-  return cudaGetLastError();
+// Clusters of `cluster` fft_r2c_t blocks that the card can run at once
+// (cudaOccupancyMaxActiveClusters), or -1 on error.
+int repro_fft_r2c_t_active_clusters(int points, int family, int threads,
+                                    long long smem, int cluster) {
+  if (cluster < 1 || cluster > kMaxCluster || smem < 0 ||
+      smem > static_cast<long long>(kMaxShared))
+    return -1;
+  int clusters = -1;
+  with_real_kernel(2, points, family, [&](auto kernel) {
+    if (prepare_passes(kernel, cluster, threads, static_cast<size_t>(smem)) !=
+        cudaSuccess)
+      return 0;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(
+        cluster, threads, static_cast<size_t>(smem), cluster, nullptr, &attr);
+    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) !=
+        cudaSuccess)
+      clusters = -1;
+    return 0;
+  });
+  return clusters;
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // Register-resident Stockham passes: the device routine of the fft_c2c
-// (fft_c2c.cu) and fft_r2c (fft_real.cu) kernels.
+// (fft_c2c.cu) and fft_r2c, fft_r2c_t and fft_c2r (fft_real.cu) kernels.
 //
 // The arithmetic is stockham()'s (stockham.cuh), operation for operation:
 // the same radix schedule, butterflies and twiddle values.  What differs
@@ -164,6 +164,13 @@ bool known_shape(int code, int points, int family) {
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 
 __host__ __device__ constexpr int padded(int n) { return n + n / 16; }
+
+// Slots of one transform's buffer in the real kernels: the exchange
+// buffer, which also holds the n + 1 bins of the Hermitian split or merge
+// in natural order (more than padded(n) for n <= 8).
+__host__ __device__ constexpr int split_slots(int n) {
+  return padded(n) > n + 1 ? padded(n) : n + 1;
+}
 
 __device__ __forceinline__ float2 table_twiddle(const float2* __restrict__ tw,
                                                 int at, float sign) {
@@ -373,13 +380,15 @@ __device__ __forceinline__ void load_shared(float2 (&v)[P],
 // Every pass but the last on one transform's points, which arrive in v
 // from the first pass's loads and leave in v before the last pass.
 // Called by every thread of the block (the exchanges synchronise it).
+// `staged`: the first pass read its points from buf too (C2R's staged
+// bins), so its store waits for every thread's reads as the later ones do.
 template <int P, int F>
 __device__ __forceinline__ void reg_passes_but_last(
     float2 (&v)[P], float2* buf, const RegPlan& s,
-    const float2* __restrict__ tw, int lane) {
+    const float2* __restrict__ tw, int lane, bool staged = false) {
   for (int p = 0; p + 1 < s.npasses; ++p) {
     run_pass<P, F>(v, s, p, tw, lane);
-    if (p > 0) __syncthreads();  // every read of the buffer is done
+    if (p > 0 || staged) __syncthreads();  // every read of buf is done
     store_shared<P, F, true>(v, buf, s, p, lane);
     __syncthreads();
     load_shared<P, F>(v, buf, s, p + 1, lane);

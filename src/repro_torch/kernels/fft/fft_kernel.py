@@ -30,10 +30,13 @@ the launch fails — there is no fallback between the two.  ``LAUNCHES``
 counts kernel launches (only launches; the plain versions never count),
 so a caller can show that work went through the kernels.
 
-``fft_c2c`` and ``fft_r2c`` run the schedule in register-resident passes
-(``csrc/stockham_regs.cuh``) that the host plans here (:func:`pass_launch`,
-:func:`pass_table`), reading the same twiddle numbers from a compact table
-(:func:`compact_twiddles`); the other kernels run it in shared memory.
+``fft_c2c``, ``fft_r2c``, ``fft_r2c_t`` and ``fft_c2r`` run the schedule in
+register-resident passes (``csrc/stockham_regs.cuh``) that the host plans
+here (:func:`pass_launch`, :func:`pass_table`), reading the same twiddle
+numbers from a compact table (:func:`compact_twiddles`); ``fft_r2c_t``
+stores its transposed output through a thread-block cluster
+(:func:`r2c_t_cluster`).  The other kernels run the schedule in shared
+memory.
 
 The plain R2C/C2R versions run the Hermitian split and merge of the torch
 engine (``repro_torch.fft.stockham``); the kernels read its split table.
@@ -91,10 +94,10 @@ def schedule(n: int, radices: tuple[int, ...] = DEFAULT_RADICES
 
 def transforms_per_block(points: int, count: int,
                          override: int | None = None) -> int:
-    """Transforms one thread block holds in shared memory (at most
+    """Transforms one thread block of the shared-memory kernels
+    (``fft_c2c_t``, ``fft_c2c_axis1``, ``fft_c2c_mul``) holds (at most
     ``count``, the transforms available along the blocked axis), each in
-    two buffers of ``points`` complex values: the transform length for
-    C2C, N/2 for R2C and N/2+1 for C2R (which stages every bin).
+    two buffers of ``points`` complex values.
 
     The wrappers in ``ops`` decide it here once and pass it to the launch
     as ``per_block``."""
@@ -107,7 +110,7 @@ def transforms_per_block(points: int, count: int,
 
 
 # ---------------------------------------------------------------------------
-# Register-pass plan and launch geometry of fft_c2c and fft_r2c
+# Register-pass plan and launch geometry of fft_c2c and the real kernels
 # ---------------------------------------------------------------------------
 
 #: One SM of an H100: threads, registers, shared memory (228 KB) and the
@@ -169,6 +172,14 @@ def padded(n: int) -> int:
     """Shared-memory slots of one transform's exchange buffer: one pad
     slot after every 16 points (``csrc/stockham_regs.cuh``, ``pad``)."""
     return n + n // 16
+
+
+def split_slots(n: int) -> int:
+    """Slots of one transform's buffer in the real kernels: the exchange
+    buffer, which also holds the n + 1 bins of the Hermitian split or
+    merge in natural order (``split_slots`` in ``csrc/stockham_regs.cuh``;
+    more than :func:`padded` for n <= 8)."""
+    return max(padded(n), n + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,8 +260,9 @@ def compact_twiddles(n: int, radices: tuple[int, ...],
 
 @dataclasses.dataclass(frozen=True)
 class PassLaunch:
-    """Launch geometry of a register-pass kernel (``fft_c2c``, ``fft_r2c``)
-    for ``n`` complex points a transform (N/2 for R2C)."""
+    """Launch geometry of a register-pass kernel (``fft_c2c``, and the
+    real kernels ``fft_r2c``, ``fft_r2c_t``, ``fft_c2r`` at ``split``) for
+    ``n`` complex points a transform (N/2 for the real ones)."""
 
     n: int
     passes: tuple[tuple[int, ...], ...]
@@ -298,8 +310,9 @@ def pass_launch(n: int, count: int,
     (the ``tile_b`` tuning axis) sets the transforms per block, validated
     against the thread and shared-memory limits.
     Shared memory holds one padded buffer a transform when the plan has an
-    exchange, or when ``split`` (R2C) needs the spectrum in shared memory
-    for its Hermitian split."""
+    exchange; with ``split`` (the real kernels, whose Hermitian split or
+    merge reads bins k and n - k together) always, of
+    :func:`split_slots` ``(n)`` slots."""
     if n < 2:
         raise ValueError(f"register-pass kernels need n >= 2, got {n}")
     passes = register_passes(n, tuple(radices))
@@ -310,8 +323,10 @@ def pass_launch(n: int, count: int,
     tile = min(override or max(PASS_THREADS // per_transform, 1),
                max(count, 1))
     threads = tile * per_transform
-    shared = (tile * padded(n) * _ELEM_BYTES
-              if split or len(passes) > 1 else 0)
+    if split:
+        shared = tile * split_slots(n) * _ELEM_BYTES
+    else:
+        shared = tile * padded(n) * _ELEM_BYTES if len(passes) > 1 else 0
     if threads > PASS_THREADS:
         raise ValueError(f"{tile} transforms of {n} points per block need "
                          f"{threads} threads (at most {PASS_THREADS})")
@@ -326,6 +341,33 @@ def pass_launch(n: int, count: int,
     return PassLaunch(n=n, passes=passes, points=points, per_block=tile,
                       threads=threads, shared_bytes=shared,
                       blocks=blocks(count, tile))
+
+
+#: Rows of one batch entry that a cluster of ``fft_r2c_t`` blocks stores
+#: together: one bin of them is one contiguous run of R2C_T_ROWS * 8 bytes
+#: (32 B, one sector).  The fastest of 1, 4 and 8 at (16, 4096, 8192) on
+#: an H100 (``chip_smoke.py``, ``phase3_rows_per_block``).
+R2C_T_ROWS = 4
+#: Most blocks of a cluster (the portable limit).
+MAX_CLUSTER = 8
+
+
+def r2c_t_cluster(per_block: int, rows: int,
+                  cluster_rows: int = R2C_T_ROWS) -> int:
+    """Blocks G of one ``fft_r2c_t`` cluster: ``cluster_rows`` rows of
+    ``per_block`` a block, at most ``MAX_CLUSTER`` and no more blocks than
+    the ``rows`` of a batch entry fill."""
+    if cluster_rows < 1:
+        raise ValueError(f"cluster rows must be >= 1, got {cluster_rows}")
+    return max(1, min(cluster_rows // per_block, MAX_CLUSTER,
+                      -(-rows // per_block)))
+
+
+def r2c_t_blocks(b: int, rows: int, per_block: int, cluster: int) -> int:
+    """Thread blocks of an ``fft_r2c_t`` launch, masked ones included:
+    ``b`` batch entries, each cut into tiles of ``per_block * cluster``
+    rows, ``cluster`` blocks a tile."""
+    return blocks(rows, per_block * cluster, b) * cluster
 
 
 def blocks(count: int, per_block: int, outer: int = 1) -> int:
@@ -567,17 +609,16 @@ def _real_library() -> ctypes.CDLL:
     lib = load_library("fft_real")
     lib.repro_fft_error_string.argtypes = [_I]
     lib.repro_fft_error_string.restype = ctypes.c_char_p
-    lib.repro_fft_r2c.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _P, _P,
-                                  _P, _P, _P]
-    lib.repro_fft_r2c.restype = _I
-    lib.repro_fft_r2c_resident_blocks.argtypes = [_I, _I, _I, _LL]
-    lib.repro_fft_r2c_resident_blocks.restype = _I
-    lib.repro_fft_c2r.argtypes = [_P, _P, _LL, _I, _I, _P, _I, _P, _P, _P,
-                                  _P, _P, _P]
-    lib.repro_fft_c2r.restype = _I
-    lib.repro_fft_r2c_t.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _P,
-                                    _P, _P, _P, _P, _P]
+    for fn in (lib.repro_fft_r2c, lib.repro_fft_c2r):
+        fn.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P]
+        fn.restype = _I
+    lib.repro_fft_r2c_t.argtypes = [_P, _P, _LL, _I, _I, _I, _I, _I, _P,
+                                    _I, _P, _P, _P, _P, _P]
     lib.repro_fft_r2c_t.restype = _I
+    lib.repro_fft_real_resident_blocks.argtypes = [_I, _I, _I, _I, _LL]
+    lib.repro_fft_real_resident_blocks.restype = _I
+    lib.repro_fft_r2c_t_active_clusters.argtypes = [_I, _I, _I, _LL, _I]
+    lib.repro_fft_r2c_t_active_clusters.restype = _I
     return lib
 
 
@@ -623,9 +664,12 @@ class _PassArgs:
 def _pass_args(n: int, count: int, radices: tuple[int, ...],
                per_block: int, inverse: bool, split: bool,
                device: torch.device) -> _PassArgs:
-    """Launch arguments of ``count`` length-``n`` transforms (``split``:
-    the R2C's half length, with its split table), cached per shape so that
-    a call spends its host time on the launch alone."""
+    """Launch arguments of ``count`` length-``n`` transforms, cached per
+    shape so that a call spends its host time on the launch alone.
+    ``split``: ``n`` is the half length of a packed real transform, and
+    the arguments end with the split table of its full length; the C
+    function knows its direction, and ``inverse`` (C2R) picks the inverse
+    radix-8 matrix."""
     launch = pass_launch(n, count, radices, per_block, split=split)
     table = pass_table(n, radices)
     dr, di = _dft8(inverse)
@@ -826,27 +870,37 @@ def fft_r2c(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
 
 
 def fft_r2c_t(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
-              per_block: int) -> torch.Tensor:
+              per_block: int, cluster: int = 1) -> torch.Tensor:
     """Packed R2C of each row of a (B, R, C) float32 tensor, written
-    transposed to (B, C/2+1, R) complex64, ``per_block`` rows per thread
-    block."""
+    transposed to (B, C/2+1, R) complex64: the C/2-point C2C in register
+    passes (:func:`pass_launch`), ``per_block`` rows per thread block, in
+    clusters of ``cluster`` blocks that store their rows together
+    (:func:`r2c_t_cluster`)."""
     _check_real(x, "fft_r2c_t", ndim=3)
     b, r, c = x.shape
     m = _real_length(c)
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"fft_r2c_t: a cluster takes 1..{MAX_CLUSTER} "
+                         f"blocks, got {cluster}")
     if x.device.type == "cpu":
         return fft_r2c_t_plain(x, radices=radices)
     y = torch.empty((b, m + 1, r), dtype=torch.complex64, device=x.device)
     if b * r == 0:
         return y
-    sched, dr, di, twr, twi = _schedule_args(m, radices, False, x.device)
-    sw = _split_factors(c, x.device, torch.complex64)
+    args = _pass_args(m, r, tuple(radices), per_block, False, True,
+                      x.device)
+    launch = pass_launch(m, r, tuple(radices), per_block, split=True)
+    if active_clusters(launch, cluster) < 1:
+        raise RuntimeError(
+            f"fft_r2c_t: cudaOccupancyMaxActiveClusters is 0 for clusters "
+            f"of {cluster} blocks of {launch.threads} threads and "
+            f"{launch.shared_bytes} bytes of shared memory: the card cannot "
+            f"place one")
     lib = _real_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_fft_r2c_t(
-            x.data_ptr(), y.data_ptr(), b, r, c, per_block,
-            sched.ctypes.data, len(sched), dr.ctypes.data, di.ctypes.data,
-            twr.data_ptr(), twi.data_ptr(), sw.data_ptr(), stream)
+        err = lib.repro_fft_r2c_t(x.data_ptr(), y.data_ptr(), b, r, c,
+                                  cluster, *args.c_args, stream)
     _raise_on(err, "fft_r2c_t", lib)
     return y
 
@@ -854,50 +908,67 @@ def fft_r2c_t(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
 def fft_c2r(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
             per_block: int) -> torch.Tensor:
     """Batched packed C2R inverse of a (B, N/2+1) complex64 tensor ->
-    (B, N) float32 (1/N normalised), ``per_block`` transforms per thread
-    block."""
+    (B, N) float32 (1/N normalised): the Hermitian merge in the first
+    register pass's reads, the N/2-point inverse in register passes
+    (:func:`pass_launch`), ``per_block`` transforms per thread block."""
     _check(x, 2, "fft_c2r")
     b, m1 = x.shape
-    n = 2 * _real_length(2 * (m1 - 1))
+    m = _real_length(2 * (m1 - 1))
     if x.device.type == "cpu":
         return fft_c2r_plain(x, radices=radices)
-    y = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, 2 * m), dtype=torch.float32, device=x.device)
     if b == 0:
         return y
-    return _launch_real("fft_c2r", _real_library().repro_fft_c2r, x, y, n,
-                        radices, True, per_block)
-
-
-def _launch_real(name: str, fn, x: torch.Tensor, y: torch.Tensor, n: int,
-                 radices: tuple[int, ...], inverse: bool,
-                 per_block: int) -> torch.Tensor:
-    """Launch the C2R kernel: stage tables of the half length N/2, the
-    complex64 split table of N."""
-    sched, dr, di, twr, twi = _schedule_args(n // 2, radices, inverse,
-                                             x.device)
-    sw = _split_factors(n, x.device, torch.complex64)
+    args = _pass_args(m, b, tuple(radices), per_block, True, True, x.device)
+    lib = _real_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), x.shape[0], n, per_block,
-                 sched.ctypes.data, len(sched), dr.ctypes.data,
-                 di.ctypes.data, twr.data_ptr(), twi.data_ptr(),
-                 sw.data_ptr(), stream)
-    _raise_on(err, name, _real_library())
+        err = lib.repro_fft_c2r(x.data_ptr(), y.data_ptr(), b, 2 * m,
+                                *args.c_args, stream)
+    _raise_on(err, "fft_c2r", lib)
     return y
+
+
+#: Kernel ids of ``repro_fft_real_resident_blocks`` (``csrc/fft_real.cu``).
+_REAL_KERNELS = {"fft_r2c": 0, "fft_c2r": 1, "fft_r2c_t": 2}
 
 
 def resident_blocks(name: str, launch: PassLaunch) -> int:
     """Blocks of ``launch`` that one SM of the current card holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) for the pass
-    kernel ``name`` (``fft_c2c`` or ``fft_r2c``)."""
-    fn = {"fft_c2c": lambda: _library().repro_fft_c2c_resident_blocks,
-          "fft_r2c": lambda: _real_library().repro_fft_r2c_resident_blocks
-          }[name]()
-    got = fn(launch.points, launch.family, launch.threads,
+    kernel ``name`` (``fft_c2c``, ``fft_r2c``, ``fft_c2r`` or
+    ``fft_r2c_t``)."""
+    shape = (launch.points, launch.family, launch.threads,
              launch.shared_bytes)
+    if name == "fft_c2c":
+        got = _library().repro_fft_c2c_resident_blocks(*shape)
+    else:
+        got = _real_library().repro_fft_real_resident_blocks(
+            _REAL_KERNELS[name], *shape)
     if got < 0:
         raise RuntimeError(f"occupancy query of {name} failed for {launch}")
     return got
+
+
+@functools.lru_cache(maxsize=256)
+def _active_clusters(device: int, points: int, family: int, threads: int,
+                     shared_bytes: int, cluster: int) -> int:
+    got = _real_library().repro_fft_r2c_t_active_clusters(
+        points, family, threads, shared_bytes, cluster)
+    if got < 0:
+        raise RuntimeError(f"cluster occupancy query of fft_r2c_t failed "
+                           f"({cluster} blocks of {threads} threads, "
+                           f"{shared_bytes} bytes)")
+    return got
+
+
+def active_clusters(launch: PassLaunch, cluster: int) -> int:
+    """Clusters of ``cluster`` ``fft_r2c_t`` blocks of ``launch`` that the
+    current card runs at once (``cudaOccupancyMaxActiveClusters``; cached
+    per card and shape)."""
+    return _active_clusters(torch.cuda.current_device(), launch.points,
+                            launch.family, launch.threads,
+                            launch.shared_bytes, cluster)
 
 
 def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:

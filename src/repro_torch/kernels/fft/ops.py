@@ -26,7 +26,8 @@ from repro_torch.kernels.fft import fft_kernel
 from repro_torch.obs.ledger import record_launch
 
 # One fused kernel handles transforms that fit shared memory: the register
-# passes of fft_c2c/fft_r2c, the double-buffered stages of the others.
+# passes of fft_c2c and the real kernels, the double-buffered stages of the
+# others.
 MAX_KERNEL_N = 2**13
 
 
@@ -216,8 +217,10 @@ def fft_kernel_r2c_t(x: torch.Tensor, *,
                      radices: tuple[int, ...] = DEFAULT_RADICES,
                      tile_b: int | None = None) -> torch.Tensor:
     """Fused R2C + transposed write: (..., R, C) real -> (..., C/2+1, R)
-    complex64, pow2 4 <= C <= 2 * MAX_KERNEL_N; ``tile_b`` overrides the
-    rows per thread block."""
+    complex64, pow2 4 <= C <= 2 * MAX_KERNEL_N.  The C/2-point FFT runs in
+    register passes (``fft_kernel.pass_launch``; ``tile_b`` overrides the
+    rows per thread block), and clusters of blocks
+    (``fft_kernel.r2c_t_cluster``) store their rows' bins together."""
     x = _real32(x)
     r, c = x.shape[-2:]
     _check_kernel_length(max(c // 2, 1))
@@ -225,10 +228,14 @@ def fft_kernel_r2c_t(x: torch.Tensor, *,
         raise ValueError(f"fused R2C needs C >= 4, got {c}")
     lead = x.shape[:-2]
     b = _batch(x.shape, 2)
-    tile = fft_kernel.transforms_per_block(c // 2, r, tile_b)
+    launch = fft_kernel.pass_launch(c // 2, r, tuple(radices), tile_b,
+                                    split=True)
+    tile = launch.per_block
+    cluster = fft_kernel.r2c_t_cluster(tile, r)
     y = fft_kernel.fft_r2c_t(x.reshape(b, r, c), radices=radices,
-                             per_block=tile)
-    record_launch("fft-r2c-t", grid=(fft_kernel.blocks(r, tile, b),),
+                             per_block=tile, cluster=cluster)
+    record_launch("fft-r2c-t",
+                  grid=(fft_kernel.r2c_t_blocks(b, r, tile, cluster),),
                   tile=(tile, c),
                   bytes_moved=4 * b * r * (c + 2 * (c // 2 + 1)),
                   shape=(b, r, c))
@@ -243,6 +250,8 @@ def fft_kernel_c2r(x: torch.Tensor, *,
 
     The packed merge reads the imaginary parts of bins 0 and N/2, which
     ``torch.fft.irfft`` ignores: the two agree on a true half-spectrum.
+    The merge and the N/2-point inverse run in register passes
+    (``fft_kernel.pass_launch``).
     """
     x = _complex64(x)
     m = x.shape[-1] - 1
@@ -252,10 +261,10 @@ def fft_kernel_c2r(x: torch.Tensor, *,
         return stockham.irfft(x)
     lead = x.shape[:-1]
     b = _batch(x.shape, 1)
-    tile = fft_kernel.transforms_per_block(m + 1, b, tile_b)
+    launch = fft_kernel.pass_launch(m, b, tuple(radices), tile_b, split=True)
     y = fft_kernel.fft_c2r(x.reshape(b, m + 1), radices=radices,
-                           per_block=tile)
-    record_launch("fft-c2r", grid=(fft_kernel.blocks(b, tile),),
-                  tile=(tile, n), bytes_moved=4 * b * (2 * (m + 1) + n),
+                           per_block=launch.per_block)
+    record_launch("fft-c2r", grid=(launch.blocks,),
+                  tile=(launch.per_block, n), bytes_moved=4 * b * (2 * (m + 1) + n),
                   shape=(b, n))
     return y.reshape(*lead, n)

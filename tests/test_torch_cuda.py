@@ -113,8 +113,41 @@ def test_r2c_register_passes_match_plain_at_every_length(gen, n, radices):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("radices", ((4, 2), (8, 4, 2)))
+@pytest.mark.parametrize("n", R2C_LENGTHS)
+def test_c2r_register_passes_match_plain_at_every_length(gen, n, radices):
+    """The merge in the first pass's reads, on any complex input (kernel
+    and plain version run the same merge), ragged against every tile."""
+    x = _rand(gen, 37, n // 2 + 1)
+    want = K.fft_c2r_plain(x, radices=radices)
+    for tile_b in _tiles(n // 2):
+        assert _rel(ops.fft_kernel_c2r(x, radices=radices, tile_b=tile_b),
+                    want) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", (7, 13, 4097))
+@pytest.mark.parametrize("c", R2C_LENGTHS)
+def test_r2c_t_clusters_match_plain_at_every_length(gen, c, rows):
+    """Ragged row counts, every cluster size the planner chooses (one
+    block's rows, 4 and 8 rows a cluster), default and one-row blocks."""
+    x = torch.randn(2, rows, c, device="cuda", generator=gen)
+    want = K.fft_r2c_t_plain(x)
+    for tile_b in (None, 1):
+        launch = K.pass_launch(c // 2, rows, override=tile_b, split=True)
+        for cluster_rows in (launch.per_block, 4, 8):
+            g = K.r2c_t_cluster(launch.per_block, rows, cluster_rows)
+            assert K.active_clusters(launch, g) >= 1
+            y = K.fft_r2c_t(x, per_block=launch.per_block, cluster=g)
+            assert _rel(y, want) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,n,split", [("fft_c2c", 8192, False),
-                                          ("fft_r2c", 8192, True)])
+                                          ("fft_r2c", 8192, True),
+                                          ("fft_c2r", 8192, True)])
 def test_two_blocks_resident_at_the_longest_lengths(gen, name, n, split):
     launch = K.pass_launch(n, 30517, split=split)
     assert K.resident_blocks(name, launch) >= 2

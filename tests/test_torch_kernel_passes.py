@@ -1,12 +1,15 @@
-"""The register-pass plan of the ``fft_c2c`` and ``fft_r2c`` kernels
-(``repro_torch.kernels.fft.fft_kernel.register_passes``, ``pass_table``,
-``compact_twiddles``, ``pass_launch``) and a torch emulation of the
-kernels' gather / butterfly / scatter order (``csrc/stockham_regs.cuh``).
+"""The register-pass plan of the ``fft_c2c``, ``fft_r2c``, ``fft_r2c_t``
+and ``fft_c2r`` kernels (``repro_torch.kernels.fft.fft_kernel.
+register_passes``, ``pass_table``, ``compact_twiddles``, ``pass_launch``,
+``r2c_t_cluster``) and an emulation of the kernels' order
+(``csrc/stockham_regs.cuh``, ``csrc/fft_real.cu``).
 
 The emulation runs the plan table the kernel reads, thread by thread and
 register by register, with the plain versions' float32 operations: it must
-agree with ``fft_c2c_plain`` and ``fft_r2c_plain`` bit for bit
-(``torch.equal``), so an index error shows here, before a run on the card.
+agree with ``fft_c2c_plain``, ``fft_r2c_plain`` and ``fft_c2r_plain`` bit
+for bit (``torch.equal``), so an index error shows here, before a run on
+the card.  The transposed store of ``fft_r2c_t`` through a thread-block
+cluster is emulated as index maps: every output element written once.
 """
 import itertools
 import re
@@ -16,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.fft.radix import DEFAULT_RADICES
-from repro_torch.fft.stockham import _rfft_split
+from repro_torch.fft.stockham import _rfft_split, _split_factors
 from repro_torch.kernels.common import CSRC_DIR, MAX_SHARED_BYTES
 from repro_torch.kernels.fft import fft_kernel as K
 
@@ -264,9 +267,16 @@ def _butterfly(vr, vi, o, r, s, ws, sign, dft):
         vi[..., o + k * s] = outi
 
 
-def _emulate(re, im, n, radices, inverse):
-    """The kernel on (B, n) float32 planes: returns the planes it stores
-    (before the inverse's 1/n)."""
+def _planes_read(re, im):
+    """The first gather of fft_c2c/fft_r2c: the (B, n) planes at ``at``."""
+    return lambda at: (re[:, at], im[:, at])
+
+
+def _emulate(read, b, n, radices, inverse):
+    """The kernel on B transforms of length n whose first pass's gather
+    reads ``read(at)`` (the float32 planes of the points at the lanes'
+    offsets ``at``): returns the planes it stores (before the inverse's
+    1/n)."""
     table = K.pass_table(n, radices)
     tw = K.compact_twiddles(n, radices, torch.device("cpu"))
     twr, twi = tw.real, (-tw.imag if inverse else tw.imag)
@@ -274,14 +284,12 @@ def _emulate(re, im, n, radices, inverse):
     p_pts = K.pass_points(n)
     log_t = (n // p_pts).bit_length() - 1
     lane = torch.arange(n // p_pts)
-    b = re.shape[0]
     vr = torch.empty(b, len(lane), p_pts)
     vi = torch.empty(b, len(lane), p_pts)
 
-    def load(src_r, src_i, row):
+    def load(read_at, row):
         for i in range(p_pts):
-            at = _gather_at(row, i, lane, log_t)
-            vr[..., i], vi[..., i] = src_r[:, at], src_i[:, at]
+            vr[..., i], vi[..., i] = read_at(_gather_at(row, i, lane, log_t))
 
     def store(row):
         dst_r = torch.full((b, n), float("nan"))
@@ -294,10 +302,11 @@ def _emulate(re, im, n, radices, inverse):
         assert torch.equal(seen, torch.ones(n, dtype=torch.int64))
         return dst_r, dst_i
 
-    load(re, im, table[0])
+    load(read, table[0])
     for p, row in enumerate(table):
         if p > 0:
-            load(buf_r, buf_i, row)  # noqa: F821 - the previous exchange
+            load(lambda at: (buf_r[:, at], buf_i[:, at]),  # noqa: F821
+                 row)                                      # last exchange
         for st in range(int(row[2])):
             _stage(vr, vi, row, st, twr, twi, lane, log_t, inverse, dft)
         buf_r, buf_i = store(row)
@@ -310,7 +319,7 @@ def _emulate(re, im, n, radices, inverse):
 def test_emulated_c2c_is_the_plain_version_bit_for_bit(n, radices, inverse):
     x = _rand(n, (BATCH, n, 2))
     re, im = torch.from_numpy(x[..., 0]), torch.from_numpy(x[..., 1])
-    yr, yi = _emulate(re, im, n, radices, inverse)
+    yr, yi = _emulate(_planes_read(re, im), BATCH, n, radices, inverse)
     if inverse:
         yr, yi = yr / n, yi / n
     want = K.fft_c2c_plain(torch.complex(re, im), inverse=inverse,
@@ -325,6 +334,224 @@ def test_emulated_r2c_is_the_plain_version_bit_for_bit(n, radices):
     x = torch.from_numpy(_rand(n + 1, (BATCH, n)))
     m = n // 2
     v = x.reshape(BATCH, m, 2)
-    zr, zi = _emulate(v[..., 0], v[..., 1], m, radices, False)
+    zr, zi = _emulate(_planes_read(v[..., 0], v[..., 1]), BATCH, m,
+                      radices, False)
     got = _rfft_split(torch.complex(zr, zi), n)
     assert torch.equal(got, K.fft_r2c_plain(x, radices=radices))
+
+
+def _merge_of(v, u, w):
+    """``merge_of`` (csrc/fft_real.cu) on float32 planes: Z = Ze + i * Zo
+    from v = X[k], u = X[m - k] and w = W[k], in the kernel's order."""
+    rr, ri = u[0], -u[1]                                 # conj(X[m-k])
+    er, ei = 0.5 * (v[0] + rr), 0.5 * (v[1] + ri)        # Ze
+    dr, di = v[0] - rr, v[1] - ri
+    wr, wi = w[0], -w[1]                                 # conj(W)
+    hr, hi = 0.5 * dr, 0.5 * di
+    qr, qi = hr * wr - hi * wi, hr * wi + hi * wr        # Zo
+    return er - qi, ei + qr
+
+
+def _merge_read(x, n):
+    """fft_c2r_regs_kernel's merge pass and first gather: point k of the
+    staged row, merged in place from bins k and m - k and W[k], is what
+    the first pass reads at k.  The merge runs here with the plain
+    version's complex operations on the staged (B, m + 1) bins (torch
+    rounds its complex products by the tensor's layout, so only the same
+    shapes give the same bits), the kernel's index map written out;
+    ``merge_of``'s own float order is held to it within rounding."""
+    m = n // 2
+    k = torch.arange(m + 1)
+    rev = torch.conj_physical(x[:, m - k])               # conj(X[m-k])
+    wc = torch.conj_physical(_split_factors(n, torch.device("cpu"),
+                                            torch.complex64))
+    ze = (0.5 * (x + rev))[..., :m]
+    zo = (0.5 * wc * (x - rev))[..., :m]
+    z = ze + 1j * zo
+    at = k[:m]
+    planes = (lambda t: (t.real, t.imag))
+    fr, fi = _merge_of(planes(x[:, at]), planes(x[:, m - at]),
+                       planes(wc.conj()[at]))
+    scale = z.abs().max()
+    assert (fr - z.real).abs().max() <= 2e-7 * scale
+    assert (fi - z.imag).abs().max() <= 2e-7 * scale
+    zr, zi = z.real.contiguous(), z.imag.contiguous()
+    return lambda at: (zr[:, at], zi[:, at])
+
+
+@pytest.mark.parametrize("radices", RADIX_SETS)
+@pytest.mark.parametrize("n", REAL_LENGTHS)
+def test_emulated_c2r_is_the_plain_version_bit_for_bit(n, radices):
+    """The merge of the staged bins, read by the first pass's gather,
+    the inverse passes of the half length, 1/m, and each Z[k] stored as
+    the reals 2k, 2k+1."""
+    m = n // 2
+    x = _rand(n + 2, (BATCH, m + 1, 2))
+    x = torch.complex(torch.from_numpy(x[..., 0]), torch.from_numpy(x[..., 1]))
+    zr, zi = _emulate(_merge_read(x, n), BATCH, m, radices, True)
+    got = torch.stack([zr / m, zi / m], dim=-1).reshape(BATCH, n)
+    assert torch.equal(got, K.fft_c2r_plain(x, radices=radices))
+
+
+# ---------------------------------------------------------------------------
+# The index maps of the real kernels' shared-memory loops and of the
+# fft_r2c_t cluster store (csrc/fft_real.cu)
+# ---------------------------------------------------------------------------
+
+def _row_loop(threads, width, count):
+    """The (row, column) pairs the block's threads visit in the loops
+    that step through e = t * width + k (R2C's split, C2R's staging,
+    R2C_T's split pairs): t = tid / width, then k += threads, carrying."""
+    tid = np.arange(threads)
+    t, k = tid // width, tid % width
+    seen = []
+    while (t < count).any():
+        live = t < count
+        seen.append(np.stack([t[live], k[live]], axis=1))
+        k = k + threads
+        t = t + k // width                   # the carrying while loop
+        k = k % width
+    return np.concatenate(seen) if seen else np.zeros((0, 2), int)
+
+
+def _store_loop(threads, width, lo, hi, per_block):
+    """The (cluster row, bin) pairs of the R2C_T store loop of one block:
+    t = tid % width, k = lo + tid / width, stepping by the block's
+    threads with the (dt, dk) carry, while k < hi; the carried (owner,
+    row) of t must stay t = owner * per_block + row, row < per_block."""
+    tid = np.arange(threads)
+    t, k = tid % width, lo + tid // width
+    owner, row = t // per_block, t % per_block
+    dt, dk = threads % width, threads // width
+    dq, dr = dt // per_block, dt % per_block
+    g = width // per_block
+    seen = []
+    while (k < hi).any():
+        live = k < hi
+        assert (owner * per_block + row == t).all()
+        assert ((0 <= row) & (row < per_block) & (0 <= owner)
+                & (owner < g)).all()
+        seen.append(np.stack([t[live], k[live]], axis=1))
+        t, k, owner, row = t + dt, k + dk, owner + dq, row + dr
+        carry = row >= per_block
+        row[carry] -= per_block
+        owner[carry] += 1
+        wrap = t >= width
+        t[wrap] -= width
+        owner[wrap] -= g
+        k[wrap] += 1
+    return np.concatenate(seen) if seen else np.zeros((0, 2), int)
+
+
+def _once(pairs, shape):
+    """Each (row, column) of ``shape`` visited exactly once."""
+    hits = np.zeros(shape, np.int64)
+    np.add.at(hits, (pairs[:, 0], pairs[:, 1]), 1)
+    return bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("c", REAL_LENGTHS)
+def test_real_kernels_row_loops_visit_each_bin_once(c):
+    """R2C's split and C2R's staging visit bins 0..m of each live row once,
+    R2C_T's split and C2R's merge pairs 0..m/2.  An R2C_T pair (k, m - k)
+    reads Z inside the transform and writes X[k], X[m - k], together
+    every slot 0..m; a C2R pair reads X[k], X[m - k] and writes Z[k] and,
+    for k > 0, Z[m - k] (the same value twice at k = m/2), together every
+    point 0..m-1."""
+    m = c // 2
+    fits3 = 3 * m // K.pass_points(m) <= K.PASS_THREADS
+    for tile_b in (None, 1) + ((3,) if fits3 else ()):
+        launch = K.pass_launch(m, 1001, override=tile_b, split=True)
+        assert launch.shared_bytes == launch.per_block * K.split_slots(m) * 8
+        for count in {launch.per_block, max(launch.per_block - 1, 1)}:
+            bins = _row_loop(launch.threads, m + 1, count)
+            assert _once(bins, (count, m + 1))
+            pairs = _row_loop(launch.threads, m // 2 + 1, count)
+            assert _once(pairs, (count, m // 2 + 1))
+    k = np.arange(m // 2 + 1)
+    assert ((m - k) & (m - 1)).max() < m             # reads Z[m - k], Z[0]
+    writes = np.concatenate([k, m - k])
+    assert sorted(set(writes)) == list(range(m + 1))
+    merged = np.concatenate([k, (m - k)[k > 0]])  # pair m/2: Z[m/2] twice
+    assert sorted(set(merged)) == list(range(m))
+    assert K.split_slots(m) >= m + 1
+
+
+def _r2c_t_store_once(b, rows, m, per_block, g, threads):
+    """Whether fft_r2c_t_regs_kernel's grid and store write every (batch,
+    bin, row) of the (b, m + 1, rows) output exactly once, reading each
+    bin from a computed (unmasked) row of its owner block."""
+    m1 = m + 1
+    rows_c = g * per_block
+    tiles = -(-rows // rows_c)
+    bid = np.arange(b * tiles * g)
+    cid, rank = bid // g, bid % g                    # 1-D clusters of g
+    batch = cid // tiles
+    tile = cid - batch * tiles
+    # Every (batch entry, row tile, rank) is one block.
+    blocks_once = _once(np.stack([batch * tiles + tile, rank], axis=1),
+                        (b * tiles, g))
+    # Block `rank` stores bins [rank * share, ...) of the cluster's rows:
+    # together every (cluster row, bin) once.
+    share = -(-m1 // g)
+    pairs = np.concatenate([
+        _store_loop(threads, rows_c, j * share, min(m1, (j + 1) * share),
+                    per_block)
+        for j in range(g)])
+    pairs_once = _once(pairs, (rows_c, m1))
+    # Cluster row t of tile i is row i * rows_c + t (written if < rows),
+    # held by the block of rank t // per_block (first row r0) as its row
+    # t % per_block, which it computed if that is below its count.
+    t = np.arange(rows_c)
+    owner = t // per_block
+    row = np.arange(tiles)[:, None] * rows_c + t
+    live = row < rows
+    r0 = np.arange(tiles)[:, None] * rows_c + owner * per_block
+    computed = t - owner * per_block < np.clip(rows - r0, 0, per_block)
+    rows_once = np.array_equal(np.sort(row[live]), np.arange(rows))
+    return (blocks_once and pairs_once and rows_once
+            and np.array_equal(computed, live))
+
+
+@pytest.mark.parametrize("rows", (1, 7, 13, 4097))
+@pytest.mark.parametrize("c", REAL_LENGTHS)
+def test_r2c_t_cluster_store_writes_every_bin_once(c, rows):
+    """Every (row, bin) of the (B, C/2+1, R) output written exactly once,
+    for each cluster size G the planner chooses (R2C_T_ROWS of one block,
+    4 and 8 rows a cluster, with the default and one-row blocks), and no
+    masked row written or read."""
+    m = c // 2
+    sizes = set()
+    for tile_b in (None, 1):
+        launch = K.pass_launch(m, rows, override=tile_b, split=True)
+        for cluster_rows in (launch.per_block, 4, 8):
+            g = K.r2c_t_cluster(launch.per_block, rows, cluster_rows)
+            assert 1 <= g <= K.MAX_CLUSTER
+            assert (launch.per_block * g <= max(cluster_rows,
+                                                launch.per_block))
+            sizes.add((launch.per_block, g))
+    for per_block, g in sorted(sizes):
+        threads = per_block * (m // K.pass_points(m))
+        assert _r2c_t_store_once(2, rows, m, per_block, g, threads)
+        assert K.r2c_t_blocks(2, rows, per_block, g) \
+            == 2 * -(-rows // (per_block * g)) * g
+
+
+def test_r2c_t_cluster_sizes():
+    """One row a block at C = 8192 and 16384: clusters of R2C_T_ROWS
+    blocks; rows past R take no block of their own; blocks of R2C_T_ROWS
+    rows or more (C <= 2048) take clusters of one."""
+    rows = K.R2C_T_ROWS
+    assert K.r2c_t_cluster(1, 4096) == rows
+    assert K.r2c_t_cluster(1, 4096, cluster_rows=8) == 8 == K.MAX_CLUSTER
+    assert K.r2c_t_cluster(1, 4096, cluster_rows=1) == 1
+    assert K.r2c_t_cluster(1, 3) == min(3, rows)
+    assert K.r2c_t_cluster(1, 1) == 1 == K.r2c_t_cluster(2, 2)
+    assert K.r2c_t_cluster(2, 3, cluster_rows=8) == 2
+    assert K.r2c_t_cluster(4, 4096, cluster_rows=8) == 2
+    assert K.r2c_t_cluster(rows, 4096) == 1 == K.r2c_t_cluster(8, 4096)
+    assert K.r2c_t_cluster(1, 4096, cluster_rows=64) == K.MAX_CLUSTER
+    assert K.r2c_t_blocks(16, 4096, 1, 8) == 16 * 4096
+    assert K.r2c_t_blocks(16, 4097, 1, 8) == 16 * 513 * 8
+    with pytest.raises(ValueError, match=">= 1"):
+        K.r2c_t_cluster(1, 10, cluster_rows=0)

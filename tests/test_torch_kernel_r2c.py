@@ -149,19 +149,18 @@ def test_plain_versions_never_count_launches():
 @pytest.mark.parametrize("points,count,tile,blocks", [
     (512, 488281, 8, 61036),        # r2c at 1024: the 2 GB main-path batch
     (8192, 30517, 1, 30517),        # r2c at 16384: 68 KB of shared memory
-    (513, 488281, 7, 69755),        # c2r at 1024 stages N/2+1 bins
+    (513, 488281, 8, 61036),        # c2r at 1024 stages N/2+1 bins
     (8193, 30517, 1, 30517),        # c2r at 16384
 ])
 def test_launch_geometry(points, count, tile, blocks):
-    if points % 2:
-        # C2R: double-buffered stages of N/2+1 staged bins.
-        assert fft_kernel.transforms_per_block(points, count) == tile
-        assert fft_kernel.blocks(count, tile) == blocks
-        return
-    # R2C: the N/2-point register passes, one padded buffer a transform
-    # that holds the spectrum for the split.
-    launch = fft_kernel.pass_launch(points, count, split=True)
+    """Both run the N/2-point register passes, one buffer a transform
+    that holds the spectrum for the split (R2C, ``points`` = N/2) or the
+    N/2+1 staged bins for the merge (C2R, ``points`` = N/2+1)."""
+    m = points - points % 2
+    launch = fft_kernel.pass_launch(m, count, split=True)
     assert (launch.per_block, launch.blocks) == (tile, blocks)
     assert launch.threads == 256
-    assert launch.shared_bytes == tile * fft_kernel.padded(points) * 8
+    assert fft_kernel.split_slots(m) >= m + 1
+    assert launch.shared_bytes == tile * fft_kernel.split_slots(m) * 8
+    assert launch.shared_bytes == tile * fft_kernel.padded(m) * 8
     assert launch.resident_blocks >= 2
