@@ -27,8 +27,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      and time the kernel, the plain version and, where one call computes
      the same function, that PyTorch call (else the nearest torch
      composition); fft_c2c, fft_r2c and fft_c2r over a sweep of 2 GB
-     batches, with the blocks one SM holds; fft_r2c_t at the rfft2 pass
-     (16, 4096, 8192) with 1, 4 and 8 rows a cluster;
+     batches, with the blocks one SM holds; the host time of one fft_c2c and fft_r2c call, broken down (the
+     Python wrapper, the kernel function, the ctypes call, the C entry)
+     beside torch.fft's; fft_r2c_t at the rfft2 pass (16, 4096, 8192) with
+     1, 4 and 8 rows a cluster;
   4. drive the main path — ``plan_for_length(n)(x)`` on a 2 GB batch
      (``FFTCase(n).n_fft`` transforms) for n = 1024, 8192, 2**20 and
      19321 = 139**2, then ``plan_for_length(n, "r2c")`` and ``"c2r"`` on
@@ -66,6 +68,7 @@ Exits non-zero without printing a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -197,6 +200,11 @@ PASS_RADICES = ((4, 2), (8, 4, 2))
 PASS_BATCH = 37                  # ragged against every block size
 SWEEP_C2C = (256, 1024, 2048, 4096, 8192)
 SWEEP_R2C = (1024, 4096, 16384)
+#: The host-time breakdown: (kernel, length) at 2 GB batches, and the
+#: calls timed of each step.
+HOST_GAP_CASES = (("fft_c2c", 1024), ("fft_c2c", 8192), ("fft_r2c", 1024),
+                  ("fft_r2c", 16384))
+HOST_GAP_CALLS = 30
 #: fft_r2c_t: the ragged row counts of its every-length check, and the
 #: rfft2 pass where its cluster size is swept.
 R2C_T_RAGGED_ROWS = (7, 13, 4097)
@@ -687,11 +695,14 @@ def _pass_sweep_row(gen: torch.Generator, name: str, n: int) -> dict:
     row["resident_blocks"] = resident
     queued, lib_queued = queued_ms(lambda: fn(x)), queued_ms(lib)
     print(f"    {name} n={n}: {launch.points} points a thread, "
+          f"{launch.per_block} transforms a block, "
           f"{launch.threads} threads and {launch.shared_bytes} shared bytes "
-          f"a block, passes {launch.passes}, {resident} blocks resident "
-          f"per SM (planner's estimate {launch.resident_blocks}); 10 runs "
+          f"a block, {launch.blocks} blocks, passes {launch.passes}, "
+          f"{resident} blocks resident per SM (planner's estimate "
+          f"{launch.resident_blocks}); single {row['ms']:.4f} ms, 10 runs "
           f"back to back {queued:.4f} ms a run ({nbytes / queued / 1e6:.1f} "
-          f"GB/s), library {lib_queued:.4f} ms")
+          f"GB/s), bound {row['bound_ms']:.4f} ms, library single "
+          f"{row['library_ms']:.4f} ms, back to back {lib_queued:.4f} ms")
     del x
     torch.cuda.empty_cache()
     return row
@@ -1138,6 +1149,159 @@ def phase3_rows_per_block(gen: torch.Generator) -> None:
           f"R2C_T_ROWS = {K.R2C_T_ROWS})")
     del x, y1
     torch.cuda.empty_cache()
+
+
+def _pass_input(gen: torch.Generator, name: str, n: int):
+    """A 2 GB batch of length ``n`` for fft_c2c or fft_r2c (the 1-D plans'
+    ``FFTCase`` batches), its wrapper with tile_b = K, its torch.fft call
+    and the half length of its passes."""
+    if name == "fft_c2c":
+        x = randn(gen, FFTCase(n).n_fft, n)
+        return (x, lambda k=None: ops.fft_kernel_c2c(x, tile_b=k),
+                lambda: torch.fft.fft(x), n)
+    x = torch.randn(FFTCase(n, transform="r2c").n_fft, n, device="cuda",
+                    generator=gen)
+    return (x, lambda k=None: ops.fft_kernel_r2c(x, tile_b=k),
+            lambda: torch.fft.rfft(x), n // 2)
+
+
+def _host_us(fn, calls: int = HOST_GAP_CALLS) -> float:
+    """Median host time [us] of one call of ``fn``, each call timed with
+    ``time.perf_counter`` while a spin kernel keeps the card busy: every
+    launch queues behind it, so no call waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def _single_host(fn, reps: int = 10,
+                 empty_cache: bool = False) -> tuple[float, float]:
+    """Median time [ms] of one run of ``fn`` between CUDA events on an
+    idle card, as ``median_ms`` times it, and the median host time [us]
+    of the timed call; with ``empty_cache`` the allocator's pool is
+    emptied first, as the sweep rows and phase 4 do before they time."""
+    if empty_cache:
+        torch.cuda.empty_cache()
+    fn()
+    torch.cuda.synchronize()
+    times, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times), statistics.median(host) * 1e6
+
+
+def _spun_ms(fn, reps: int = 10) -> float:
+    """Median time of one run of ``fn`` between CUDA events recorded
+    behind a spin of about 1 ms: the host enqueues the run while the card
+    spins, so the time is the card's alone, as a single launch's."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES // 50)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def phase3_host_gap(gen: torch.Generator) -> None:
+    """The host time of one fft_c2c and fft_r2c call at 1024 and 8192 /
+    16384 on 2 GB batches, broken down: the wrapper the plans call
+    (ops), the kernel function (fft_kernel), the ctypes call of the C
+    entry on its cached plan (C entry and launch), a ctypes call of an
+    empty C function of the same signature, and what each call did
+    before plans were cached: plan the launch in C (make_reg_plan and
+    cudaFuncSetAttribute), enter torch.cuda.device; beside them the
+    stream lookup, the output's allocation and torch.fft's call.  Then
+    the single launch (CUDA events around one call on an idle card, with
+    the call's host time; again right after the allocator's pool was
+    emptied), one launch whose host work hides behind a spin, and back
+    to back."""
+    for name, n in HOST_GAP_CASES:
+        x, fn, lib_fn, m = _pass_input(gen, name, n)
+        b = x.shape[0]
+        dev = x.device
+        launch = K.pass_launch(m, b, DEFAULT_RADICES,
+                               split=name != "fft_c2c")
+        kernel_fn = (K.fft_c2c if name == "fft_c2c" else K.fft_r2c)
+        lib = K._library() if name == "fft_c2c" else K._real_library()
+        plan = K._plan(name, n, b, DEFAULT_RADICES, launch.per_block, False,
+                       dev)
+        run = getattr(lib, f"repro_{name}_run")
+        y = kernel_fn(x, per_block=launch.per_block)
+        stream = K._stream(dev)
+        args = (plan.address, x.data_ptr(), y.data_ptr(), b, stream)
+        make = getattr(lib, f"repro_{name}_plan")
+        buf = ctypes.create_string_buffer(lib.repro_pass_plan_bytes())
+        table = K.pass_table(m, DEFAULT_RADICES)
+        dr, di = K._dft8(False)
+        tw = K.compact_twiddles(m, DEFAULT_RADICES, dev)
+        head = (buf, n, launch.points, launch.per_block, table.ctypes.data,
+                len(table))
+        tail = ((0, dr.ctypes.data, di.ctypes.data, tw.data_ptr())
+                if name == "fft_c2c" else
+                (dr.ctypes.data, di.ctypes.data, tw.data_ptr(),
+                 plan.keep[-1].data_ptr()))
+
+        def device_context():
+            with torch.cuda.device(dev):
+                pass
+
+        steps = {
+            "wrapper (ops)": fn,
+            "kernel function": lambda: kernel_fn(
+                x, per_block=launch.per_block),
+            "ctypes + C entry + launch": lambda: run(*args),
+            "ctypes, empty C function": lambda: lib.repro_pass_noop(*args),
+            "plan in C per call (as every call did)":
+                lambda: make(*head, *tail),
+            "torch.cuda.device context (as every call did)": device_context,
+            "stream lookup, raw (the calls')": lambda: K._stream(dev),
+            "stream lookup, torch.cuda.current_stream (as every call did)":
+                lambda: torch.cuda.current_stream(dev).cuda_stream,
+            "output allocation": lambda: torch.empty_like(y),
+            "library (torch.fft)": lib_fn,
+        }
+        us = {step: _host_us(f) for step, f in steps.items()}
+        ops_us = us["wrapper (ops)"] - us["kernel function"]
+        python_us = us["kernel function"] - us["ctypes + C entry + launch"]
+        entry_us = (us["ctypes + C entry + launch"]
+                    - us["ctypes, empty C function"])
+        single, single_host = _single_host(fn)
+        cold, cold_host = _single_host(fn, empty_cache=True)
+        spun, queued = _spun_ms(fn), queued_ms(fn)
+        print(f"  host time of one {name} call, n={n}, batch {b} (median of "
+              f"{HOST_GAP_CALLS}, card busy): "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in us.items())
+              + f"; so ops layer {ops_us:.1f} us, kernel function's Python "
+              f"{python_us:.1f} us, C entry and launch {entry_us:.1f}"
+              f" us; single launch {single:.4f} ms (its call's host time "
+              f"{single_host:.1f} us), right after empty_cache() {cold:.4f} "
+              f"ms ({cold_host:.1f} us), behind a spin {spun:.4f} ms, back to "
+              f"back {queued:.4f} ms (single / back to back "
+              f"{single / queued:.4f})")
+        del x, y
+        torch.cuda.empty_cache()
 
 
 def _drive(label: str, plan, x: torch.Tensor, expected: dict[str, int],
@@ -1896,6 +2060,7 @@ def main() -> int:
     phase3_nd_kernels(gen, measured)
     phase3_pulsar_kernels(gen, measured)
     phase3_rows_per_block(gen)
+    phase3_host_gap(gen)
     launches = phase4_main_path(gen)
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo):
         for kernel, count in phase(gen).items():

@@ -1,9 +1,9 @@
 // Fused mixed-radix Stockham C2C FFT kernels for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of src/repro/kernels/fft/fft_kernel.py:
-//   repro_fft_c2c        <- fft_pallas (def :360; body _c2c_body :137;
+//   repro_fft_c2c_run    <- fft_pallas (def :360; body _c2c_body :137;
 //                           stages _mixed_radix_stages :68), in register
-//                           passes
+//                           passes planned by repro_fft_c2c_plan
 //   repro_fft_c2c_axis1  <- fft_axis1_twiddle_pallas (:515, body :202) and
 //                           fft_axis1_pallas (:483): a null twiddle
 //                           pointer selects the variant without twiddle
@@ -26,7 +26,7 @@
 // a ragged batch is masked in the kernel (the last block runs fewer
 // transforms), never padded.
 //
-// repro_fft_c2c runs register-resident Stockham passes
+// repro_fft_c2c_run runs register-resident Stockham passes
 // (stockham_regs.cuh): each thread loads 16 points of a transform (32 at
 // n = 8192, where a transform takes 256 threads) straight from device
 // memory into registers, coalesced, runs up to five stages on them, and
@@ -39,8 +39,9 @@
 // without spills, and one buffer, three blocks share an SM at 16 points a
 // thread and two at n = 8192 (radix-8 schedules, a tuning option: two
 // and one), so one block's loads overlap another's passes.  The plan (the
-// stages grouped into passes) comes from the host (fft_kernel.pass_table);
-// each (points, family) instance is compiled for its own passes only.
+// stages grouped into passes) comes from the host (fft_kernel.pass_table),
+// once per shape (repro_fft_c2c_plan); each (points, family) instance is
+// compiled for its own passes only.
 //
 // repro_fft_c2c_t, _axis1 and _mul keep the shared-memory stages of
 // stockham(): each thread block loads whole transforms into shared memory
@@ -215,29 +216,42 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-int repro_fft_c2c(const void* x, void* y, long long batch, int n,
-                  int points, int per_block, const int* table, int npasses,
-                  int inverse, const float* dft_re, const float* dft_im,
-                  const void* tw, void* stream) {
-  RegPlan s;
-  cudaError_t err = make_reg_plan(&s, n, points, table, npasses, inverse,
+// Plans fft_c2c's launch of length-n transforms, per_block a block, into
+// `plan` (repro_pass_plan_bytes() bytes, kept by the caller with the
+// tables it points into): checks the plan table, sizes the launch and
+// raises the instance's shared-memory limit, once per shape.
+int repro_fft_c2c_plan(void* plan, int n, int points, int per_block,
+                       const int* table, int npasses, int inverse,
+                       const float* dft_re, const float* dft_im,
+                       const void* tw) {
+  PassLaunchPlan* p = static_cast<PassLaunchPlan*>(plan);
+  cudaError_t err = make_reg_plan(&p->s, n, points, table, npasses, inverse,
                                   dft_re, dft_im);
+  if (err == cudaSuccess)
+    err = size_launch(p, points, per_block, padded(n), npasses > 1);
   if (err != cudaSuccess) return err;
-  if (per_block < 1) return cudaErrorInvalidValue;
-  const long long blocks = (batch + per_block - 1) / per_block;
-  const int threads = per_block << s.log_t;
-  const size_t smem =
-      npasses > 1 ? static_cast<size_t>(per_block) * padded(n) * sizeof(float2)
-                  : 0;
-  return with_instance(points, s.family, [&](auto pf) {
+  p->tw = static_cast<const float2*>(tw);
+  p->sw = nullptr;
+  return with_instance(points, p->s.family, [&](auto pf) {
     constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
-    cudaError_t e =
-        prepare_passes(fft_c2c_regs_kernel<P, F>, blocks, threads, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    fft_c2c_regs_kernel<P, F><<<static_cast<unsigned>(blocks), threads, smem,
+    return static_cast<int>(
+        prepare_passes(fft_c2c_regs_kernel<P, F>, 1, p->threads, p->smem));
+  });
+}
+
+// (B, n) -> (B, n) by a plan of repro_fft_c2c_plan.
+int repro_fft_c2c_run(const void* plan, const void* x, void* y,
+                      long long batch, void* stream) {
+  const PassLaunchPlan& p = *static_cast<const PassLaunchPlan*>(plan);
+  unsigned blocks = 0;
+  const cudaError_t err = planned_blocks(p, batch, &blocks);
+  if (err != cudaSuccess) return err;
+  return with_instance(p.points, p.s.family, [&](auto pf) {
+    constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
+    fft_c2c_regs_kernel<P, F><<<blocks, p.threads, p.smem,
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(x), static_cast<float2*>(y), batch,
-        per_block, s, static_cast<const float2*>(tw));
+        p.per_block, p.s, p.tw);
     return static_cast<int>(cudaGetLastError());
   });
 }

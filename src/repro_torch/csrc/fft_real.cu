@@ -1,8 +1,8 @@
 // Packed real-input FFT kernels for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of src/repro/kernels/fft/fft_kernel.py:
-//   repro_fft_r2c    <- rfft_pallas (def :386; bodies _r2c_body :313,
-//                       _r2c_tile :278)
+//   repro_fft_r2c_run <- rfft_pallas (def :386; bodies _r2c_body :313,
+//                       _r2c_tile :278), planned by repro_fft_r2c_plan
 //   repro_fft_r2c_t  <- rfft_t_pallas (def :547; body _r2c_t_body :297):
 //                       the same packed R2C of each row of (B, R, C),
 //                       written transposed to (B, C/2+1, R) — the first
@@ -25,7 +25,7 @@
 // What the designs do about it: one read and one write of the batch; a
 // ragged batch is masked in the kernel, never padded.  All three run the
 // half-length FFT in register-resident Stockham passes (stockham_regs.cuh,
-// as repro_fft_c2c): 16 points a thread (32 at N = 2^14), passes exchange
+// as repro_fft_c2c_run): 16 points a thread (32 at N = 2^14), passes exchange
 // through one padded shared buffer a transform, of split_slots(N/2) slots
 // so that it also holds the N/2+1 bins in natural order (68 KB at N =
 // 2^14: two blocks share an SM, so one block's loads overlap another's
@@ -382,28 +382,41 @@ int with_real_kernel(int which, int points, int family, Fn&& f) {
 
 extern "C" {
 
-int repro_fft_r2c(const void* x, void* y, long long batch, int n,
-                  int points, int per_block, const int* table, int npasses,
-                  const float* dft_re, const float* dft_im, const void* tw,
-                  const void* sw, void* stream) {
-  RegPlan s;
+// Plans fft_r2c's launch of length-n real transforms, per_block a block,
+// into `plan` (repro_pass_plan_bytes() bytes, kept by the caller with the
+// tables it points into): checks the plan table of n / 2, sizes the
+// launch and raises the instance's shared-memory limit, once per shape.
+int repro_fft_r2c_plan(void* plan, int n, int points, int per_block,
+                       const int* table, int npasses, const float* dft_re,
+                       const float* dft_im, const void* tw, const void* sw) {
+  PassLaunchPlan* p = static_cast<PassLaunchPlan*>(plan);
   cudaError_t err =
-      half_plan(&s, n, points, table, npasses, 0, dft_re, dft_im);
+      half_plan(&p->s, n, points, table, npasses, 0, dft_re, dft_im);
+  if (err == cudaSuccess)
+    err = size_launch(p, points, per_block, split_slots(p->s.n), true);
   if (err != cudaSuccess) return err;
-  if (per_block < 1) return cudaErrorInvalidValue;
-  const long long blocks = (batch + per_block - 1) / per_block;
-  const int threads = per_block << s.log_t;
-  const size_t smem = split_shared(per_block, s.n);
-  return with_instance(points, s.family, [&](auto pf) {
+  p->tw = static_cast<const float2*>(tw);
+  p->sw = static_cast<const float2*>(sw);
+  return with_instance(points, p->s.family, [&](auto pf) {
     constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
-    cudaError_t e =
-        prepare_passes(fft_r2c_regs_kernel<P, F>, blocks, threads, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    fft_r2c_regs_kernel<P, F><<<static_cast<unsigned>(blocks), threads, smem,
+    return static_cast<int>(
+        prepare_passes(fft_r2c_regs_kernel<P, F>, 1, p->threads, p->smem));
+  });
+}
+
+// (B, N) f32 -> (B, N/2+1) c64 by a plan of repro_fft_r2c_plan.
+int repro_fft_r2c_run(const void* plan, const void* x, void* y,
+                      long long batch, void* stream) {
+  const PassLaunchPlan& p = *static_cast<const PassLaunchPlan*>(plan);
+  unsigned blocks = 0;
+  const cudaError_t err = planned_blocks(p, batch, &blocks);
+  if (err != cudaSuccess) return err;
+  return with_instance(p.points, p.s.family, [&](auto pf) {
+    constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
+    fft_r2c_regs_kernel<P, F><<<blocks, p.threads, p.smem,
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(x), static_cast<float2*>(y), batch,
-        per_block, s, static_cast<const float2*>(tw),
-        static_cast<const float2*>(sw));
+        p.per_block, p.s, p.tw, p.sw);
     return static_cast<int>(cudaGetLastError());
   });
 }

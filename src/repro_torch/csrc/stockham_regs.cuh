@@ -467,19 +467,28 @@ int with_instance(int points, int family, Fn&& f) {
   return cudaErrorInvalidValue;
 }
 
+// Raises a pass kernel's dynamic shared-memory limit when a launch of
+// `smem` bytes needs more than 48 KB: to the most a block may have, so
+// that every launch of the kernel, whatever its size and whenever it was
+// planned, stays within the limit (the limit belongs to the function).
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t smem) {
+  if (smem > kDefaultShared)
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(kMaxShared));
+  return cudaSuccess;
+}
+
 // Checks a pass kernel's launch (threads, shared memory, blocks) and
-// raises its dynamic shared-memory limit when it needs more than 48 KB.
+// raises its dynamic shared-memory limit (allow_shared).
 template <typename Kernel>
 cudaError_t prepare_passes(Kernel kernel, long long blocks, int threads,
                            size_t smem) {
   if (threads < 1 || threads > kPassThreads || blocks < 1 ||
       blocks > 0x7fffffffLL || smem > kMaxShared)
     return cudaErrorInvalidValue;
-  if (smem > kDefaultShared)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  return cudaSuccess;
+  return allow_shared(kernel, smem);
 }
 
 // Blocks of `threads` threads and `smem` bytes of dynamic shared memory
@@ -488,10 +497,7 @@ template <typename Kernel>
 int resident_blocks(Kernel kernel, int threads, long long smem) {
   int blocks = -1;
   if (smem < 0 || smem > static_cast<long long>(kMaxShared)) return -1;
-  if (smem > static_cast<long long>(kDefaultShared) &&
-      cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess)
+  if (allow_shared(kernel, static_cast<size_t>(smem)) != cudaSuccess)
     return -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, kernel, threads, static_cast<size_t>(smem)) != cudaSuccess)
@@ -499,4 +505,57 @@ int resident_blocks(Kernel kernel, int threads, long long smem) {
   return blocks;
 }
 
+// A launch of fft_c2c or fft_r2c, planned once per shape on the host
+// (repro_fft_c2c_plan, repro_fft_r2c_plan: the plan table checked, the
+// geometry sized, the instance's shared-memory limit raised) in memory the
+// caller keeps (repro_pass_plan_bytes), and launched from then on by
+// repro_fft_*_run with no work but the launch.
+struct PassLaunchPlan {
+  RegPlan s;
+  int points;
+  int per_block;       // transforms a block runs
+  int threads;
+  size_t smem;
+  const float2* tw;    // the compact twiddle table
+  const float2* sw;    // the split table (fft_r2c), or null
+};
+
+// Sizes a plan's launch: per_block transforms a block in `slots` slots
+// each (`exchange`: the plan needs a buffer at all, fft_c2c of one pass
+// does not).
+cudaError_t size_launch(PassLaunchPlan* p, int points, int per_block,
+                        int slots, bool exchange) {
+  if (per_block < 1) return cudaErrorInvalidValue;
+  p->points = points;
+  p->per_block = per_block;
+  p->threads = per_block << p->s.log_t;
+  p->smem =
+      exchange ? static_cast<size_t>(per_block) * slots * sizeof(float2) : 0;
+  return cudaSuccess;
+}
+
+// The blocks of a planned launch of `batch` transforms.
+cudaError_t planned_blocks(const PassLaunchPlan& p, long long batch,
+                           unsigned* blocks) {
+  const long long b = (batch + p.per_block - 1) / p.per_block;
+  if (batch < 1 || b > 0x7fffffffLL) return cudaErrorInvalidValue;
+  *blocks = static_cast<unsigned>(b);
+  return cudaSuccess;
+}
+
 }  // namespace
+
+extern "C" {
+
+// Bytes of the plan that repro_fft_c2c_plan and repro_fft_r2c_plan fill.
+int repro_pass_plan_bytes() {
+  return static_cast<int>(sizeof(PassLaunchPlan));
+}
+
+// The signature of repro_fft_c2c_run and repro_fft_r2c_run, doing
+// nothing: the host times its ctypes call against theirs.
+int repro_pass_noop(const void*, const void*, void*, long long, void*) {
+  return 0;
+}
+
+}  // extern "C"

@@ -33,8 +33,9 @@ so a caller can show that work went through the kernels.
 ``fft_c2c``, ``fft_r2c``, ``fft_r2c_t`` and ``fft_c2r`` run the schedule in
 register-resident passes (``csrc/stockham_regs.cuh``) that the host plans
 here (:func:`pass_launch`, :func:`pass_table`), reading the same twiddle
-numbers from a compact table (:func:`compact_twiddles`); ``fft_r2c_t``
-stores its transposed output through a thread-block cluster
+numbers from a compact table (:func:`compact_twiddles`); ``fft_c2c`` and
+``fft_r2c`` plan each launch once per shape in C (:func:`_plan`);
+``fft_r2c_t`` stores its transposed output through a thread-block cluster
 (:func:`r2c_t_cluster`).  The other kernels run the schedule in shared
 memory.
 
@@ -43,6 +44,7 @@ engine (``repro_torch.fft.stockham``); the kernels read its split table.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -589,9 +591,12 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fft_c2c")
     lib.repro_fft_error_string.argtypes = [_I]
     lib.repro_fft_error_string.restype = ctypes.c_char_p
-    lib.repro_fft_c2c.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _I,
-                                  _P, _P, _P, _P]
-    lib.repro_fft_c2c.restype = _I
+    _pass_plan_types(lib)
+    lib.repro_fft_c2c_plan.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P, _P,
+                                       _P]
+    lib.repro_fft_c2c_plan.restype = _I
+    lib.repro_fft_c2c_run.argtypes = [_P, _P, _P, _LL, _P]
+    lib.repro_fft_c2c_run.restype = _I
     lib.repro_fft_c2c_resident_blocks.argtypes = [_I, _I, _I, _LL]
     lib.repro_fft_c2c_resident_blocks.restype = _I
     lib.repro_fft_c2c_mul.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _P, _I,
@@ -609,9 +614,15 @@ def _real_library() -> ctypes.CDLL:
     lib = load_library("fft_real")
     lib.repro_fft_error_string.argtypes = [_I]
     lib.repro_fft_error_string.restype = ctypes.c_char_p
-    for fn in (lib.repro_fft_r2c, lib.repro_fft_c2r):
-        fn.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P]
-        fn.restype = _I
+    _pass_plan_types(lib)
+    lib.repro_fft_r2c_plan.argtypes = [_P, _I, _I, _I, _P, _I, _P, _P, _P,
+                                       _P]
+    lib.repro_fft_r2c_plan.restype = _I
+    lib.repro_fft_r2c_run.argtypes = [_P, _P, _P, _LL, _P]
+    lib.repro_fft_r2c_run.restype = _I
+    lib.repro_fft_c2r.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _I, _P, _P,
+                                  _P, _P, _P]
+    lib.repro_fft_c2r.restype = _I
     lib.repro_fft_r2c_t.argtypes = [_P, _P, _LL, _I, _I, _I, _I, _I, _P,
                                     _I, _P, _P, _P, _P, _P]
     lib.repro_fft_r2c_t.restype = _I
@@ -620,6 +631,15 @@ def _real_library() -> ctypes.CDLL:
     lib.repro_fft_r2c_t_active_clusters.argtypes = [_I, _I, _I, _LL, _I]
     lib.repro_fft_r2c_t_active_clusters.restype = _I
     return lib
+
+
+def _pass_plan_types(lib: ctypes.CDLL) -> None:
+    """The C types of the planned launches' shared entries
+    (``csrc/stockham_regs.cuh``)."""
+    lib.repro_pass_plan_bytes.argtypes = []
+    lib.repro_pass_plan_bytes.restype = _I
+    lib.repro_pass_noop.argtypes = [_P, _P, _P, _LL, _P]
+    lib.repro_pass_noop.restype = _I
 
 
 @functools.cache
@@ -651,37 +671,86 @@ def _check_twiddle(ftw: torch.Tensor | None, shape: tuple[int, int],
                          f"{ftw.dtype} on {ftw.device}")
 
 
-@dataclasses.dataclass(frozen=True)
-class _PassArgs:
-    """The C arguments of a register-pass launch between its length and
-    its stream, with the tables they point into (kept alive here)."""
+def _current(device: torch.device):
+    """A context in which ``device`` is the current CUDA device: entered
+    only where another one is current (entering costs host time on every
+    call)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
-    c_args: tuple
-    tables: tuple
+
+def _stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, for a launch: PyTorch's
+    raw lookup, which builds no ``torch.cuda.Stream`` (a few µs of host
+    time on every call; ``chip_smoke.py``, ``phase3_host_gap``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """A planned launch of ``fft_c2c`` or ``fft_r2c`` (``repro_fft_*_plan``
+    in ``csrc/``): the address of its C plan, with the buffer that holds
+    it and the tables it points into kept alive here."""
+
+    address: int
+    keep: tuple
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(name: str, n: int, count: int, radices: tuple[int, ...],
+          per_block: int, inverse: bool, device: torch.device) -> _Plan:
+    """The C plan of ``count`` transforms of length ``n`` (the real length
+    for ``fft_r2c``), ``per_block`` a block, made once per shape and
+    device: the plan table checked, the geometry sized, the instance's
+    shared-memory limit raised.  A call then spends its host time on the
+    launch alone."""
+    m = n if name == "fft_c2c" else n // 2
+    launch = pass_launch(m, count, radices, per_block,
+                         split=name != "fft_c2c")
+    table = pass_table(m, radices)
+    dr, di = _dft8(inverse)
+    tw = compact_twiddles(m, radices, device)
+    keep: tuple = (table, dr, di, tw)
+    if name == "fft_c2c":
+        lib = _library()
+        make, tail = lib.repro_fft_c2c_plan, (int(inverse), dr.ctypes.data,
+                                              di.ctypes.data, tw.data_ptr())
+    else:
+        lib = _real_library()
+        sw = _split_factors(n, device, torch.complex64)
+        keep += (sw,)
+        make, tail = lib.repro_fft_r2c_plan, (dr.ctypes.data, di.ctypes.data,
+                                              tw.data_ptr(), sw.data_ptr())
+    buf = ctypes.create_string_buffer(lib.repro_pass_plan_bytes())
+    with _current(device):
+        err = make(buf, n, launch.points, launch.per_block,
+                   table.ctypes.data, len(table), *tail)
+    if err:
+        raise RuntimeError(f"CUDA kernel {name}: its launch of {count} x {n} "
+                           f"could not be planned: "
+                           f"{lib.repro_fft_error_string(err).decode()}")
+    return _Plan(ctypes.addressof(buf), (buf,) + keep)
 
 
 @functools.lru_cache(maxsize=1024)
 def _pass_args(n: int, count: int, radices: tuple[int, ...],
-               per_block: int, inverse: bool, split: bool,
-               device: torch.device) -> _PassArgs:
-    """Launch arguments of ``count`` length-``n`` transforms, cached per
-    shape so that a call spends its host time on the launch alone.
-    ``split``: ``n`` is the half length of a packed real transform, and
-    the arguments end with the split table of its full length; the C
-    function knows its direction, and ``inverse`` (C2R) picks the inverse
-    radix-8 matrix."""
-    launch = pass_launch(n, count, radices, per_block, split=split)
+               per_block: int, inverse: bool,
+               device: torch.device) -> tuple:
+    """The C arguments of an ``fft_c2r`` or ``fft_r2c_t`` launch between
+    its shape and its stream, for ``count`` transforms of the half length
+    ``n``, cached per shape: the launch's geometry and plan table, the
+    radix-8 matrix of the direction (``inverse``: C2R), the compact table
+    and the split table of the full length, with the tables they point
+    into (kept alive here)."""
+    launch = pass_launch(n, count, radices, per_block, split=True)
     table = pass_table(n, radices)
     dr, di = _dft8(inverse)
     tw = compact_twiddles(n, radices, device)
-    head = (launch.points, launch.per_block, table.ctypes.data, len(table))
-    if split:
-        sw = _split_factors(2 * n, device, torch.complex64)
-        return _PassArgs(head + (dr.ctypes.data, di.ctypes.data,
-                                 tw.data_ptr(), sw.data_ptr()),
-                         (table, dr, di, tw, sw))
-    return _PassArgs(head + (int(inverse), dr.ctypes.data, di.ctypes.data,
-                             tw.data_ptr()), (table, dr, di, tw))
+    sw = _split_factors(2 * n, device, torch.complex64)
+    return ((launch.points, launch.per_block, table.ctypes.data, len(table),
+             dr.ctypes.data, di.ctypes.data, tw.data_ptr(), sw.data_ptr()),
+            (table, dr, di, tw, sw))
 
 
 def _schedule_args(n: int, radices: tuple[int, ...], inverse: bool,
@@ -701,18 +770,18 @@ def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
     thread block."""
     _check(x, 2, "fft_c2c")
     b, n = x.shape
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return fft_c2c_plain(x, inverse=inverse, radices=radices)
     y = torch.empty_like(x)
     if b == 0:
         return y
-    args = _pass_args(n, b, tuple(radices), per_block, inverse, False,
-                      x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().repro_fft_c2c(x.data_ptr(), y.data_ptr(), b, n,
-                                       *args.c_args, stream)
-    _raise_on(err, "fft_c2c", _library())
+    plan = _plan("fft_c2c", n, b, tuple(radices), per_block, inverse, dev)
+    lib = _library()
+    with _current(dev):
+        err = lib.repro_fft_c2c_run(plan.address, x.data_ptr(), y.data_ptr(),
+                                    b, _stream(dev))
+    _raise_on(err, "fft_c2c", lib)
     return y
 
 
@@ -853,18 +922,17 @@ def fft_r2c(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     _check_real(x, "fft_r2c")
     b, n = x.shape
     m = _real_length(n)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return fft_r2c_plain(x, radices=radices)
-    y = torch.empty((b, m + 1), dtype=torch.complex64, device=x.device)
+    y = torch.empty((b, m + 1), dtype=torch.complex64, device=dev)
     if b == 0:
         return y
-    args = _pass_args(m, b, tuple(radices), per_block, False, True,
-                      x.device)
+    plan = _plan("fft_r2c", n, b, tuple(radices), per_block, False, dev)
     lib = _real_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_fft_r2c(x.data_ptr(), y.data_ptr(), b, n,
-                                *args.c_args, stream)
+    with _current(dev):
+        err = lib.repro_fft_r2c_run(plan.address, x.data_ptr(), y.data_ptr(),
+                                    b, _stream(dev))
     _raise_on(err, "fft_r2c", lib)
     return y
 
@@ -887,8 +955,7 @@ def fft_r2c_t(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     y = torch.empty((b, m + 1, r), dtype=torch.complex64, device=x.device)
     if b * r == 0:
         return y
-    args = _pass_args(m, r, tuple(radices), per_block, False, True,
-                      x.device)
+    args, _ = _pass_args(m, r, tuple(radices), per_block, False, x.device)
     launch = pass_launch(m, r, tuple(radices), per_block, split=True)
     if active_clusters(launch, cluster) < 1:
         raise RuntimeError(
@@ -900,7 +967,7 @@ def fft_r2c_t(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_fft_r2c_t(x.data_ptr(), y.data_ptr(), b, r, c,
-                                  cluster, *args.c_args, stream)
+                                  cluster, *args, stream)
     _raise_on(err, "fft_r2c_t", lib)
     return y
 
@@ -919,12 +986,12 @@ def fft_c2r(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     y = torch.empty((b, 2 * m), dtype=torch.float32, device=x.device)
     if b == 0:
         return y
-    args = _pass_args(m, b, tuple(radices), per_block, True, True, x.device)
+    args, _ = _pass_args(m, b, tuple(radices), per_block, True, x.device)
     lib = _real_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_fft_c2r(x.data_ptr(), y.data_ptr(), b, 2 * m,
-                                *args.c_args, stream)
+                                *args, stream)
     _raise_on(err, "fft_c2r", lib)
     return y
 

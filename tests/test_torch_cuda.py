@@ -5,6 +5,8 @@ elsewhere they skip.  On the GPU machine:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 ``chip_smoke.py`` covers the same ground at the main path's full sizes."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -151,6 +153,32 @@ def test_r2c_t_clusters_match_plain_at_every_length(gen, c, rows):
 def test_two_blocks_resident_at_the_longest_lengths(gen, name, n, split):
     launch = K.pass_launch(n, 30517, split=split)
     assert K.resident_blocks(name, launch) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("fft_c2c", "fft_r2c"))
+def test_cached_plans_survive_other_launches_of_their_instance(gen, name):
+    """A plan of fft_c2c / fft_r2c is made once per shape and keeps the
+    shared memory it planned (68 KB at 8192 / 16384) after another query
+    of the same kernel instance asked for less: the instance's limit is
+    the most any block may have, not the last size asked for."""
+    n = 8192 if name == "fft_c2c" else 16384
+    if name == "fft_c2c":
+        x = _rand(gen, 3, n)
+        run, plain = (lambda: K.fft_c2c(x, per_block=1),
+                      lambda: K.fft_c2c_plain(x))
+    else:
+        x = _real(gen, 3, n)
+        run, plain = (lambda: K.fft_r2c(x, per_block=1),
+                      lambda: K.fft_r2c_plain(x))
+    want = plain()
+    assert _rel(run(), want) <= RTOL            # planned and cached
+    launch = K.pass_launch(8192, 3, split=name == "fft_r2c")
+    assert launch.shared_bytes > 64 * 2**10
+    smaller = dataclasses.replace(launch, shared_bytes=50 * 2**10)
+    assert K.resident_blocks(name, smaller) >= 1
+    assert _rel(run(), want) <= RTOL            # the cached plan again
+    torch.cuda.synchronize()
 
 
 def _real(gen, *shape):
