@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the six libraries ``fft_c2c``, ``fft_real``, ``transpose``,
      ``dedisp``, ``harmonic_sum`` and ``spectrum``, one ``nvcc`` each, in
      parallel) and check that no instance of the register-pass kernels
-     (``fft_c2c``, ``fft_r2c``, ``fft_c2r``, ``fft_r2c_t``) spills
-     registers;
+     (``fft_c2c``, ``fft_c2c_t``, ``fft_c2c_axis1``, ``fft_r2c``,
+     ``fft_c2r``, ``fft_r2c_t``) spills registers;
   2. print the card's name and power limit (``nvidia-smi``);
   3. hold each kernel (the C2C variants: fft_c2c, fft_c2c_t with and
      without twiddle, fft_c2c_axis1 with and without twiddle, forward and
@@ -23,14 +23,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      at small, ragged shapes and at the shapes the main paths give it —
      fft_c2c, fft_r2c and fft_c2r at every pow2 length (2..8192,
      4..16384), both radix sets, forward and inverse, two tiles; fft_r2c_t
-     at every C (4..16384) on ragged row counts with each cluster size —
+     at every C (4..16384) on ragged row counts with each cluster size;
+     fft_c2c_t and fft_c2c_axis1 at every pow2 length on 37 and 4097
+     rows or columns, both radix sets, with and without the twiddle,
+     forward and inverse, with each cluster size —
      and time the kernel, the plain version and, where one call computes
      the same function, that PyTorch call (else the nearest torch
      composition); fft_c2c, fft_r2c and fft_c2r over a sweep of 2 GB
      batches, with the blocks one SM holds; the host time of one fft_c2c and fft_r2c call, broken down (the
      Python wrapper, the kernel function, the ctypes call, the C entry)
-     beside torch.fft's; fft_r2c_t at the rfft2 pass (16, 4096, 8192) with
-     1, 4 and 8 rows a cluster;
+     beside torch.fft's; fft_r2c_t at the rfft2 pass (16, 4096, 8192),
+     fft_c2c_t and fft_c2c_axis1 at (16, 4096, 4096) and (238, 1024, 1024)
+     with 1, 4 and 8 rows or columns a cluster;
   4. drive the main path — ``plan_for_length(n)(x)`` on a 2 GB batch
      (``FFTCase(n).n_fft`` transforms) for n = 1024, 8192, 2**20 and
      19321 = 139**2, then ``plan_for_length(n, "r2c")`` and ``"c2r"`` on
@@ -189,6 +193,8 @@ KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
            "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
 #: The register-pass kernels (csrc/stockham_regs.cuh) and their symbols.
 PASS_KERNELS = {"fft_c2c": "fft_c2c_regs_kernel",
+                "fft_c2c_t": "fft_c2c_t_regs_kernel",
+                "fft_c2c_axis1": "fft_c2c_axis1_regs_kernel",
                 "fft_r2c": "fft_r2c_regs_kernel",
                 "fft_c2r": "fft_c2r_regs_kernel",
                 "fft_r2c_t": "fft_r2c_t_regs_kernel"}
@@ -209,6 +215,15 @@ HOST_GAP_CALLS = 30
 #: rfft2 pass where its cluster size is swept.
 R2C_T_RAGGED_ROWS = (7, 13, 4097)
 R2C_T_SHAPE = (16, 4096, 8192)
+#: fft_c2c_t and fft_c2c_axis1: the ragged row or column counts of their
+#: every-length check, and the passes where their cluster size is swept:
+#: the fft2 pass, the rfft2 second pass (4097 rows: runs not aligned to
+#: 32-byte sectors), the 2**20 four-step pass.
+C2C_STRIDED_COUNTS = (37, 4097)
+C2C_SWEEP = (("fft_c2c_t", (16, 4096, 4096)), ("fft_c2c_t", (16, 4097, 4096)),
+             ("fft_c2c_t", (FFTCase(2**20).n_fft, 1024, 1024)),
+             ("fft_c2c_axis1", (16, 4096, 4096)),
+             ("fft_c2c_axis1", (FFTCase(2**20).n_fft, 1024, 1024)))
 #: The modules whose ``LAUNCHES`` count the kernels' launches.
 COUNTERS = (K, D, H, S)
 SOURCES = {
@@ -501,11 +516,17 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
         row = _pass_sweep_row(gen, "fft_c2c", n)
         if n == 1024:
             results["fft_c2c"] = row
+    phase3_c2c_strided_lengths(gen)
     main_shapes = [
         ("fft_c2c_axis1", (FFTCase(2**20).n_fft, 1024, 1024), (1024, 1024)),
         ("fft_c2c_t", (FFTCase(2**20).n_fft, 1024, 1024), None),
         ("fft_c2c_axis1", (FFTCase(19321).n_fft, 256, 256), (256, 256)),
         ("fft_c2c_t", (FFTCase(19321).n_fft, 256, 256), None),
+        # The N-D plans' passes: fft2 (16, 4096, 4096), rfft2 (16, 4096,
+        # 8192)'s second pass on its 4097 bin rows, fftn (2, 512, 512, 512).
+        ("fft_c2c_t", (16, 4096, 4096), None),
+        ("fft_c2c_t", (16, 4097, 4096), None),
+        ("fft_c2c_t", (1024, 512, 512), None),
         # The variants no plan launches, at the 2**20 pass shape.
         ("fft_c2c_axis1", (FFTCase(2**20).n_fft, 1024, 1024), None),
         ("fft_c2c_t", (FFTCase(2**20).n_fft, 1024, 1024), (1024, 1024)),
@@ -542,13 +563,13 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
             del y_lib
         del y, y_plain
         ms = median_ms(lambda: _call(fn, x, tw, False))
+        queued = queued_ms(lambda: _call(fn, x, tw, False))
         plain_ms = median_ms(lambda: _call(plain, x, tw, False), reps=3)
         n = shape[1] if name == "fft_c2c_axis1" else shape[-1]
         transforms = x.numel() // n
         nbytes = 16 * x.numel()                   # read x, write y
         flops = mixed_radix_flop_count(n, batch=transforms)
-        twr, _ = K.stage_tables(n, DEFAULT_RADICES, x.device)
-        nbytes += twr.numel() * 8                 # the stage twiddle table
+        nbytes += 8 * (n - 1)                     # the compact twiddle table
         if tw is not None:
             nbytes += 8 * tw.numel()              # the four-step twiddle
             flops += 6 * x.numel()
@@ -564,8 +585,14 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
                "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms}
+        count = shape[2] if name == "fft_c2c_axis1" else shape[1]
+        launch = K.pass_launch(n, count, DEFAULT_RADICES, buffer=True)
+        g = K.c2c_cluster(launch.per_block, count)
         print(f"  {name} {tuple(shape)} twiddle={tw is not None}: "
-              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), bound "
+              f"{launch.per_block} transforms a block, clusters of {g} "
+              f"({K.active_clusters(launch, g, name)} at once); "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), back to back "
+              f"{queued:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
               f"library {library_ms if library_ms is None else round(library_ms, 4)}"
               f" ms [{lib_note}], max abs err {abs_err:.3e} "
@@ -574,6 +601,56 @@ def phase3_kernels(gen: torch.Generator) -> dict[str, dict]:
         del x, tw
         torch.cuda.empty_cache()
     return results
+
+
+def phase3_c2c_strided_lengths(gen: torch.Generator) -> None:
+    """fft_c2c_t and fft_c2c_axis1 against their plain versions at every
+    pow2 length (2..8192) on C2C_STRIDED_COUNTS rows or columns (ragged
+    against every tile), both radix sets, with and without the twiddle,
+    forward and inverse, with the default and one-line blocks and every
+    cluster size the planner chooses for them (one block's lines, 4 and 8
+    lines a cluster)."""
+    worst, checked, sizes = 0.0, 0, set()
+    for n in PASS_C2C_LENGTHS:
+        for count in C2C_STRIDED_COUNTS:
+            x, tw = randn(gen, 2, count, n), randn(gen, count, n)
+            xa = x.transpose(1, 2).contiguous()
+            for radices in PASS_RADICES:
+                for twiddle in (None, tw):
+                    for inverse in (False, True):
+                        kw = dict(inverse=inverse, radices=radices)
+                        cases = (("fft_c2c_t", K.fft_c2c_t, x,
+                                  K.fft_c2c_t_plain(x, twiddle, **kw)),
+                                 ("fft_c2c_axis1", K.fft_c2c_axis1, xa,
+                                  K.fft_c2c_axis1_plain(xa, twiddle, **kw)))
+                        for tile_b in (None, 1):
+                            pb = K.pass_launch(n, count, radices, tile_b,
+                                               buffer=True).per_block
+                            for g in {K.c2c_cluster(pb, count, lines)
+                                      for lines in (pb, 4, 8)}:
+                                for name, fn, inp, want in cases:
+                                    _, rel = rel_err(fn(
+                                        inp, twiddle, per_block=pb,
+                                        cluster=g, **kw), want)
+                                    check(rel <= KERNEL_RTOL,
+                                          f"{name} n={n} count={count} "
+                                          f"radices={radices} twiddle="
+                                          f"{twiddle is not None} inverse="
+                                          f"{inverse} per_block={pb} "
+                                          f"cluster={g}: rel err {rel:.3e}")
+                                    worst = max(worst, rel)
+                                    checked += 1
+                                    sizes.add(g)
+                        del cases
+            del x, tw, xa
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"phase 3: fft_c2c_t and fft_c2c_axis1 at every pow2 length "
+          f"{PASS_C2C_LENGTHS[0]}..{PASS_C2C_LENGTHS[-1]} on "
+          f"{C2C_STRIDED_COUNTS} rows or columns: {checked} kernel-vs-plain "
+          f"checks (radices {PASS_RADICES}, twiddle or not, forward and "
+          f"inverse, clusters of {sorted(sizes)} blocks), max relative "
+          f"error {worst:.3e} (limit {KERNEL_RTOL})")
 
 
 def phase3_real_kernels(gen: torch.Generator,
@@ -1101,29 +1178,47 @@ def phase3_pulsar_kernels(gen: torch.Generator,
 
 
 def phase3_rows_per_block(gen: torch.Generator) -> None:
-    """The transposed-write kernels at the N-D plans' widest rows.
-    fft_c2c_t, timed with 1, 2 and 3 rows per block (the heuristic's 64 KB
-    budget gives one): each row's output bins are written R apart, so one
-    row a block stores 8-byte runs.  fft_r2c_t (one row a block at C =
-    8192), timed with clusters that store 1 (one block), 4 and 8 rows
-    together; the fastest is reported beside the planner's R2C_T_ROWS.
+    """The clustered kernels' cluster size.  fft_c2c_t and fft_c2c_axis1
+    at C2C_SWEEP (one row or column a block at 4096; four a block, and one
+    a block, at 1024), fft_r2c_t at the rfft2 pass (one row a block at C =
+    8192), each timed with clusters that move 1 (one block's), 4 and 8
+    rows or columns together; the fastest is reported beside the
+    planner's choice (C2C_CLUSTER_LINES, C2C_UNALIGNED_LINES, R2C_T_ROWS).
     Each variant is checked against the first."""
-    shape = (16, 4096, 4096)
-    x = randn(gen, *shape)
-    y1 = K.fft_c2c_t(x, per_block=1)
-    times = []
-    for per_block in (1, 2, 3):
-        check(K.transforms_per_block(shape[-1], shape[1], per_block)
-              == per_block, f"fft_c2c_t: {per_block} rows do not fit")
-        if per_block > 1:
-            _, rel = rel_err(K.fft_c2c_t(x, per_block=per_block), y1)
-            check(rel <= KERNEL_RTOL, f"fft_c2c_t {shape} {per_block} rows "
-                  f"a block: rel err {rel:.3e}")
-        ms = median_ms(lambda: K.fft_c2c_t(x, per_block=per_block))
-        times.append(f"{per_block} rows {ms:.4f} ms")
-    print(f"  fft_c2c_t {shape} rows per block: " + ", ".join(times))
-    del x, y1
-    torch.cuda.empty_cache()
+    for name, shape in C2C_SWEEP:
+        fn = K.fft_c2c_t if name == "fft_c2c_t" else K.fft_c2c_axis1
+        x = randn(gen, *shape)
+        n, count = ((shape[1], shape[2]) if name == "fft_c2c_axis1"
+                    else (shape[2], shape[1]))
+        default = K.pass_launch(n, count, DEFAULT_RADICES, buffer=True)
+        for tile_b in ((None,) if default.per_block == 1 else (None, 1)):
+            launch = K.pass_launch(n, count, DEFAULT_RADICES, tile_b,
+                                   buffer=True)
+            pb = launch.per_block
+            y1 = fn(x, per_block=pb, cluster=1)
+            times, best = [], None
+            for g in sorted({K.c2c_cluster(pb, count, lines)
+                             for lines in (pb, 4, 8)}):
+                launch_g = lambda: fn(x, per_block=pb,  # noqa: E731
+                                      cluster=g)
+                _, rel = rel_err(launch_g(), y1)
+                check(rel <= KERNEL_RTOL, f"{name} {shape} clusters of "
+                      f"{g}: rel err {rel:.3e}")
+                ms, queued = median_ms(launch_g), queued_ms(launch_g)
+                times.append(f"{pb * g} lines (G = {g}, "
+                             f"{K.active_clusters(launch, g, name)} "
+                             f"clusters at once) {ms:.4f} ms, back to "
+                             f"back {queued:.4f} ms")
+                if best is None or ms < best[1]:
+                    best = (pb * g, ms)
+            print(f"  {name} {shape} lines a cluster, {pb} a block: "
+                  + "; ".join(times) + f"; fastest {best[0]} lines "
+                  f"(the planner's {pb * K.c2c_cluster(pb, count)}: "
+                  f"C2C_CLUSTER_LINES = {K.C2C_CLUSTER_LINES}, "
+                  f"C2C_UNALIGNED_LINES = {K.C2C_UNALIGNED_LINES})")
+            del y1
+        del x
+        torch.cuda.empty_cache()
 
     b, r, c = R2C_T_SHAPE
     x = torch.randn(b, r, c, device="cuda", generator=gen)

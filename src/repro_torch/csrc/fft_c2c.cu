@@ -43,13 +43,40 @@
 // once per shape (repro_fft_c2c_plan); each (points, family) instance is
 // compiled for its own passes only.
 //
-// repro_fft_c2c_t, _axis1 and _mul keep the shared-memory stages of
-// stockham(): each thread block loads whole transforms into shared memory
-// once, runs every Stockham stage of the radix schedule there (ping-pong
-// between two shared buffers, one __syncthreads per stage), applies the
-// optional four-step twiddle in the epilogue and writes each point once —
-// in the kernel's layout: the same (B, R, C) layout for the column FFT
-// (axis1), or transposed to (B, C, R) (t).  Length 8192 needs 128 KB of
+// repro_fft_c2c_t and repro_fft_c2c_axis1 run the same register passes,
+// the passes of the four-step transform and of every pow2 N-D axis.
+// Their strided side is the cost: one row a block at C = 4096 stores each
+// output point as a lone 8-byte write R apart, a partial 32-byte sector
+// each.  So a thread-block cluster of G blocks (cudaLaunchKernelEx, G <=
+// 8 from the host's fft_kernel.c2c_cluster) holds G * per_block
+// consecutive rows (t) or columns (axis1) of one batch entry, and the
+// strided side moves each of their rows as one contiguous run through
+// the blocks' buffers and distributed shared memory (stockham_regs.cuh,
+// cluster_store, cluster_load):
+//
+// t: the rows are contiguous, so the first pass loads straight into
+// registers as repro_fft_c2c_run's does; after the last pass each thread
+// scales its results and multiplies the optional (R, C) twiddle (read
+// along k, coalesced), writes them to its transform's buffer in natural
+// order, and the cluster stores the transposed output.
+//
+// axis1: both sides are strided.  The cluster's blocks load the tile's
+// rows (G * per_block columns each) as runs, four loads in flight a
+// thread, and store each point in its column's owner's buffer through
+// distributed shared memory (cp.async cannot write another block's
+// shared memory); after cluster.sync() each block gathers its first pass
+// from its own buffer, runs the passes, multiplies the (C, R) twiddle
+// (contiguous along k for each column) and stores through the cluster as
+// t does, with runs along C.
+//
+// A ragged last row or column tile is masked, never padded; a masked
+// block still reaches every cluster barrier.
+//
+// repro_fft_c2c_mul keeps the shared-memory stages of stockham(): each
+// thread block loads whole transforms into shared memory once, runs every
+// Stockham stage of the radix schedule there (ping-pong between two
+// shared buffers, one __syncthreads per stage), multiplies the bank in
+// the epilogue and writes each point once.  Length 8192 needs 128 KB of
 // shared memory per block, which is only available as dynamic shared
 // memory after cudaFuncSetAttribute.
 //
@@ -104,75 +131,96 @@ __global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
   if (live) store_global<P, F>(v, y + row * n, s, lane);
 }
 
-// (B, R, C) -> (B, C, R): FFT of each row (n = C), written transposed;
-// optional (R, C) twiddle multiplied before the write.  Block i handles
-// rows [r0, r0 + per_block) of one batch entry.
-__global__ void __launch_bounds__(kThreads)
-    fft_c2c_t_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                     int rows, int per_block, long long blocks_per_batch,
-                     const float2* __restrict__ ftw,
-                     const __grid_constant__ Schedule s,
-                     const float* __restrict__ tw_re,
-                     const float* __restrict__ tw_im) {
+// (B, R, C) -> (B, C, R): the FFT of each row (n = C) in register
+// passes, times the optional (R, C) twiddle, written transposed.  The
+// launch is a grid of clusters of G blocks: cluster c takes rows [r0c,
+// r0c + G * per_block) of batch entry c / tiles (tiles clusters a batch
+// entry), its block of rank j the rows [r0c + j * per_block, ...), each
+// in a buffer of `stride` slots (line_slots).  Rows past R are masked; a
+// masked block still reaches every barrier.
+template <int P, int F>
+__global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
+    fft_c2c_t_regs_kernel(const float2* __restrict__ x,
+                          float2* __restrict__ y, int rows, int per_block,
+                          int tiles, int stride,
+                          const __grid_constant__ RegPlan s,
+                          const float2* __restrict__ tw,
+                          const float2* __restrict__ ftw) {
   extern __shared__ float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = static_cast<int>(cluster.num_blocks());
   const int n = s.n;
-  const long long bid = blockIdx.x;
-  const long long batch = bid / blocks_per_batch;
-  const int r0 = static_cast<int>(bid - batch * blocks_per_batch) * per_block;
-  const int count = min(per_block, rows - r0);
-  const size_t base = static_cast<size_t>(batch) * rows * n;
-  float2* a = smem;
-  float2* b = smem + static_cast<size_t>(per_block) * n;
-  const float2* src = x + base + static_cast<size_t>(r0) * n;
-  const int elems = count * n;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) a[e] = src[e];
-  __syncthreads();
-  const float2* res = stockham(a, b, count, s, tw_re, tw_im);
-  // Consecutive threads write consecutive rows of one output column.
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int k = e / count;
-    const int t = e - k * count;
-    float2 v = scaled(res[t * n + k], s.scale);
-    if (ftw != nullptr) v = cmul(v, ftw[static_cast<size_t>(r0 + t) * n + k]);
-    y[base + static_cast<size_t>(k) * rows + r0 + t] = v;
+  const int tr = threadIdx.x >> s.log_t;
+  const int lane = threadIdx.x & ((1 << s.log_t) - 1);
+  const LineTile tile = line_tile(blockIdx.x, g, tiles, per_block);
+  const int batch = tile.batch, r0c = tile.first;
+  const int r = r0c + static_cast<int>(cluster.block_rank()) * per_block + tr;
+  const bool live = r < rows;
+  float2 v[P];
+  if (live) {
+    load_global<P, F>(v, x + (static_cast<long long>(batch) * rows + r) * n,
+                      s, lane);
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = make_float2(0.f, 0.f);
   }
+  float2* buf = smem + tr * stride;
+  reg_passes_but_last<P, F>(v, buf, s, tw, lane);
+  run_pass<P, F>(v, s, s.npasses - 1, tw, lane);
+  if (s.npasses > 1) __syncthreads();  // every read of the buffer is done
+  store_finished<P, F>(
+      v, buf, s,
+      live && ftw ? ftw + static_cast<long long>(r) * n : nullptr, lane);
+  // Each output point of the cluster's rows is one contiguous run.
+  cluster_store(smem, stride, per_block, n,
+                y + static_cast<long long>(batch) * n * rows + r0c, rows,
+                rows - r0c);
 }
 
-// (B, R, C) -> (B, R, C): FFT of each column (n = R), layout kept;
-// optional (C, R) twiddle: out[.., k, j] *= ftw[j, k].  Block i handles
-// columns [c0, c0 + per_block) of one batch entry.
-__global__ void __launch_bounds__(kThreads)
-    fft_c2c_axis1_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                         int cols, int per_block, long long blocks_per_batch,
-                         const float2* __restrict__ ftw,
-                         const __grid_constant__ Schedule s,
-                         const float* __restrict__ tw_re,
-                         const float* __restrict__ tw_im) {
+// (B, R, C) -> (B, R, C): the FFT of each column (n = R) in register
+// passes, layout kept; optional (C, R) twiddle: out[.., k, j] *= ftw[j,
+// k].  Clusters of G blocks as fft_c2c_t's, over columns: cluster c takes
+// columns [c0c, c0c + G * per_block) of batch entry c / tiles.  Both
+// sides go through the cluster: each input row and each output row of
+// the cluster's columns is one contiguous run.  Columns past C are
+// masked.
+template <int P, int F>
+__global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
+    fft_c2c_axis1_regs_kernel(const float2* __restrict__ x,
+                              float2* __restrict__ y, int cols,
+                              int per_block, int tiles, int stride,
+                              const __grid_constant__ RegPlan s,
+                              const float2* __restrict__ tw,
+                              const float2* __restrict__ ftw) {
   extern __shared__ float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = static_cast<int>(cluster.num_blocks());
   const int n = s.n;
-  const long long bid = blockIdx.x;
-  const long long batch = bid / blocks_per_batch;
-  const int c0 = static_cast<int>(bid - batch * blocks_per_batch) * per_block;
-  const int count = min(per_block, cols - c0);
-  const size_t base = static_cast<size_t>(batch) * n * cols;
-  float2* a = smem;
-  float2* b = smem + static_cast<size_t>(per_block) * n;
-  const int elems = count * n;
-  // Consecutive threads read consecutive columns of one input row.
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int i = e / count;
-    const int t = e - i * count;
-    a[t * n + i] = x[base + static_cast<size_t>(i) * cols + c0 + t];
-  }
-  __syncthreads();
-  const float2* res = stockham(a, b, count, s, tw_re, tw_im);
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int k = e / count;
-    const int t = e - k * count;
-    float2 v = scaled(res[t * n + k], s.scale);
-    if (ftw != nullptr) v = cmul(v, ftw[static_cast<size_t>(c0 + t) * n + k]);
-    y[base + static_cast<size_t>(k) * cols + c0 + t] = v;
-  }
+  const int tr = threadIdx.x >> s.log_t;
+  const int lane = threadIdx.x & ((1 << s.log_t) - 1);
+  const LineTile tile = line_tile(blockIdx.x, g, tiles, per_block);
+  cluster_load<P>(smem, stride, per_block, n,
+                  x + static_cast<long long>(tile.batch) * n * cols +
+                      tile.first,
+                  cols, cols - tile.first);
+  float2* buf = smem + tr * stride;
+  float2 v[P];
+  load_shared<P, F>(v, buf, s, 0, lane);
+  reg_passes_but_last<P, F>(v, buf, s, tw, lane, /*staged=*/true);
+  run_pass<P, F>(v, s, s.npasses - 1, tw, lane);
+  __syncthreads();  // every read of the buffer is done
+  // The tile again from a fresh read of the block index: nothing derived
+  // from it stays live across the passes (the 16-point radix-4 instance
+  // has no register to spare for it).
+  const LineTile end = line_tile(block_index(), g, tiles, per_block);
+  const int c =
+      end.first + static_cast<int>(cluster.block_rank()) * per_block + tr;
+  store_finished<P, F>(
+      v, buf, s,
+      c < cols && ftw ? ftw + static_cast<long long>(c) * n : nullptr, lane);
+  cluster_store(smem, stride, per_block, n,
+                y + static_cast<long long>(end.batch) * n * cols + end.first,
+                cols, cols - end.first);
 }
 
 // (B, n) -> (B, T, n): y[b, t] = FFT(x[b]) * bank[t] (the inverse FFT,
@@ -210,6 +258,40 @@ __global__ void __launch_bounds__(kThreads)
     const float2 v = scaled(res[row * n + i], s.scale);
     __stcs(dst + e, cmul(v, __ldg(bank + static_cast<size_t>(t) * n + i)));
   }
+}
+
+// (B, R, C) -> (B, C, R) (fft_c2c_t, n = C) or (B, R, C) (fft_c2c_axis1,
+// n = R) in clusters of `cluster` blocks of per_block transforms each;
+// ftw: the optional four-step twiddle, or null.
+template <typename Kernel>
+int launch_strided(Kernel kernel, const void* x, void* y, long long batch,
+                   int n, int count, int cluster, int per_block,
+                   const RegPlan& s, const void* tw, const void* ftw,
+                   void* stream) {
+  if (batch < 1 || count < 1 || per_block < 1 || cluster < 1 ||
+      cluster > kMaxCluster)
+    return cudaErrorInvalidValue;
+  const int lines = per_block * cluster;
+  const long long tiles = (count + lines - 1) / lines;
+  const int stride = line_slots(n, per_block);
+  return launch_clusters(
+      kernel, batch * tiles * cluster, per_block << s.log_t,
+      static_cast<size_t>(per_block) * stride * sizeof(float2), cluster,
+      stream, static_cast<const float2*>(x), static_cast<float2*>(y), count,
+      per_block, static_cast<int>(tiles), stride, s,
+      static_cast<const float2*>(tw), static_cast<const float2*>(ftw));
+}
+
+// Calls f(kernel) with the instance (P, F) of kernel `which` (0
+// fft_c2c_t, 1 fft_c2c_axis1).
+template <typename Fn>
+int with_strided_kernel(int which, int points, int family, Fn&& f) {
+  return with_instance(points, family, [&](auto pf) {
+    constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
+    if (which == 0) return f(fft_c2c_t_regs_kernel<P, F>);
+    if (which == 1) return f(fft_c2c_axis1_regs_kernel<P, F>);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 }  // namespace
@@ -296,45 +378,46 @@ int repro_fft_c2c_mul(const void* x, void* y, long long batch, int n,
 }
 
 int repro_fft_c2c_t(const void* x, void* y, long long batch, int rows,
-                    int cols, int per_block, const void* ftw,
-                    const int* radices, int nstages, int inverse,
-                    const float* dft_re, const float* dft_im,
-                    const float* tw_re, const float* tw_im, void* stream) {
-  Schedule s;
-  cudaError_t err =
-      make_schedule(&s, cols, radices, nstages, inverse, dft_re, dft_im);
+                    int cols, int cluster, int points, int per_block,
+                    const int* table, int npasses, int inverse,
+                    const float* dft_re, const float* dft_im, const void* tw,
+                    const void* ftw, void* stream) {
+  RegPlan s;
+  const cudaError_t err = make_reg_plan(&s, cols, points, table, npasses,
+                                        inverse, dft_re, dft_im);
   if (err != cudaSuccess) return err;
-  const long long per_batch = (rows + per_block - 1) / per_block;
-  size_t smem = 0;
-  err = prepare(fft_c2c_t_kernel, batch * per_batch, per_block, cols, &smem);
-  if (err != cudaSuccess) return err;
-  fft_c2c_t_kernel<<<static_cast<unsigned>(batch * per_batch), kThreads,
-                     smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), rows,
-      per_block, per_batch, static_cast<const float2*>(ftw), s, tw_re, tw_im);
-  return cudaGetLastError();
+  return with_strided_kernel(0, points, s.family, [&](auto kernel) {
+    return launch_strided(kernel, x, y, batch, cols, rows, cluster,
+                          per_block, s, tw, ftw, stream);
+  });
 }
 
 int repro_fft_c2c_axis1(const void* x, void* y, long long batch, int rows,
-                        int cols, int per_block, const void* ftw,
-                        const int* radices, int nstages, int inverse,
+                        int cols, int cluster, int points, int per_block,
+                        const int* table, int npasses, int inverse,
                         const float* dft_re, const float* dft_im,
-                        const float* tw_re, const float* tw_im,
-                        void* stream) {
-  Schedule s;
-  cudaError_t err =
-      make_schedule(&s, rows, radices, nstages, inverse, dft_re, dft_im);
+                        const void* tw, const void* ftw, void* stream) {
+  RegPlan s;
+  const cudaError_t err = make_reg_plan(&s, rows, points, table, npasses,
+                                        inverse, dft_re, dft_im);
   if (err != cudaSuccess) return err;
-  const long long per_batch = (cols + per_block - 1) / per_block;
-  size_t smem = 0;
-  err = prepare(fft_c2c_axis1_kernel, batch * per_batch, per_block, rows,
-                &smem);
-  if (err != cudaSuccess) return err;
-  fft_c2c_axis1_kernel<<<static_cast<unsigned>(batch * per_batch), kThreads,
-                         smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<float2*>(y), cols,
-      per_block, per_batch, static_cast<const float2*>(ftw), s, tw_re, tw_im);
-  return cudaGetLastError();
+  return with_strided_kernel(1, points, s.family, [&](auto kernel) {
+    return launch_strided(kernel, x, y, batch, rows, cols, cluster,
+                          per_block, s, tw, ftw, stream);
+  });
+}
+
+// Clusters of `cluster` blocks of kernel `which` (0 fft_c2c_t, 1
+// fft_c2c_axis1) that the card can run at once
+// (cudaOccupancyMaxActiveClusters), or -1 on error.
+int repro_fft_c2c_active_clusters(int which, int points, int family,
+                                  int threads, long long smem, int cluster) {
+  int clusters = -1;
+  with_strided_kernel(which, points, family, [&](auto kernel) {
+    clusters = active_clusters(kernel, threads, smem, cluster);
+    return 0;
+  });
+  return clusters;
 }
 
 }  // extern "C"

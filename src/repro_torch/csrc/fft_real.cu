@@ -74,16 +74,11 @@
 // Interface: plain C functions on device pointers, launched on the given
 // stream; each returns the cudaError_t of its launch (0 on success).
 
-#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
 #include "stockham_regs.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
-
-constexpr int kMaxCluster = 8;  // the portable cluster size
 
 // Bin X[k] of the Hermitian split from f = Z[k], g = Z[m-k] and w = W[k],
 // in the reference's _r2c_tile order.
@@ -258,10 +253,8 @@ __global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
   const int stride = split_slots(m);
   const int tr = threadIdx.x >> s.log_t;
   const int lane = threadIdx.x & ((1 << s.log_t) - 1);
-  const int cid = static_cast<int>(blockIdx.x) / g;
-  const int batch = cid / tiles;
-  const int rows_c = g * per_block;
-  const int r0c = (cid - batch * tiles) * rows_c;
+  const LineTile tile = line_tile(blockIdx.x, g, tiles, per_block);
+  const int batch = tile.batch, r0c = tile.first;
   const int r0 = r0c + rank * per_block;
   const int count = max(0, min(per_block, rows - r0));
   float2 v[P];
@@ -297,39 +290,10 @@ __global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
       }
     }
   }
-  cluster.sync();  // every block's bins are in its buffer
-  // Block `rank` stores bins [k0, k1) of the cluster's rows_c rows: bin k
-  // of cluster row t lies in block t / per_block, row t % per_block.
-  const int share = (m1 + g - 1) / g;
-  const int k1 = min(m1, (rank + 1) * share);
-  // The threads step by (dt, dk), carrying t = owner * per_block + row.
-  float2* dst = y + static_cast<long long>(batch) * m1 * rows + r0c;
-  const int dt = blockDim.x % rows_c, dk = blockDim.x / rows_c;
-  const int dq = dt / per_block, dr = dt - dq * per_block;
-  int t = threadIdx.x % rows_c;
-  int k = rank * share + threadIdx.x / rows_c;
-  int owner = t / per_block;
-  int row = t - owner * per_block;
-  while (k < k1) {
-    if (r0c + t < rows) {
-      const float2* z = cluster.map_shared_rank(smem, owner) + row * stride;
-      __stcs(dst + static_cast<long long>(k) * rows + t, z[k]);
-    }
-    t += dt;
-    k += dk;
-    owner += dq;
-    row += dr;
-    if (row >= per_block) {
-      row -= per_block;
-      ++owner;
-    }
-    if (t >= rows_c) {
-      t -= rows_c;
-      owner -= g;
-      ++k;
-    }
-  }
-  cluster.sync();  // the other blocks have read this block's buffer
+  // Each bin of the cluster's G * per_block rows is one contiguous run.
+  cluster_store(smem, stride, per_block, m1,
+                y + static_cast<long long>(batch) * m1 * rows + r0c, rows,
+                rows - r0c);
 }
 
 // The register plan of a packed real transform of length n (pow2 >= 4):
@@ -344,25 +308,6 @@ cudaError_t half_plan(RegPlan* s, int n, int points, const int* table,
 
 size_t split_shared(int per_block, int m) {
   return static_cast<size_t>(per_block) * split_slots(m) * sizeof(float2);
-}
-
-// The launch configuration of fft_r2c_t: `blocks` blocks in clusters of
-// `cluster` (attr must outlive cfg).
-cudaLaunchConfig_t cluster_config(long long blocks, int threads, size_t smem,
-                                  int cluster, void* stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(static_cast<unsigned>(threads));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 // Calls f(kernel) with the instance (P, F) of kernel `which` (0 fft_r2c,
@@ -468,19 +413,13 @@ int repro_fft_r2c_t(const void* x, void* y, long long batch, int rows,
   const size_t smem = split_shared(per_block, s.n);
   return with_instance(points, s.family, [&](auto pf) {
     constexpr int P = decltype(pf)::kP, F = decltype(pf)::kF;
-    auto kernel = fft_r2c_t_regs_kernel<P, F>;
-    cudaError_t e = prepare_passes(kernel, blocks, threads, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(blocks, threads, smem, cluster, stream, &attr);
-    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float2*>(x),
+    return launch_clusters(fft_r2c_t_regs_kernel<P, F>, blocks, threads,
+                           smem, cluster, stream,
+                           static_cast<const float2*>(x),
                            static_cast<float2*>(y), rows, per_block,
                            static_cast<int>(tiles), s,
                            static_cast<const float2*>(tw),
                            static_cast<const float2*>(sw));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaGetLastError());
   });
 }
 
@@ -502,20 +441,9 @@ int repro_fft_real_resident_blocks(int which, int points, int family,
 // (cudaOccupancyMaxActiveClusters), or -1 on error.
 int repro_fft_r2c_t_active_clusters(int points, int family, int threads,
                                     long long smem, int cluster) {
-  if (cluster < 1 || cluster > kMaxCluster || smem < 0 ||
-      smem > static_cast<long long>(kMaxShared))
-    return -1;
   int clusters = -1;
   with_real_kernel(2, points, family, [&](auto kernel) {
-    if (prepare_passes(kernel, cluster, threads, static_cast<size_t>(smem)) !=
-        cudaSuccess)
-      return 0;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(
-        cluster, threads, static_cast<size_t>(smem), cluster, nullptr, &attr);
-    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) !=
-        cudaSuccess)
-      clusters = -1;
+    clusters = active_clusters(kernel, threads, smem, cluster);
     return 0;
   });
   return clusters;

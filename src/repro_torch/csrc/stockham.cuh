@@ -1,6 +1,9 @@
 // Shared device code of the port's FFT kernels (fft_c2c.cu, fft_real.cu):
 // the radix schedule, the stage twiddle lookup, the in-shared-memory
-// mixed-radix Stockham stages and the launch checks.
+// mixed-radix Stockham stages and the launch checks.  stockham() and its
+// Schedule serve fft_c2c_mul alone; every other FFT kernel runs the
+// register passes of stockham_regs.cuh, which take the complex helpers
+// and limits from here.
 //
 // The arithmetic is the reference's, operation for operation: the radix
 // schedule of repro_torch.fft.radix.radix_schedule (residual radix first,

@@ -1,5 +1,6 @@
-// Register-resident Stockham passes: the device routine of the fft_c2c
-// (fft_c2c.cu) and fft_r2c, fft_r2c_t and fft_c2r (fft_real.cu) kernels.
+// Register-resident Stockham passes: the device routine of the fft_c2c,
+// fft_c2c_t and fft_c2c_axis1 (fft_c2c.cu) and fft_r2c, fft_r2c_t and
+// fft_c2r (fft_real.cu) kernels.
 //
 // The arithmetic is stockham()'s (stockham.cuh), operation for operation:
 // the same radix schedule, butterflies and twiddle values.  What differs
@@ -33,10 +34,23 @@
 // stage reads: stage after stage, branch k = 1..r-1, h = M/r columns
 // each; fft_kernel.compact_twiddles), read once per butterfly branch
 // through the read-only cache; the inverse conjugates them here.
+//
+// The strided side (fft_r2c_t's and fft_c2c_t's transposed write, both
+// sides of fft_c2c_axis1) goes through a thread-block cluster of G <= 8
+// blocks that hold G * per_block consecutive lines (rows or columns) of
+// one batch entry: cluster_store writes each output point of all those
+// lines as one contiguous run, reading the other blocks' buffers through
+// distributed shared memory, and cluster_load reads each input row of
+// the lines as one run into the owners' buffers.  Both step one walk
+// (TileWalk) over the cluster's (points x lines) tile.
 
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include "stockham.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -164,6 +178,18 @@ bool known_shape(int code, int points, int family) {
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 
 __host__ __device__ constexpr int padded(int n) { return n + n / 16; }
+
+// Slots from one line's buffer to the next in fft_c2c_t and
+// fft_c2c_axis1: padded(n), raised to 16 / per_block mod 16 (to an odd
+// number from 16 lines a block) so that the strided side's half-warps,
+// which take per_block lines of consecutive points, hit 16 different
+// float2 banks.
+__host__ __device__ constexpr int line_slots(int n, int per_block) {
+  return per_block == 1    ? padded(n)
+         : per_block >= 16 ? padded(n) | 1
+                           : padded(n) +
+                                 ((16 / per_block - padded(n)) % 16 + 16) % 16;
+}
 
 // Slots of one transform's buffer in the real kernels: the exchange
 // buffer, which also holds the n + 1 bins of the Hermitian split or merge
@@ -395,6 +421,160 @@ __device__ __forceinline__ void reg_passes_but_last(
   }
 }
 
+// The last pass's results into the exchange buffer in natural order,
+// scaled (1/n for the inverse) and then times ftw[k] (k: the result's
+// index; ftw: the transform's row of the four-step twiddle, or null), in
+// stockham()'s order.
+template <int P, int F>
+__device__ __forceinline__ void store_finished(const float2 (&v)[P],
+                                               float2* buf, const RegPlan& s,
+                                               const float2* __restrict__ ftw,
+                                               int lane) {
+  const RegPass& ps = s.pass[s.npasses - 1];
+  const float scale = s.scale;
+  with_shape<P, F>(ps.code, [&](auto sh) {
+    scatter<P, decltype(sh)>(v, s.n, ps, lane, s.log_t,
+                             [&](int at, float2 x) {
+                               x = scaled(x, scale);
+                               buf[at] = ftw ? cmul(x, __ldg(ftw + at)) : x;
+                             });
+  });
+}
+
+// The batch entry and the first line (row or column) of the tile of the
+// cluster that block `bid` belongs to: clusters of g blocks, `tiles`
+// clusters a batch entry, g * per_block lines a tile.
+struct LineTile {
+  int batch;
+  int first;
+};
+
+__device__ __forceinline__ LineTile line_tile(int bid, int g, int tiles,
+                                              int per_block) {
+  const int cid = bid / g;
+  const int batch = cid / tiles;
+  return {batch, (cid - batch * tiles) * g * per_block};
+}
+
+// blockIdx.x, read anew at each call (a read the compiler cannot merge
+// with an earlier one).
+__device__ __forceinline__ int block_index() {
+  int bid;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bid));
+  return bid;
+}
+
+// A walk of the block's threads over a cluster's tile of `lines` lines
+// (rows or columns), g * per_block of them, of some points each: thread
+// i's first point is e = k * lines + t, and each step adds the block's
+// threads to e.  (k, t) and t's (owner block, line in it), t = owner *
+// per_block + line, are carried instead of divided.
+struct TileWalk {
+  int k, t, owner, line;
+  int dk, dt, dq, dr;
+  int lines, per_block, g;
+
+  __device__ TileWalk(int k0, int t0, int lines_, int per_block_, int g_)
+      : k(k0), t(t0), lines(lines_), per_block(per_block_), g(g_) {
+    owner = t / per_block;
+    line = t - owner * per_block;
+    dk = blockDim.x / lines;
+    dt = blockDim.x - dk * lines;
+    dq = dt / per_block;
+    dr = dt - dq * per_block;
+  }
+
+  __device__ __forceinline__ void next() {
+    t += dt;
+    k += dk;
+    owner += dq;
+    line += dr;
+    if (line >= per_block) {
+      line -= per_block;
+      ++owner;
+    }
+    if (t >= lines) {
+      t -= lines;
+      owner -= g;
+      ++k;
+    }
+  }
+};
+
+// The cluster's tile of g * per_block lines of n points, point k of line
+// t at src[k * ld + t], into the owners' buffers: line t to block t /
+// per_block, slot (t % per_block) * stride + pad(k); lines t >= live are
+// masked (zeros).  Block `rank` reads the tile's points [rank * per_block
+// * n, ...) in row-major order, P a thread: each row of the tile is one
+// contiguous run of g * per_block * 8 bytes.  The loads go out in groups
+// of four, each group stored through distributed shared memory as it
+// arrives: groups of all P, or of eight, spilled at 16 and 32 points a
+// thread.  After the last cluster.sync() every block's buffer holds its
+// lines.
+template <int P>
+__device__ __forceinline__ void cluster_load(float2* smem, int stride,
+                                             int per_block, int n,
+                                             const float2* __restrict__ src,
+                                             long long ld, int live) {
+  constexpr int kGroup = P < 4 ? P : 4;  // loads in flight a thread
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = static_cast<int>(cluster.num_blocks());
+  const int lines = g * per_block;
+  const int e0 = static_cast<int>(cluster.block_rank()) * per_block * n +
+                 static_cast<int>(threadIdx.x);
+  const int k0 = e0 / lines;
+  TileWalk w(k0, e0 - k0 * lines, lines, per_block, g);
+  cluster.sync();  // every block of the cluster runs: its buffer exists
+#pragma unroll
+  for (int p = 0; p < P; p += kGroup) {
+    float2 got[kGroup];
+    float2* to[kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      got[i] = w.t < live
+                   ? __ldg(src + static_cast<long long>(w.k) * ld + w.t)
+                   : make_float2(0.f, 0.f);
+      to[i] = cluster.map_shared_rank(smem, w.owner) + w.line * stride +
+              pad(w.k);
+      w.next();
+    }
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) *to[i] = got[i];
+  }
+  cluster.sync();  // every line is in its owner's buffer
+}
+
+// The cluster's results, point k of line t at (t % per_block) * stride +
+// k in block t / per_block's buffer, to dst[k * ld + t] for the n points
+// of every line t < live.  Block `rank` stores points [rank * share, ...)
+// of all g * per_block lines, reading the other blocks' buffers through
+// distributed shared memory: consecutive threads take consecutive lines
+// of one point, so a point of the tile is one contiguous run.  The first
+// cluster.sync() waits for every block's results, the second keeps every
+// buffer alive until the others have read it.
+__device__ __forceinline__ void cluster_store(float2* smem, int stride,
+                                              int per_block, int n,
+                                              float2* __restrict__ dst,
+                                              long long ld, int live) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lines = g * per_block;
+  const int share = (n + g - 1) / g;
+  const int k1 = min(n, (rank + 1) * share);
+  cluster.sync();  // every block's results are in its buffer
+  for (TileWalk w(rank * share + static_cast<int>(threadIdx.x) / lines,
+                  static_cast<int>(threadIdx.x) % lines, lines, per_block, g);
+       w.k < k1; w.next()) {
+    if (w.t < live) {
+      const float2* z =
+          cluster.map_shared_rank(smem, w.owner) + w.line * stride;
+      __stcs(dst + static_cast<long long>(w.k) * ld + w.t, z[w.k]);
+    }
+  }
+  cluster.sync();  // the other blocks have read this block's buffer
+}
+
 // Checks the host's plan table (fft_kernel.pass_table) and fills `s`:
 // every pass is a known shape of at most `points` points, the passes
 // cover the transform, and every stage's twiddle rows follow the last
@@ -503,6 +683,62 @@ int resident_blocks(Kernel kernel, int threads, long long smem) {
           &blocks, kernel, threads, static_cast<size_t>(smem)) != cudaSuccess)
     return -1;
   return blocks;
+}
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+
+// The launch configuration of a clustered pass kernel: `blocks` blocks in
+// clusters of `cluster` (attr must outlive cfg).
+cudaLaunchConfig_t cluster_config(long long blocks, int threads, size_t smem,
+                                  int cluster, void* stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launches a clustered pass kernel (cudaLaunchKernelEx) after checking
+// its shape and raising its shared-memory limit (prepare_passes).
+template <typename Kernel, typename... Args>
+int launch_clusters(Kernel kernel, long long blocks, int threads,
+                    size_t smem, int cluster, void* stream, Args... args) {
+  if (cluster < 1 || cluster > kMaxCluster) return cudaErrorInvalidValue;
+  cudaError_t e = prepare_passes(kernel, blocks, threads, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(blocks, threads, smem, cluster, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// Clusters of `cluster` blocks of a clustered pass kernel that the card
+// can run at once (cudaOccupancyMaxActiveClusters), or -1 on error.
+template <typename Kernel>
+int active_clusters(Kernel kernel, int threads, long long smem,
+                    int cluster) {
+  if (cluster < 1 || cluster > kMaxCluster || smem < 0 ||
+      smem > static_cast<long long>(kMaxShared) ||
+      prepare_passes(kernel, cluster, threads, static_cast<size_t>(smem)) !=
+          cudaSuccess)
+    return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      cluster, threads, static_cast<size_t>(smem), cluster, nullptr, &attr);
+  int clusters = -1;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess)
+    return -1;
+  return clusters;
 }
 
 // A launch of fft_c2c or fft_r2c, planned once per shape on the host

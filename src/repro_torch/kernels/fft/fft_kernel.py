@@ -30,14 +30,15 @@ the launch fails — there is no fallback between the two.  ``LAUNCHES``
 counts kernel launches (only launches; the plain versions never count),
 so a caller can show that work went through the kernels.
 
-``fft_c2c``, ``fft_r2c``, ``fft_r2c_t`` and ``fft_c2r`` run the schedule in
+Every FFT kernel but ``fft_c2c_mul`` runs the schedule in
 register-resident passes (``csrc/stockham_regs.cuh``) that the host plans
 here (:func:`pass_launch`, :func:`pass_table`), reading the same twiddle
 numbers from a compact table (:func:`compact_twiddles`); ``fft_c2c`` and
-``fft_r2c`` plan each launch once per shape in C (:func:`_plan`);
-``fft_r2c_t`` stores its transposed output through a thread-block cluster
-(:func:`r2c_t_cluster`).  The other kernels run the schedule in shared
-memory.
+``fft_r2c`` plan each launch once per shape in C (:func:`_plan`).
+``fft_r2c_t`` and ``fft_c2c_t`` store their transposed output, and
+``fft_c2c_axis1`` loads and stores its columns, through a thread-block
+cluster (:func:`r2c_t_cluster`, :func:`c2c_cluster`).  ``fft_c2c_mul``
+runs the schedule in shared memory.
 
 The plain R2C/C2R versions run the Hermitian split and merge of the torch
 engine (``repro_torch.fft.stockham``); the kernels read its split table.
@@ -96,10 +97,9 @@ def schedule(n: int, radices: tuple[int, ...] = DEFAULT_RADICES
 
 def transforms_per_block(points: int, count: int,
                          override: int | None = None) -> int:
-    """Transforms one thread block of the shared-memory kernels
-    (``fft_c2c_t``, ``fft_c2c_axis1``, ``fft_c2c_mul``) holds (at most
-    ``count``, the transforms available along the blocked axis), each in
-    two buffers of ``points`` complex values.
+    """Transforms one thread block of the shared-memory kernel
+    ``fft_c2c_mul`` holds (at most ``count``, the rows of the batch), each
+    in two buffers of ``points`` complex values.
 
     The wrappers in ``ops`` decide it here once and pass it to the launch
     as ``per_block``."""
@@ -174,6 +174,20 @@ def padded(n: int) -> int:
     """Shared-memory slots of one transform's exchange buffer: one pad
     slot after every 16 points (``csrc/stockham_regs.cuh``, ``pad``)."""
     return n + n // 16
+
+
+def line_slots(n: int, per_block: int) -> int:
+    """Slots from one line's buffer to the next in ``fft_c2c_t`` and
+    ``fft_c2c_axis1`` (``line_slots`` in ``csrc/stockham_regs.cuh``):
+    :func:`padded` ``(n)``, raised to 16 / per_block mod 16 (to an odd
+    number from 16 lines a block), so that the strided side's half-warps,
+    which take ``per_block`` lines of consecutive points, hit 16 different
+    banks."""
+    if per_block == 1:
+        return padded(n)
+    if per_block >= 16:
+        return padded(n) | 1
+    return padded(n) + (16 // per_block - padded(n)) % 16
 
 
 def split_slots(n: int) -> int:
@@ -262,9 +276,10 @@ def compact_twiddles(n: int, radices: tuple[int, ...],
 
 @dataclasses.dataclass(frozen=True)
 class PassLaunch:
-    """Launch geometry of a register-pass kernel (``fft_c2c``, and the
-    real kernels ``fft_r2c``, ``fft_r2c_t``, ``fft_c2r`` at ``split``) for
-    ``n`` complex points a transform (N/2 for the real ones)."""
+    """Launch geometry of a register-pass kernel (``fft_c2c``;
+    ``fft_c2c_t`` and ``fft_c2c_axis1`` at ``buffer``; the real kernels
+    ``fft_r2c``, ``fft_r2c_t``, ``fft_c2r`` at ``split``) for ``n`` complex
+    points a transform (N/2 for the real ones)."""
 
     n: int
     passes: tuple[tuple[int, ...], ...]
@@ -305,16 +320,17 @@ class PassLaunch:
 def pass_launch(n: int, count: int,
                 radices: tuple[int, ...] = DEFAULT_RADICES,
                 override: int | None = None, *,
-                split: bool = False) -> PassLaunch:
+                split: bool = False, buffer: bool = False) -> PassLaunch:
     """Launch geometry of ``count`` length-``n`` transforms: ``n / points``
     threads a transform, ``PASS_THREADS`` a block (one transform a block
     from n = 4096), at most ``count`` transforms a block.  ``override``
     (the ``tile_b`` tuning axis) sets the transforms per block, validated
     against the thread and shared-memory limits.
     Shared memory holds one padded buffer a transform when the plan has an
-    exchange; with ``split`` (the real kernels, whose Hermitian split or
-    merge reads bins k and n - k together) always, of
-    :func:`split_slots` ``(n)`` slots."""
+    exchange; with ``buffer`` (``fft_c2c_t`` and ``fft_c2c_axis1``, whose
+    strided side goes through it) always; with ``split`` (the real
+    kernels, whose Hermitian split or merge reads bins k and n - k
+    together) always, of :func:`split_slots` ``(n)`` slots."""
     if n < 2:
         raise ValueError(f"register-pass kernels need n >= 2, got {n}")
     passes = register_passes(n, tuple(radices))
@@ -327,6 +343,8 @@ def pass_launch(n: int, count: int,
     threads = tile * per_transform
     if split:
         shared = tile * split_slots(n) * _ELEM_BYTES
+    elif buffer:
+        shared = tile * line_slots(n, tile) * _ELEM_BYTES
     else:
         shared = tile * padded(n) * _ELEM_BYTES if len(passes) > 1 else 0
     if threads > PASS_THREADS:
@@ -350,26 +368,56 @@ def pass_launch(n: int, count: int,
 #: (32 B, one sector).  The fastest of 1, 4 and 8 at (16, 4096, 8192) on
 #: an H100 (``chip_smoke.py``, ``phase3_rows_per_block``).
 R2C_T_ROWS = 4
+#: Rows (``fft_c2c_t``) or columns (``fft_c2c_axis1``) of one batch entry
+#: that a cluster of those kernels' blocks moves together: one point of
+#: them is one contiguous run of C2C_CLUSTER_LINES * 8 bytes (32 B, one
+#: sector).  The fastest of 1, 4 and 8 at (16, 4096, 4096) and (238,
+#: 1024, 1024) on an H100 (``chip_smoke.py``, ``phase3_rows_per_block``).
+C2C_CLUSTER_LINES = 4
+#: The same where a batch entry's lines are no multiple of four (rfft2's
+#: 4097 bin rows): each run then starts inside a sector, and one of 4
+#: lines straddles two sectors, one of 8 at most three.  The fastest of
+#: 1, 4 and 8 at (16, 4097, 4096).
+C2C_UNALIGNED_LINES = 8
+#: Bytes of one sector of device memory.
+_SECTOR_BYTES = 32
 #: Most blocks of a cluster (the portable limit).
 MAX_CLUSTER = 8
 
 
 def r2c_t_cluster(per_block: int, rows: int,
                   cluster_rows: int = R2C_T_ROWS) -> int:
-    """Blocks G of one ``fft_r2c_t`` cluster: ``cluster_rows`` rows of
-    ``per_block`` a block, at most ``MAX_CLUSTER`` and no more blocks than
-    the ``rows`` of a batch entry fill."""
+    """Blocks G of one cluster of a clustered kernel (``fft_r2c_t`` by
+    default): ``cluster_rows`` rows of ``per_block`` a block, at most
+    ``MAX_CLUSTER`` and no more blocks than the ``rows`` of a batch entry
+    fill."""
     if cluster_rows < 1:
         raise ValueError(f"cluster rows must be >= 1, got {cluster_rows}")
     return max(1, min(cluster_rows // per_block, MAX_CLUSTER,
                       -(-rows // per_block)))
 
 
-def r2c_t_blocks(b: int, rows: int, per_block: int, cluster: int) -> int:
-    """Thread blocks of an ``fft_r2c_t`` launch, masked ones included:
-    ``b`` batch entries, each cut into tiles of ``per_block * cluster``
-    rows, ``cluster`` blocks a tile."""
-    return blocks(rows, per_block * cluster, b) * cluster
+def c2c_cluster(per_block: int, count: int,
+                cluster_lines: int | None = None) -> int:
+    """Blocks G of one ``fft_c2c_t`` or ``fft_c2c_axis1`` cluster:
+    ``cluster_lines`` rows or columns of ``per_block`` a block (by default
+    C2C_CLUSTER_LINES, or C2C_UNALIGNED_LINES where the ``count`` rows or
+    columns of a batch entry do not fill whole sectors), at most
+    ``MAX_CLUSTER``, and no more blocks than ``count`` fills."""
+    if cluster_lines is None:
+        cluster_lines = (C2C_CLUSTER_LINES
+                         if count * _ELEM_BYTES % _SECTOR_BYTES == 0
+                         else C2C_UNALIGNED_LINES)
+    return r2c_t_cluster(per_block, count, cluster_lines)
+
+
+def clustered_blocks(b: int, count: int, per_block: int,
+                     cluster: int) -> int:
+    """Thread blocks of a clustered launch (``fft_r2c_t``, ``fft_c2c_t``,
+    ``fft_c2c_axis1``), masked ones included: ``b`` batch entries, each
+    cut into tiles of ``per_block * cluster`` rows or columns out of
+    ``count``, ``cluster`` blocks a tile."""
+    return blocks(count, per_block * cluster, b) * cluster
 
 
 def blocks(count: int, per_block: int, outer: int = 1) -> int:
@@ -603,9 +651,11 @@ def _library() -> ctypes.CDLL:
                                       _I, _P, _P, _P, _P, _P]
     lib.repro_fft_c2c_mul.restype = _I
     for fn in (lib.repro_fft_c2c_t, lib.repro_fft_c2c_axis1):
-        fn.argtypes = [_P, _P, _LL, _I, _I, _I, _P, _P, _I, _I,
-                       _P, _P, _P, _P, _P]
+        fn.argtypes = [_P, _P, _LL, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                       _P, _P, _P]
         fn.restype = _I
+    lib.repro_fft_c2c_active_clusters.argtypes = [_I, _I, _I, _I, _LL, _I]
+    lib.repro_fft_c2c_active_clusters.restype = _I
     return lib
 
 
@@ -755,7 +805,8 @@ def _pass_args(n: int, count: int, radices: tuple[int, ...],
 
 def _schedule_args(n: int, radices: tuple[int, ...], inverse: bool,
                    device: torch.device):
-    """The C arguments every launch shares (kept alive by the caller)."""
+    """The C arguments of an ``fft_c2c_mul`` launch's schedule (kept alive
+    by the caller)."""
     sched = np.asarray(schedule(n, radices), np.int32)
     dr, di = _dft8(inverse)
     twr, twi = stage_tables(n, tuple(radices), device)
@@ -788,38 +839,44 @@ def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
 def fft_c2c_t(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
               inverse: bool = False,
               radices: tuple[int, ...] = DEFAULT_RADICES,
-              per_block: int) -> torch.Tensor:
-    """Row FFT of a (B, R, C) tensor written transposed to (B, C, R),
-    ``per_block`` rows per thread block."""
+              per_block: int, cluster: int = 1) -> torch.Tensor:
+    """Row FFT of a (B, R, C) tensor written transposed to (B, C, R) in
+    register passes (:func:`pass_launch`), ``per_block`` rows per thread
+    block, in clusters of ``cluster`` blocks that store their rows
+    together (:func:`c2c_cluster`)."""
     _check(x, 3, "fft_c2c_t")
     b, r, c = x.shape
     _check_twiddle(twiddle, (r, c), x)
+    _check_cluster(cluster, "fft_c2c_t")
     if x.device.type == "cpu":
         return fft_c2c_t_plain(x, twiddle, inverse=inverse, radices=radices)
     y = torch.empty((b, c, r), dtype=x.dtype, device=x.device)
     if b * r == 0:
         return y
-    return _launch_2d("fft_c2c_t", _library().repro_fft_c2c_t, x, y,
-                      twiddle, inverse, radices, per_block)
+    return _launch_strided("fft_c2c_t", x, y, c, r, twiddle, inverse,
+                           radices, per_block, cluster)
 
 
 def fft_c2c_axis1(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
                   inverse: bool = False,
                   radices: tuple[int, ...] = DEFAULT_RADICES,
-                  per_block: int) -> torch.Tensor:
-    """Column FFT of a (B, R, C) tensor, layout kept, ``per_block``
-    columns per thread block."""
+                  per_block: int, cluster: int = 1) -> torch.Tensor:
+    """Column FFT of a (B, R, C) tensor, layout kept, in register passes
+    (:func:`pass_launch`), ``per_block`` columns per thread block, in
+    clusters of ``cluster`` blocks that load and store their columns
+    together (:func:`c2c_cluster`)."""
     _check(x, 3, "fft_c2c_axis1")
     b, r, c = x.shape
     _check_twiddle(twiddle, (c, r), x)
+    _check_cluster(cluster, "fft_c2c_axis1")
     if x.device.type == "cpu":
         return fft_c2c_axis1_plain(x, twiddle, inverse=inverse,
                                    radices=radices)
     y = torch.empty_like(x)
     if b * c == 0:
         return y
-    return _launch_2d("fft_c2c_axis1", _library().repro_fft_c2c_axis1, x, y,
-                      twiddle, inverse, radices, per_block)
+    return _launch_strided("fft_c2c_axis1", x, y, r, c, twiddle, inverse,
+                           radices, per_block, cluster)
 
 
 def fft_c2c_mul(x: torch.Tensor, bank: torch.Tensor, *,
@@ -882,22 +939,53 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _launch_2d(name: str, fn, x: torch.Tensor, y: torch.Tensor,
-               twiddle: torch.Tensor | None, inverse: bool,
-               radices: tuple[int, ...], per_block: int) -> torch.Tensor:
-    """Launch the t/axis1 kernel (transforms of length C for ``t``, R for
-    ``axis1``)."""
+def _check_cluster(cluster: int, what: str) -> None:
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"{what}: a cluster takes 1..{MAX_CLUSTER} blocks, "
+                         f"got {cluster}")
+
+
+@functools.lru_cache(maxsize=1024)
+def _strided_args(n: int, count: int, radices: tuple[int, ...],
+                  per_block: int, inverse: bool,
+                  device: torch.device) -> tuple:
+    """The geometry of an ``fft_c2c_t`` or ``fft_c2c_axis1`` launch of
+    ``count`` transforms of length ``n``, and its C arguments between the
+    cluster size and the four-step twiddle, cached per shape (with the
+    tables they point into, kept alive here)."""
+    launch = pass_launch(n, count, radices, per_block, buffer=True)
+    table = pass_table(n, radices)
+    dr, di = _dft8(inverse)
+    tw = compact_twiddles(n, radices, device)
+    return (launch, (launch.points, launch.per_block, table.ctypes.data,
+                     len(table), int(inverse), dr.ctypes.data,
+                     di.ctypes.data, tw.data_ptr()), (table, dr, di, tw))
+
+
+def _launch_strided(name: str, x: torch.Tensor, y: torch.Tensor, n: int,
+                    count: int, twiddle: torch.Tensor | None, inverse: bool,
+                    radices: tuple[int, ...], per_block: int,
+                    cluster: int) -> torch.Tensor:
+    """Launch ``fft_c2c_t`` or ``fft_c2c_axis1`` on (B, R, C) ``x``:
+    ``count`` transforms of length ``n`` a batch entry (R of C for ``t``,
+    C of R for ``axis1``)."""
     b, r, c = x.shape
-    n = c if name == "fft_c2c_t" else r
-    sched, dr, di, twr, twi = _schedule_args(n, radices, inverse, x.device)
+    dev = x.device
+    launch, args, _ = _strided_args(n, count, tuple(radices), per_block,
+                                    inverse, dev)
+    if active_clusters(launch, cluster, name) < 1:
+        raise RuntimeError(
+            f"{name}: cudaOccupancyMaxActiveClusters is 0 for clusters of "
+            f"{cluster} blocks of {launch.threads} threads and "
+            f"{launch.shared_bytes} bytes of shared memory: the card cannot "
+            f"place one")
+    lib = _library()
     ftw = twiddle.data_ptr() if twiddle is not None else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), b, r, c, per_block, ftw,
-                 sched.ctypes.data, len(sched), int(inverse),
-                 dr.ctypes.data, di.ctypes.data, twr.data_ptr(),
-                 twi.data_ptr(), stream)
-    _raise_on(err, name, _library())
+    with _current(dev):
+        err = getattr(lib, f"repro_{name}")(
+            x.data_ptr(), y.data_ptr(), b, r, c, cluster, *args, ftw,
+            _stream(dev))
+    _raise_on(err, name, lib)
     return y
 
 
@@ -947,9 +1035,7 @@ def fft_r2c_t(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     _check_real(x, "fft_r2c_t", ndim=3)
     b, r, c = x.shape
     m = _real_length(c)
-    if not 1 <= cluster <= MAX_CLUSTER:
-        raise ValueError(f"fft_r2c_t: a cluster takes 1..{MAX_CLUSTER} "
-                         f"blocks, got {cluster}")
+    _check_cluster(cluster, "fft_r2c_t")
     if x.device.type == "cpu":
         return fft_r2c_t_plain(x, radices=radices)
     y = torch.empty((b, m + 1, r), dtype=torch.complex64, device=x.device)
@@ -1017,24 +1103,34 @@ def resident_blocks(name: str, launch: PassLaunch) -> int:
     return got
 
 
+#: Kernel ids of ``repro_fft_c2c_active_clusters`` (``csrc/fft_c2c.cu``).
+_STRIDED_KERNELS = {"fft_c2c_t": 0, "fft_c2c_axis1": 1}
+
+
 @functools.lru_cache(maxsize=256)
-def _active_clusters(device: int, points: int, family: int, threads: int,
-                     shared_bytes: int, cluster: int) -> int:
-    got = _real_library().repro_fft_r2c_t_active_clusters(
-        points, family, threads, shared_bytes, cluster)
+def _active_clusters(name: str, device: int, points: int, family: int,
+                     threads: int, shared_bytes: int, cluster: int) -> int:
+    shape = (points, family, threads, shared_bytes, cluster)
+    if name == "fft_r2c_t":
+        got = _real_library().repro_fft_r2c_t_active_clusters(*shape)
+    else:
+        got = _library().repro_fft_c2c_active_clusters(
+            _STRIDED_KERNELS[name], *shape)
     if got < 0:
-        raise RuntimeError(f"cluster occupancy query of fft_r2c_t failed "
+        raise RuntimeError(f"cluster occupancy query of {name} failed "
                            f"({cluster} blocks of {threads} threads, "
                            f"{shared_bytes} bytes)")
     return got
 
 
-def active_clusters(launch: PassLaunch, cluster: int) -> int:
-    """Clusters of ``cluster`` ``fft_r2c_t`` blocks of ``launch`` that the
-    current card runs at once (``cudaOccupancyMaxActiveClusters``; cached
-    per card and shape)."""
-    return _active_clusters(torch.cuda.current_device(), launch.points,
-                            launch.family, launch.threads,
+def active_clusters(launch: PassLaunch, cluster: int,
+                    name: str = "fft_r2c_t") -> int:
+    """Clusters of ``cluster`` blocks of ``launch`` of the clustered
+    kernel ``name`` (``fft_r2c_t``, ``fft_c2c_t`` or ``fft_c2c_axis1``)
+    that the current card runs at once
+    (``cudaOccupancyMaxActiveClusters``; cached per card and shape)."""
+    return _active_clusters(name, torch.cuda.current_device(),
+                            launch.points, launch.family, launch.threads,
                             launch.shared_bytes, cluster)
 
 

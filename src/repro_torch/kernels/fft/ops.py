@@ -26,8 +26,8 @@ from repro_torch.kernels.fft import fft_kernel
 from repro_torch.obs.ledger import record_launch
 
 # One fused kernel handles transforms that fit shared memory: the register
-# passes of fft_c2c and the real kernels, the double-buffered stages of the
-# others.
+# passes of every FFT kernel but fft_c2c_mul, the double-buffered stages of
+# fft_c2c_mul.
 MAX_KERNEL_N = 2**13
 
 
@@ -90,18 +90,25 @@ def fft_kernel_c2c_t(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
     """Fused C2C FFT + transposed write: (..., R, C) -> (..., C, R).
 
     ``twiddle`` (optional, an (R, C) complex table) is multiplied in the
-    kernel's epilogue, before the transposed write.
+    kernel's epilogue, before the transposed write.  The row FFTs run in
+    register passes (``fft_kernel.pass_launch``; ``tile_b`` overrides the
+    rows per thread block), and clusters of blocks
+    (``fft_kernel.c2c_cluster``) store their rows' points together.
     """
     x = _complex64(x)
     r, c = x.shape[-2:]
     _check_kernel_length(c)
     lead = x.shape[:-2]
     b = _batch(x.shape, 2)
-    tile = fft_kernel.transforms_per_block(c, r, tile_b)
+    launch = fft_kernel.pass_launch(c, r, tuple(radices), tile_b,
+                                    buffer=True)
+    tile = launch.per_block
+    cluster = fft_kernel.c2c_cluster(tile, r)
     y = fft_kernel.fft_c2c_t(x.reshape(b, r, c), _twiddle(twiddle, x.device),
                              inverse=inverse, radices=radices,
-                             per_block=tile)
-    record_launch("fft-c2c-t", grid=(fft_kernel.blocks(r, tile, b),),
+                             per_block=tile, cluster=cluster)
+    record_launch("fft-c2c-t",
+                  grid=(fft_kernel.clustered_blocks(b, r, tile, cluster),),
                   tile=(tile, c), bytes_moved=16 * b * r * c,
                   shape=(b, r, c))
     return y.reshape(*lead, c, r)
@@ -114,19 +121,26 @@ def fft_kernel_c2c_axis1(x: torch.Tensor, *, twiddle=None,
     """C2C FFT over axis -2, layout preserved: (..., R, C) -> (..., R, C).
 
     The four-step column pass.  ``twiddle`` is a (C, R) complex table;
-    output ``[..., k, j]`` is multiplied by ``twiddle[j, k]``.
+    output ``[..., k, j]`` is multiplied by ``twiddle[j, k]``.  The column
+    FFTs run in register passes (``fft_kernel.pass_launch``; ``tile_b``
+    overrides the columns per thread block), and clusters of blocks
+    (``fft_kernel.c2c_cluster``) load and store their columns together.
     """
     x = _complex64(x)
     r, c = x.shape[-2:]
     _check_kernel_length(r)
     lead = x.shape[:-2]
     b = _batch(x.shape, 2)
-    tile = fft_kernel.transforms_per_block(r, c, tile_b)
+    launch = fft_kernel.pass_launch(r, c, tuple(radices), tile_b,
+                                    buffer=True)
+    tile = launch.per_block
+    cluster = fft_kernel.c2c_cluster(tile, c)
     y = fft_kernel.fft_c2c_axis1(x.reshape(b, r, c),
                                  _twiddle(twiddle, x.device),
                                  inverse=inverse, radices=radices,
-                                 per_block=tile)
-    record_launch("fft-c2c-axis1", grid=(fft_kernel.blocks(c, tile, b),),
+                                 per_block=tile, cluster=cluster)
+    record_launch("fft-c2c-axis1",
+                  grid=(fft_kernel.clustered_blocks(b, c, tile, cluster),),
                   tile=(tile, r), bytes_moved=16 * b * r * c,
                   shape=(b, r, c))
     return y.reshape(*lead, r, c)
@@ -235,7 +249,7 @@ def fft_kernel_r2c_t(x: torch.Tensor, *,
     y = fft_kernel.fft_r2c_t(x.reshape(b, r, c), radices=radices,
                              per_block=tile, cluster=cluster)
     record_launch("fft-r2c-t",
-                  grid=(fft_kernel.r2c_t_blocks(b, r, tile, cluster),),
+                  grid=(fft_kernel.clustered_blocks(b, r, tile, cluster),),
                   tile=(tile, c),
                   bytes_moved=4 * b * r * (c + 2 * (c // 2 + 1)),
                   shape=(b, r, c))

@@ -2,8 +2,9 @@
 
 The part of ``repro.tune.config`` this slice's plans read:
 
-  tile_b    transforms per thread block of the CUDA kernels
-            (None = ``repro_torch.kernels.fft.fft_kernel.transforms_per_block``)
+  tile_b    transforms per thread block of the CUDA kernels (None =
+            ``repro_torch.kernels.fft.fft_kernel.pass_launch``'s, and
+            ``transforms_per_block``'s for ``fft_c2c_mul``)
   radices   butterfly schedule of every fused pass (None = DEFAULT_RADICES)
   split     the four-step (n1, n2) factorisation for long transforms
             (None = the balanced ``_four_step_split`` heuristic)

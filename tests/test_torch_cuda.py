@@ -147,6 +147,38 @@ def test_r2c_t_clusters_match_plain_at_every_length(gen, c, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("count", (37, 4097))
+@pytest.mark.parametrize("n", C2C_LENGTHS)
+def test_c2c_strided_clusters_match_plain_at_every_length(gen, n, count):
+    """fft_c2c_t (count rows) and fft_c2c_axis1 (count columns): both
+    radix sets, with and without the twiddle, forward and inverse, every
+    geometry the planner gives (default and one-line blocks; clusters of
+    one block's lines, 4 and 8 lines), ragged against every tile."""
+    x, tw = _rand(gen, 2, count, n), _rand(gen, count, n)
+    xa = x.transpose(1, 2).contiguous()
+    for radices in ((4, 2), (8, 4, 2)):
+        for twiddle in (None, tw):
+            for inverse in (False, True):
+                cases = (("fft_c2c_t", K.fft_c2c_t, x, K.fft_c2c_t_plain(
+                    x, twiddle, inverse=inverse, radices=radices)),
+                         ("fft_c2c_axis1", K.fft_c2c_axis1, xa,
+                          K.fft_c2c_axis1_plain(xa, twiddle, inverse=inverse,
+                                                radices=radices)))
+                for tile_b in (None, 1):
+                    launch = K.pass_launch(n, count, radices, tile_b,
+                                           buffer=True)
+                    pb = launch.per_block
+                    for g in {K.c2c_cluster(pb, count, lines)
+                              for lines in (pb, 4, 8)}:
+                        for name, fn, inp, want in cases:
+                            assert K.active_clusters(launch, g, name) >= 1
+                            y = fn(inp, twiddle, inverse=inverse,
+                                   radices=radices, per_block=pb, cluster=g)
+                            assert _rel(y, want) <= RTOL, (name, tile_b, g)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,n,split", [("fft_c2c", 8192, False),
                                           ("fft_r2c", 8192, True),
                                           ("fft_c2r", 8192, True)])

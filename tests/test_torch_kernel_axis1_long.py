@@ -2,9 +2,12 @@
 their own so that each file stays well inside a minute on one worker."""
 import pytest
 
-from test_torch_kernel_axis1 import CASES, LONG
+from test_torch_kernel_passes import RADIX_SETS
+from test_torch_kernel_axis1 import CASES, EMULATED_LONG, LONG
 from test_torch_kernel_axis1 import (
     test_fft_kernel_c2c_axis1_matches_reference as check)
+from test_torch_kernel_axis1 import (
+    test_emulated_c2c_axis1_is_the_plain_version_bit_for_bit as emulated)
 
 
 @pytest.mark.parametrize("inverse", (False, True))
@@ -13,3 +16,12 @@ from test_torch_kernel_axis1 import (
 def test_fft_kernel_c2c_axis1_matches_reference_long(
         n, radices, with_twiddle, inverse):
     check(n, radices, with_twiddle, inverse)
+
+
+@pytest.mark.parametrize("inverse", (False, True))
+@pytest.mark.parametrize("with_twiddle", (False, True))
+@pytest.mark.parametrize("radices", RADIX_SETS)
+@pytest.mark.parametrize("n", EMULATED_LONG)
+def test_emulated_c2c_axis1_is_the_plain_version_bit_for_bit_long(
+        n, radices, with_twiddle, inverse):
+    emulated(n, radices, with_twiddle, inverse)

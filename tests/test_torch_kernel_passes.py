@@ -11,6 +11,7 @@ for bit (``torch.equal``), so an index error shows here, before a run on
 the card.  The transposed store of ``fft_r2c_t`` through a thread-block
 cluster is emulated as index maps: every output element written once.
 """
+import contextlib
 import itertools
 import re
 
@@ -414,33 +415,68 @@ def _row_loop(threads, width, count):
     return np.concatenate(seen) if seen else np.zeros((0, 2), int)
 
 
-def _store_loop(threads, width, lo, hi, per_block):
-    """The (cluster row, bin) pairs of the R2C_T store loop of one block:
-    t = tid % width, k = lo + tid / width, stepping by the block's
-    threads with the (dt, dk) carry, while k < hi; the carried (owner,
-    row) of t must stay t = owner * per_block + row, row < per_block."""
-    tid = np.arange(threads)
-    t, k = tid % width, lo + tid // width
-    owner, row = t // per_block, t % per_block
-    dt, dk = threads % width, threads // width
+def _walk(k, t, threads, lines, per_block):
+    """TileWalk (csrc/stockham_regs.cuh): each thread's (k, t, owner,
+    line), step after step, the block's threads added to e = k * lines +
+    t at each step and t's (owner block, line) carried, not divided; the
+    carried pair must stay t = owner * per_block + line, line < per_block,
+    owner < g."""
+    k, t = np.asarray(k), np.asarray(t)
+    owner, line = t // per_block, t % per_block
+    dk, dt = threads // lines, threads % lines
     dq, dr = dt // per_block, dt % per_block
-    g = width // per_block
-    seen = []
-    while (k < hi).any():
-        live = k < hi
-        assert (owner * per_block + row == t).all()
-        assert ((0 <= row) & (row < per_block) & (0 <= owner)
+    g = lines // per_block
+    while True:
+        assert (owner * per_block + line == t).all()
+        assert ((0 <= line) & (line < per_block) & (0 <= owner)
                 & (owner < g)).all()
-        seen.append(np.stack([t[live], k[live]], axis=1))
-        t, k, owner, row = t + dt, k + dk, owner + dq, row + dr
-        carry = row >= per_block
-        row[carry] -= per_block
+        yield k, t, owner, line
+        t, k, owner, line = t + dt, k + dk, owner + dq, line + dr
+        carry = line >= per_block
+        line[carry] -= per_block
         owner[carry] += 1
-        wrap = t >= width
-        t[wrap] -= width
+        wrap = t >= lines
+        t[wrap] -= lines
         owner[wrap] -= g
         k[wrap] += 1
-    return np.concatenate(seen) if seen else np.zeros((0, 2), int)
+
+
+def _store_map(threads, lines, per_block, bins):
+    """cluster_store's (line t, point k, owner block, its line) of every
+    block of a cluster of lines // per_block blocks: block j takes points
+    [j * share, ...) of every line, t = tid % lines, k = j * share + tid /
+    lines, stepping by the block's threads while k is in its share."""
+    g = lines // per_block
+    share = -(-bins // g)
+    tid = np.arange(threads)
+    seen = []
+    for j in range(g):
+        hi = min(bins, (j + 1) * share)
+        for k, t, owner, line in _walk(j * share + tid // lines,
+                                       tid % lines, threads, lines,
+                                       per_block):
+            live = k < hi
+            if not live.any():
+                break
+            seen.append(np.stack([t[live], k[live], owner[live],
+                                  line[live]], axis=1))
+    return np.concatenate(seen) if seen else np.zeros((0, 4), int)
+
+
+def _load_map(threads, lines, per_block, n, points):
+    """cluster_load's (row k, line t, owner block, its line) of every
+    block of a cluster: block j reads the tile's points e = j * per_block
+    * n + p * threads + tid, p < points, in row-major order (e = k *
+    lines + t)."""
+    g = lines // per_block
+    tid = np.arange(threads)
+    seen = []
+    for j in range(g):
+        e0 = j * per_block * n + tid
+        steps = _walk(e0 // lines, e0 % lines, threads, lines, per_block)
+        for _ in range(points):
+            seen.append(np.stack(next(steps), axis=1))
+    return np.concatenate(seen)
 
 
 def _once(pairs, shape):
@@ -477,40 +513,41 @@ def test_real_kernels_row_loops_visit_each_bin_once(c):
     assert K.split_slots(m) >= m + 1
 
 
-def _r2c_t_store_once(b, rows, m, per_block, g, threads):
-    """Whether fft_r2c_t_regs_kernel's grid and store write every (batch,
-    bin, row) of the (b, m + 1, rows) output exactly once, reading each
-    bin from a computed (unmasked) row of its owner block."""
-    m1 = m + 1
-    rows_c = g * per_block
-    tiles = -(-rows // rows_c)
+def _cluster_store_once(b, rows, bins, per_block, g, threads):
+    """Whether the grid and cluster store of a clustered kernel write
+    every (batch, point, line) of the (b, bins, rows) output exactly once,
+    reading each point from a computed (unmasked) line of its owner block:
+    fft_r2c_t (bins = m + 1, lines = rows), fft_c2c_t (bins = n, lines =
+    rows), fft_c2c_axis1 (bins = n, lines = columns)."""
+    lines = g * per_block
+    tiles = -(-rows // lines)
     bid = np.arange(b * tiles * g)
     cid, rank = bid // g, bid % g                    # 1-D clusters of g
     batch = cid // tiles
     tile = cid - batch * tiles
-    # Every (batch entry, row tile, rank) is one block.
+    # Every (batch entry, line tile, rank) is one block.
     blocks_once = _once(np.stack([batch * tiles + tile, rank], axis=1),
                         (b * tiles, g))
-    # Block `rank` stores bins [rank * share, ...) of the cluster's rows:
-    # together every (cluster row, bin) once.
-    share = -(-m1 // g)
-    pairs = np.concatenate([
-        _store_loop(threads, rows_c, j * share, min(m1, (j + 1) * share),
-                    per_block)
-        for j in range(g)])
-    pairs_once = _once(pairs, (rows_c, m1))
-    # Cluster row t of tile i is row i * rows_c + t (written if < rows),
-    # held by the block of rank t // per_block (first row r0) as its row
+    # Block `rank` stores points [rank * share, ...) of the cluster's
+    # lines: together every (cluster line, point) once, each from the
+    # buffer of the line's own block.
+    pairs = _store_map(threads, lines, per_block, bins)
+    pairs_once = (_once(pairs[:, :2], (lines, bins))
+                  and (pairs[:, 2] * per_block + pairs[:, 3]
+                       == pairs[:, 0]).all())
+    # Cluster line t of tile i is line i * lines + t (written if < rows),
+    # held by the block of rank t // per_block (first line r0) as its line
     # t % per_block, which it computed if that is below its count.
-    t = np.arange(rows_c)
+    t = np.arange(lines)
     owner = t // per_block
-    row = np.arange(tiles)[:, None] * rows_c + t
+    row = np.arange(tiles)[:, None] * lines + t
     live = row < rows
-    r0 = np.arange(tiles)[:, None] * rows_c + owner * per_block
+    r0 = np.arange(tiles)[:, None] * lines + owner * per_block
     computed = t - owner * per_block < np.clip(rows - r0, 0, per_block)
     rows_once = np.array_equal(np.sort(row[live]), np.arange(rows))
     return (blocks_once and pairs_once and rows_once
-            and np.array_equal(computed, live))
+            and np.array_equal(computed, live)
+            and K.clustered_blocks(b, rows, per_block, g) == b * tiles * g)
 
 
 @pytest.mark.parametrize("rows", (1, 7, 13, 4097))
@@ -532,8 +569,8 @@ def test_r2c_t_cluster_store_writes_every_bin_once(c, rows):
             sizes.add((launch.per_block, g))
     for per_block, g in sorted(sizes):
         threads = per_block * (m // K.pass_points(m))
-        assert _r2c_t_store_once(2, rows, m, per_block, g, threads)
-        assert K.r2c_t_blocks(2, rows, per_block, g) \
+        assert _cluster_store_once(2, rows, m + 1, per_block, g, threads)
+        assert K.clustered_blocks(2, rows, per_block, g) \
             == 2 * -(-rows // (per_block * g)) * g
 
 
@@ -551,7 +588,217 @@ def test_r2c_t_cluster_sizes():
     assert K.r2c_t_cluster(4, 4096, cluster_rows=8) == 2
     assert K.r2c_t_cluster(rows, 4096) == 1 == K.r2c_t_cluster(8, 4096)
     assert K.r2c_t_cluster(1, 4096, cluster_rows=64) == K.MAX_CLUSTER
-    assert K.r2c_t_blocks(16, 4096, 1, 8) == 16 * 4096
-    assert K.r2c_t_blocks(16, 4097, 1, 8) == 16 * 513 * 8
+    assert K.clustered_blocks(16, 4096, 1, 8) == 16 * 4096
+    assert K.clustered_blocks(16, 4097, 1, 8) == 16 * 513 * 8
     with pytest.raises(ValueError, match=">= 1"):
         K.r2c_t_cluster(1, 10, cluster_rows=0)
+
+
+# ---------------------------------------------------------------------------
+# fft_c2c_t and fft_c2c_axis1 (csrc/fft_c2c.cu): the register passes, the
+# epilogue, the cluster load of axis1 and the cluster store of both
+# ---------------------------------------------------------------------------
+
+def _finish(zr, zi, n, inverse, wr=None, wi=None):
+    """store_finished: the last pass's planes scaled by 1/n (the inverse),
+    then times the four-step twiddle row (wr, wi), in stockham()'s
+    order."""
+    if inverse:
+        zr, zi = zr * (1.0 / n), zi * (1.0 / n)
+    if wr is None:
+        return zr, zi
+    return _cmul(zr, zi, wr, wi)
+
+
+def _geometry(n, count, tile_b=None, cluster_lines=None):
+    """(per_block, G, threads, lines, tiles) of an fft_c2c_t or
+    fft_c2c_axis1 launch of ``count`` lines of ``n`` points a batch
+    entry, as the wrappers plan it."""
+    launch = K.pass_launch(n, count, override=tile_b, buffer=True)
+    pb = launch.per_block
+    g = (K.c2c_cluster(pb, count) if cluster_lines is None
+         else K.c2c_cluster(pb, count, cluster_lines))
+    return pb, g, launch.threads, pb * g, -(-count // (pb * g))
+
+
+def strided_geometries(n, count):
+    """(tile_b, cluster lines) of the emulations: the planner's geometry,
+    and one-line blocks in clusters of 8 where that differs from it."""
+    planned = _geometry(n, count)[:2]
+    return [(None, None)] + ([(1, 8)] if _geometry(n, count, 1, 8)[:2]
+                             != planned else [])
+
+
+def _store_grid(z, count, n, pb, g, threads):
+    """The cluster store of every tile: z (B, tiles * lines, n) holds each
+    cluster line's finished points; returns the (B, n, count) output and
+    checks that each element is written once, from a computed line."""
+    lines = pb * g
+    tiles = -(-count // lines)
+    out = torch.full((z.shape[0], n, count), float("nan"))
+    hits = np.zeros((n, count), np.int64)
+    smap = _store_map(threads, lines, pb, n)
+    for tile in range(tiles):
+        t, k, owner, line = smap[smap[:, 0] < count - tile * lines].T
+        src = tile * lines + owner * pb + line
+        assert (src < count).all()                   # a computed line
+        out[:, k, tile * lines + t] = z[:, src, k]
+        np.add.at(hits, (k, tile * lines + t), 1)
+    assert (hits == 1).all()
+    return out
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one thread: the emulations run thousands of small ops,
+    which lose time to thread start-up when the test workers already
+    share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def emulate_c2c_t(x, twiddle, inverse, radices, tile_b=None,
+                  cluster_lines=None):
+    """fft_c2c_t_regs_kernel's grid on (B, R, n) ``x``: each live row's
+    points straight into the passes, store_finished (1/n, the (R, n)
+    twiddle) in natural order, the cluster store transposed.  Rows past R
+    are neither loaded nor stored."""
+    b, rows, n = x.shape
+    pb, g, threads, lines, tiles = _geometry(n, rows, tile_b, cluster_lines)
+    re = x.real.reshape(b * rows, n).contiguous()
+    im = x.imag.reshape(b * rows, n).contiguous()
+    zr, zi = _emulate(_planes_read(re, im), b * rows, n, radices, inverse)
+    tw = (None, None) if twiddle is None else (
+        twiddle.real.repeat(b, 1), twiddle.imag.repeat(b, 1))
+    zr, zi = _finish(zr, zi, n, inverse, *tw)
+    pad = tiles * lines - rows                       # masked rows
+    zr = torch.nn.functional.pad(zr.reshape(b, rows, n), (0, 0, 0, pad))
+    zi = torch.nn.functional.pad(zi.reshape(b, rows, n), (0, 0, 0, pad))
+    return torch.complex(_store_grid(zr, rows, n, pb, g, threads),
+                         _store_grid(zi, rows, n, pb, g, threads))
+
+
+def emulate_c2c_axis1(x, twiddle, inverse, radices, tile_b=None,
+                      cluster_lines=None):
+    """fft_c2c_axis1_regs_kernel's grid on (B, n, C) ``x``: the cluster
+    load of each tile of columns into its owners' padded buffers (each
+    slot filled once, masked columns zero), the first pass gathered from
+    the buffer, the passes, store_finished (1/n, the (C, n) twiddle of
+    live columns) and the cluster store."""
+    b, n, cols = x.shape
+    pb, g, threads, lines, tiles = _geometry(n, cols, tile_b, cluster_lines)
+    stride = K.line_slots(n, pb)
+    lmap = _load_map(threads, lines, pb, n, K.pass_points(n))
+    k, t, owner, line = lmap.T
+    slot = (owner * pb + line) * stride + k + k // 16
+    assert np.array_equal(np.sort(slot), np.sort(
+        (np.arange(lines)[:, None] * stride
+         + np.arange(n) + np.arange(n) // 16).ravel()))
+    planes = []
+    for part in (x.real, x.imag):
+        buf = torch.full((b, tiles, lines * stride), float("nan"))
+        for tile in range(tiles):
+            live = t < cols - tile * lines
+            col = np.minimum(tile * lines + t, cols - 1)
+            buf[:, tile, slot] = torch.where(
+                torch.from_numpy(live), part[:, k, col], torch.zeros(()))
+        planes.append(buf.reshape(b * tiles * lines, stride))
+    bufr, bufi = planes
+    zr, zi = _emulate(lambda at: (bufr[:, at + (at >> 4)],
+                                  bufi[:, at + (at >> 4)]),
+                      b * tiles * lines, n, radices, inverse)
+    zr, zi = _finish(zr, zi, n, inverse)
+    if twiddle is not None:
+        col = torch.arange(tiles * lines).repeat(b)
+        live = (col < cols)[:, None]
+        row = col.clamp(max=cols - 1)
+        wr, wi = _cmul(zr, zi, twiddle.real[row], twiddle.imag[row])
+        zr, zi = torch.where(live, wr, zr), torch.where(live, wi, zi)
+    zr = zr.reshape(b, tiles * lines, n)
+    zi = zi.reshape(b, tiles * lines, n)
+    return torch.complex(_store_grid(zr, cols, n, pb, g, threads),
+                         _store_grid(zi, cols, n, pb, g, threads))
+
+
+def _cluster_load_once(count, n, per_block, g, threads):
+    """Whether axis1's cluster load fills every (line, point) slot of
+    the cluster's buffers exactly once, from point k of line t, every
+    point of the tile's rows read once and lines past ``count`` masked in
+    the last tile."""
+    lines = g * per_block
+    lmap = _load_map(threads, lines, per_block, n, K.pass_points(n))
+    k, t, owner, line = lmap.T
+    last = count - (-(-count // lines) - 1) * lines  # live lines, last tile
+    return (_once(np.stack([owner * per_block + line, k], axis=1),
+                  (lines, n))
+            and (owner * per_block + line == t).all()
+            and _once(lmap[t < last][:, [1, 0]], (last, n)))
+
+
+C2C_STRIDED_COUNTS = (37, 4097)
+
+
+@pytest.mark.parametrize("count", C2C_STRIDED_COUNTS)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_c2c_strided_cluster_maps_write_every_point_once(n, count):
+    """fft_c2c_t (count = R rows) and fft_c2c_axis1 (count = C columns):
+    for each geometry the planner gives (the default and one-line blocks,
+    clusters of one block's lines, 4 and 8 lines), the store writes every
+    (point, line) of the output once from a computed line, and axis1's
+    load fills every buffer slot once, masking the lines past count."""
+    sizes = set()
+    for tile_b in (None, 1):
+        pb = K.pass_launch(n, count, override=tile_b, buffer=True).per_block
+        for lines in (pb, 4, 8):
+            sizes.add(_geometry(n, count, tile_b, lines)[:3])
+    for pb, g, threads in sorted(sizes):
+        assert threads == pb * n // K.pass_points(n) <= K.PASS_THREADS
+        assert _cluster_store_once(2, count, n, pb, g, threads)
+        assert _cluster_load_once(count, n, pb, g, threads)
+
+
+def test_c2c_strided_geometry():
+    """Always one buffer a transform (the strided side goes through it,
+    even for a plan of one pass), of line_slots lines that put a
+    half-warp's reads in 16 banks; clusters of C2C_CLUSTER_LINES lines
+    (C2C_UNALIGNED_LINES where a line count fills no whole sectors), at
+    most MAX_CLUSTER blocks, none past the lines of a batch entry; the
+    tile_b override validated."""
+    for n in LENGTHS:
+        for count in (4096, 4097):
+            launch = K.pass_launch(n, count, buffer=True)
+            pb = launch.per_block
+            stride = K.line_slots(n, pb)
+            assert launch.shared_bytes == pb * stride * 8 <= MAX_SHARED_BYTES
+            assert stride >= K.padded(n)
+            lanes = min(pb, 16)
+            banks = {(t * stride + k) % 16 for t in range(lanes)
+                     for k in range(16 // lanes)}
+            assert pb == 1 or len(banks) == lanes * (16 // lanes)
+            assert launch.threads == min(K.PASS_THREADS,
+                                         count * n // launch.points)
+            lines = (K.C2C_CLUSTER_LINES if count == 4096
+                     else K.C2C_UNALIGNED_LINES)
+            assert K.c2c_cluster(pb, count) == max(1, lines // pb)
+    assert K.pass_launch(16, 7).shared_bytes == 0     # fft_c2c: one pass
+    assert K.pass_launch(16, 7, buffer=True).shared_bytes == 7 * 18 * 8
+    assert K.line_slots(1024, 4) == 1092 and K.line_slots(4096, 1) == 4352
+    assert K.line_slots(256, 16) == 273 and K.line_slots(8, 256) == 9
+    assert K.c2c_cluster(1, 4096) == K.C2C_CLUSTER_LINES
+    assert K.c2c_cluster(1, 4097) == K.C2C_UNALIGNED_LINES
+    assert K.c2c_cluster(1, 4096, 8) == 8 == K.MAX_CLUSTER
+    assert K.c2c_cluster(1, 3, 8) == 3 and K.c2c_cluster(4, 4096, 8) == 2
+    assert K.c2c_cluster(4, 4096, 1) == 1 == K.c2c_cluster(8, 4096)
+    assert K.clustered_blocks(16, 4096, 1, 4) == 16 * 4096
+    assert K.clustered_blocks(16, 4097, 1, 8) == 16 * 513 * 8
+    with pytest.raises(ValueError, match=">= 1"):
+        K.c2c_cluster(1, 10, 0)
+    with pytest.raises(ValueError, match="threads"):
+        K.pass_launch(8192, 10, override=2, buffer=True)
+    with pytest.raises(ValueError, match="cluster"):
+        K.fft_c2c_t(torch.zeros(1, 4, 8, dtype=torch.complex64),
+                    per_block=1, cluster=9)
