@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``dedisp``, ``harmonic_sum`` and ``spectrum``, one ``nvcc`` each, in
      parallel) and check that no instance of the register-pass kernels
      (``fft_c2c``, ``fft_c2c_t``, ``fft_c2c_axis1``, ``fft_r2c``,
-     ``fft_c2r``, ``fft_r2c_t``) spills registers;
+     ``fft_c2r``, ``fft_r2c_t``) or of the staged ``dedisperse`` and
+     ``harmonic_sum_plane`` kernels spills registers or keeps a stack
+     frame (each staged instance's registers, stack and spills printed);
   2. print the card's name and power limit (``nvidia-smi``);
   3. hold each kernel (the C2C variants: fft_c2c, fft_c2c_t with and
      without twiddle, fft_c2c_axis1 with and without twiddle, forward and
@@ -34,7 +36,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      Python wrapper, the kernel function, the ctypes call, the C entry)
      beside torch.fft's; fft_r2c_t at the rfft2 pass (16, 4096, 8192),
      fft_c2c_t and fft_c2c_axis1 at (16, 4096, 4096) and (238, 1024, 1024)
-     with 1, 4 and 8 rows or columns a cluster;
+     with 1, 4 and 8 rows or columns a cluster; dedisperse and
+     harmonic_sum_plane bit-identical to their plain versions at their
+     tile edges (random tables with delays up to N - 1, tables mixing
+     staged and wide channels, the pulsar plan's table; H in {1, 2, 8, 32,
+     64}), then a sweep of their tiles at the pulsar search's shapes
+     (samples and trials a block and channels a stage; bins a block and
+     the stage buffer), each with the blocks one SM holds;
   4. drive the main path — ``plan_for_length(n)(x)`` on a 2 GB batch
      (``FFTCase(n).n_fft`` transforms) for n = 1024, 8192, 2**20 and
      19321 = 139**2, then ``plan_for_length(n, "r2c")`` and ``"c2r"`` on
@@ -120,9 +128,12 @@ from repro_torch.search import (DispersionPlan, TemplateBank,  # noqa: E402
 from repro_torch.serving import KIND_FDAS, KIND_PULSAR, FFTService  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
-#: FLOP/s outside the tensor cores.
+#: FLOP/s outside the tensor cores (an FMA counts two).  A plain float32
+#: add, multiply or compare is one operation a lane a clock: 132 SMs x 128
+#: lanes x 1.98 GHz (Hopper has no packed float32 add).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP32_ADDS = 33.5e12
 
 #: Clock cycles of the spin kernel that opens each profile (about 50 ms at
 #: the H100's 1.98 GHz boost clock).
@@ -191,6 +202,20 @@ LEDGER_TO_KERNEL = {"fft-c2c": "fft_c2c", "fft-c2c-t": "fft_c2c_t",
 KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
            "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
            "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
+#: The staged kernels of the pulsar search and their compiled instances:
+#: dedisperse_kernel<samples, trials> and harmonic_sum_plane_kernel<bins a
+#: thread>.
+STAGED_KERNELS = {"dedisp": ("dedisperse_kernel", len(D.INSTANCES)),
+                  "harmonic_sum": ("harmonic_sum_plane_kernel",
+                                   len(H.PLANE_BINS))}
+#: Their tile sweeps at the pulsar search's shapes: dedisperse (samples a
+#: thread, trials a warp, channels a stage), harmonic_sum_plane (bins a
+#: block, stage buffer values; H = 8, so a buffer below 8 K values takes
+#: the decimations in several stages).
+DEDISP_SWEEP = tuple(D.Tile(s, t, c) for s, t in D.INSTANCES
+                     for c in (8, 16, 32))
+PLANE_SWEEP = tuple(H.PlaneTile(k, buf) for k in H.PLANE_BINS
+                    for buf in (2048, 4096, 8192, 16384) if buf >= k)
 #: The register-pass kernels (csrc/stockham_regs.cuh) and their symbols.
 PASS_KERNELS = {"fft_c2c": "fft_c2c_regs_kernel",
                 "fft_c2c_t": "fft_c2c_t_regs_kernel",
@@ -358,10 +383,13 @@ def randn(gen: torch.Generator, *shape: int) -> torch.Tensor:
                        generator=gen)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time [ms] the card could take, and what bounds it."""
+def bound(nbytes: float, flops: float, adds: float = 0.0
+          ) -> tuple[float, str]:
+    """Least time [ms] the card could take, and what bounds it: ``flops``
+    at the FMA rate (FP32_FLOPS), ``adds`` (plain float32 adds, multiplies
+    and compares) at FP32_ADDS."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = (flops / FP32_FLOPS + adds / FP32_ADDS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -421,21 +449,52 @@ def phase1_build() -> None:
               f"the ptxas logs, not {len(K.PASS_SHAPES)}")
         print(f"  {kernel}: {found} instances (points, family) "
               f"{sorted(K.PASS_SHAPES)}, none spills")
+    for stem, (sym, count) in STAGED_KERNELS.items():
+        log = libs[stem].with_suffix(".so.log")
+        staged = _pass_kernel_spills(log, (sym,))
+        regs, stack = _registers(log)
+        for name, spilled in sorted(staged.items()):
+            print(f"  {name}: {regs.get(name)} registers, {stack.get(name)} "
+                  f"bytes stack frame, {spilled} bytes spill stores")
+        check(len(staged) == count, f"{len(staged)} instances of {sym} in "
+              f"the ptxas log, not {count}")
+        check(not any(staged.values()), f"{sym} spills: "
+              f"{ {k: v for k, v in staged.items() if v} }")
+        check(not any(stack.get(name) for name in staged), f"{sym} keeps a "
+              f"stack frame (local memory): {stack}")
 
 
-def _pass_kernel_spills(log) -> dict[str, int]:
-    """Spill-store bytes of each register-pass kernel instance in an
-    ``nvcc -Xptxas -v`` log, by mangled name."""
+def _pass_kernel_spills(log, symbols=PASS_KERNELS.values()
+                        ) -> dict[str, int]:
+    """Spill-store bytes of each instance of the kernels ``symbols`` (the
+    register-pass kernels by default) in an ``nvcc -Xptxas -v`` log, by
+    mangled name."""
     out: dict[str, int] = {}
     name = None
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif (name and "spill stores" in line
-              and any(sym in name for sym in PASS_KERNELS.values())):
+              and any(sym in name for sym in symbols)):
             out[name] = int(line.split("bytes spill stores")[0]
                             .split(",")[-1])
     return out
+
+
+def _registers(log) -> tuple[dict[str, int], dict[str, int]]:
+    """Registers and stack-frame bytes of each kernel in an ``nvcc -Xptxas
+    -v`` log, by mangled name."""
+    regs: dict[str, int] = {}
+    stack: dict[str, int] = {}
+    name = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "Used" in line and "registers" in line:
+            regs[name] = int(line.split("Used")[1].split("registers")[0])
+        elif name and "bytes stack frame" in line and name not in stack:
+            stack[name] = int(line.split("bytes stack frame")[0].split()[-1])
+    return regs, stack
 
 
 def phase2_card() -> str:
@@ -1028,9 +1087,32 @@ def _harmonic_adds(rows: int, n: int, n_harmonics: int) -> int:
     return rows * sum(-(-n // j) for j in range(2, n_harmonics + 1))
 
 
+def _tables(pulsar_table: np.ndarray):
+    """(batch, samples, (D, C) delay table) of dedisperse's tile-edge
+    checks: random tables with a delay of N - 1 in every channel of the
+    last trial (N and D one below, at and above the wrapper's tile of 128,
+    channels no multiple of a stage's), a table mixing staged and wide
+    channels, and the pulsar plan's table on a short and a ragged N."""
+    cases = []
+    for batch, nchan, n, ndm in ((1, 1, 1, 1), (3, 5, 1025, 9),
+                                 (2, 64, 4096, 17), (1, 1024, 2048, 8),
+                                 (2, 17, 127, 127), (1, 33, 129, 129),
+                                 (3, 16, 4099, 130)):
+        delays = np.random.default_rng(n).integers(0, n, size=(ndm, nchan))
+        delays[-1] = n - 1
+        cases.append((batch, n, delays))
+    rng = np.random.default_rng(1)
+    mixed = np.minimum(rng.integers(0, 5, size=(70, 37)).cumsum(axis=0)
+                       + rng.integers(0, 1400, size=37), 2998)
+    mixed[:, 1::2] = rng.integers(0, 2999, size=(70, 18))
+    cases.append((2, 2999, mixed))
+    cases += [(2, 1024, pulsar_table), (1, 2**15 + 77, pulsar_table)]
+    return cases
+
+
 def _pulsar_row(name: str, shape, fn, plain, compare, nbytes: float,
-                flops: float, composition=None, composition_call=None
-                ) -> dict:
+                flops: float, composition=None, composition_call=None,
+                adds: float = 0.0) -> dict:
     """Check ``fn`` against ``plain`` with ``compare`` (-> (max abs err,
     ok)), then time both and the nearest torch composition; print and
     return the row (no single PyTorch call computes these functions)."""
@@ -1049,49 +1131,68 @@ def _pulsar_row(name: str, shape, fn, plain, compare, nbytes: float,
         note = (f"none; the nearest torch composition, {composition_call}, "
                 f"{median_ms(composition, reps=5):.4f} ms")
         torch.cuda.empty_cache()
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, adds)
     print(f"  {name} {tuple(shape)}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
           f"GB/s), bound {bound_ms:.4f} ms ({bound_by}; {nbytes:.0f} bytes, "
-          f"{flops:.0f} operations), plain {plain_ms:.4f} ms, library "
-          f"[{note}], max abs err {abs_err:.3e}")
+          f"{flops:.0f} FMA-rate operations, {adds:.0f} adds), plain "
+          f"{plain_ms:.4f} ms, library [{note}], max abs err {abs_err:.3e}")
     return {"name": name, "shape": list(shape), "twiddle": False,
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _same(got, want):
+    """(max abs err, bit-identical) of a tensor or a tuple of tensors."""
+    got, want = ((got, want) if isinstance(got, tuple)
+                 else ((got,), (want,)))
+    diff = max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want))
+    return diff, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def phase3_pulsar_kernels(gen: torch.Generator,
                           results: dict[str, dict]) -> None:
-    """dedisperse, harmonic_sum_plane, harmonic_sum and
-    power_spectrum_stats against their plain versions at small, ragged
-    shapes (odd N, a delay of N - 1, H in {1, 2, 8, 32}, batches filling no
-    whole block), then timed at the shapes the pulsar search and the demo
-    give them; adds one row per kernel to ``results``."""
+    """dedisperse and harmonic_sum_plane bit-identical to their plain
+    versions at their tile edges (every dedisperse instance; the plane at
+    H in {1, 2, 8, 32, 64} and at every swept tile), harmonic_sum and
+    power_spectrum_stats within KERNEL_RTOL at small, ragged shapes; then
+    each timed at the shapes the pulsar search and the demo give it; adds
+    one row per kernel to ``results``."""
+    plan = DispersionPlan.from_spec(PULSAR_SPEC, n_trials=PULSAR_TRIALS)
     checked, worst = 0, 0.0
-    for batch, nchan, n, ndm in ((1, 1, 1, 1), (3, 5, 1025, 9),
-                                 (2, 64, 4096, 17), (1, 1024, 2048, 8)):
-        fb = torch.randn(batch, nchan, n, device="cuda", generator=gen)
-        delays = np.random.default_rng(n).integers(0, n, size=(ndm, nchan))
-        delays[-1] = n - 1
+    for batch, n, delays in _tables(plan.delay_array()):
+        fb = torch.randn(batch, delays.shape[1], n, device="cuda",
+                         generator=gen)
         table = torch.from_numpy(delays.astype(np.int32)).cuda()
-        _, rel = rel_err(dedisperse_kernel(fb, delays),
-                         D.dedisperse_plain(fb, table))
-        check(rel <= KERNEL_RTOL, f"dedisperse {fb.shape} x {ndm} trials: "
-              f"rel err {rel:.3e}")
-        worst, checked = max(worst, rel), checked + 1
-    for rows, n in ((3, 1025), (37, 4096), (5, 65537)):
+        want = D.dedisperse_plain(fb, table)
+        runs = [("wrapper", lambda: dedisperse_kernel(fb, delays))]
+        runs += [(t, lambda t=t: D.dedisperse(fb, table, tile=t))
+                 for t in (D.Tile(s, d) for s, d in D.INSTANCES)]
+        for label, fn in runs:
+            diff, same = _same(fn(), want)
+            check(same, f"dedisperse {tuple(fb.shape)} x {delays.shape[0]} "
+                  f"trials ({label}): differs from plain by {diff:.3e}")
+            checked += 1
+    for rows, n in ((3, 1025), (37, 4096), (5, 65537), (2, 2047),
+                    (2, 2049)):
         p = 3.0 * torch.rand(rows, n, device="cuda", generator=gen)
-        for h in (1, 2, 8, 32):
-            stat, lev = harmonic_sum_plane(p, h)
-            want_stat, want_lev = H.harmonic_sum_plane_plain(p, h)
-            ladder = harmonic_sum_kernel(p, h)
-            want_ladder = H.harmonic_sum_plain(p, h)
-            _, rel = rel_err(stat, want_stat)
-            _, rel2 = rel_err(ladder, want_ladder)
-            check(rel <= KERNEL_RTOL and rel2 <= KERNEL_RTOL
-                  and _same_rungs(lev, want_lev, want_ladder),
-                  f"harmonic sum ({rows}, {n}) H={h}: rel err {rel:.3e} "
-                  f"(ladder {rel2:.3e}) or rungs differ")
-            worst, checked = max(worst, rel, rel2), checked + 2
+        for h in (1, 2, 8, 32, 64):
+            diff, same = _same(harmonic_sum_plane(p, h),
+                               H.harmonic_sum_plane_plain(p, h))
+            check(same, f"harmonic_sum_plane ({rows}, {n}) H={h}: differs "
+                  f"from plain by {diff:.3e}")
+            _, rel = rel_err(harmonic_sum_kernel(p, h),
+                             H.harmonic_sum_plain(p, h))
+            check(rel <= KERNEL_RTOL, f"harmonic_sum ({rows}, {n}) H={h}: "
+                  f"rel err {rel:.3e}")
+            worst, checked = max(worst, rel), checked + 2
+        if n == 65537:
+            want = H.harmonic_sum_plane_plain(p, 8)
+            for tile in PLANE_SWEEP:
+                diff, same = _same(H.harmonic_sum_plane(p, 8, tile), want)
+                check(same, f"harmonic_sum_plane ({rows}, {n}) {tile}: "
+                      f"differs from plain by {diff:.3e}")
+                checked += 1
     for rows, n in ((1, 1), (7, 1025), (1000, 64), (3, 2**20)):
         x = randn(gen, rows, n)
         p, mean, std = power_spectrum_stats_kernel(x)
@@ -1102,48 +1203,39 @@ def phase3_pulsar_kernels(gen: torch.Generator,
               f"power_spectrum_stats ({rows}, {n}): rel errs {rels}")
         worst, checked = max(worst, *rels), checked + 1
     torch.cuda.synchronize()
-    print(f"phase 3: {checked} pulsar-kernel-vs-plain checks, max relative "
-          f"error {worst:.3e} (limit {KERNEL_RTOL}; harmonic rungs equal "
-          f"where the winner leads by more than 1e-5)")
+    print(f"phase 3: {checked} pulsar-kernel-vs-plain checks; dedisperse "
+          f"and harmonic_sum_plane bit-identical, the others' max relative "
+          f"error {worst:.3e} (limit {KERNEL_RTOL})")
 
-    # dedisperse at the pulsar phase's shape, with its plan's table.
+    # dedisperse at the pulsar phase's shape, with its plan's table: D C N
+    # adds a filterbank, less the terms past N (zero).
     spec = PULSAR_SPEC
-    plan = DispersionPlan.from_spec(spec, n_trials=PULSAR_TRIALS)
     b, c, n, d = 2, spec.nchan, spec.ntime, plan.n_trials
     fb = torch.randn(b, c, n, device="cuda", generator=gen)
     table = torch.from_numpy(plan.delay_array().astype(np.int32)).cuda()
     adds = b * int((n - plan.delay_array()).sum())
+    results["dedisperse"] = _pulsar_row(
+        "dedisperse", (b, c, n, d), lambda: dedisperse_kernel(fb, plan.delays),
+        lambda: D.dedisperse_plain(fb, table), _same, 4 * b * n * (c + d), 0,
+        adds=adds)
+    del fb
+    torch.cuda.empty_cache()
+    # harmonic_sum_plane at the pulsar phase's power plane: 2 x 128 x 85
+    # rows of 65537 bins.  Its adds, and per rung a subtract, a multiply and
+    # a compare, are plain float32 operations.
+    rows, n, h = 2 * d * (2 * FDAS_ZMAX + 1), n // 2 + 1, PULSAR_HARMONICS
+    p = torch.empty(rows, n, device="cuda").exponential_(generator=gen)
+    levels = H.levels(h)
+    results["harmonic_sum_plane"] = _pulsar_row(
+        "harmonic_sum_plane", (rows, n), lambda: harmonic_sum_plane(p, h),
+        lambda: H.harmonic_sum_plane_plain(p, h), _same, 12 * rows * n, 0,
+        adds=_harmonic_adds(rows, n, h) + rows * n * (1 + 3 * (levels - 1)))
+    del p
+    torch.cuda.empty_cache()
 
     def close(got, want):
         diff, rel = rel_err(got, want)
         return diff, rel <= KERNEL_RTOL
-    results["dedisperse"] = _pulsar_row(
-        "dedisperse", (b, c, n, d), lambda: dedisperse_kernel(fb, plan.delays),
-        lambda: D.dedisperse_plain(fb, table), close,
-        4 * b * n * (c + d), adds)
-    del fb
-    torch.cuda.empty_cache()
-    # harmonic_sum_plane at the pulsar phase's power plane: 2 x 128 x 85
-    # rows of 65537 bins.
-    rows, n, h = 2 * d * (2 * FDAS_ZMAX + 1), n // 2 + 1, PULSAR_HARMONICS
-    p = torch.empty(rows, n, device="cuda").exponential_(generator=gen)
-    levels = H.levels(h)
-
-    def plane_close(got, want):
-        diff, rel = rel_err(got[0], want[0])
-        # The rungs of the plain version's ladder, on a slice of rows
-        # (the whole ladder would need another 17 GB).
-        ladder = H.harmonic_sum_plain(p[:512], h)
-        same = _same_rungs(got[1][:512], want[1][:512], ladder)
-        differ = int((got[1] != want[1]).sum())
-        return diff, (rel <= KERNEL_RTOL and same
-                      and differ <= 1e-3 * got[1].numel())
-    results["harmonic_sum_plane"] = _pulsar_row(
-        "harmonic_sum_plane", (rows, n), lambda: harmonic_sum_plane(p, h),
-        lambda: H.harmonic_sum_plane_plain(p, h), plane_close, 12 * rows * n,
-        _harmonic_adds(rows, n, h) + rows * n * (1 + 3 * (levels - 1)))
-    del p
-    torch.cuda.empty_cache()
     # harmonic_sum and power_spectrum_stats at the demo's shape.
     b, n, h = DEMO_SHAPE.batch, DEMO_SHAPE.n, DEMO_SHAPE.n_harmonics
     p = torch.empty(b, n, device="cuda").exponential_(generator=gen)
@@ -1151,9 +1243,9 @@ def phase3_pulsar_kernels(gen: torch.Generator,
     results["harmonic_sum"] = _pulsar_row(
         "harmonic_sum", (b, n), lambda: harmonic_sum_kernel(p, h),
         lambda: H.harmonic_sum_plain(p, h), close,
-        4 * b * n * (1 + levels), _harmonic_adds(b, n, h),
-        lambda: harmonic_sum_ref(p, h), "the gather ladder of "
-        "harmonic_sum_ref")
+        4 * b * n * (1 + levels), 0, lambda: harmonic_sum_ref(p, h),
+        "the gather ladder of harmonic_sum_ref",
+        adds=_harmonic_adds(b, n, h))
     del p
     x = randn(gen, b, n)
 
@@ -1174,6 +1266,57 @@ def phase3_pulsar_kernels(gen: torch.Generator,
         "p = x.real**2 + x.imag**2; p /= n; torch.var_mean(p, -1, "
         "correction=0)")
     del x
+    torch.cuda.empty_cache()
+
+
+def phase3_pulsar_tiles(gen: torch.Generator) -> None:
+    """The staged kernels' tiles at the pulsar search's shapes: dedisperse
+    over DEDISP_SWEEP on 2 filterbanks of 1024 x 2**17 with the plan's
+    table, harmonic_sum_plane over PLANE_SWEEP on its (21760, 65537) plane
+    at H = 8; each tile checked bit-identical to the wrapper's and timed
+    (median of 5), with the blocks one SM holds."""
+    plan = DispersionPlan.from_spec(PULSAR_SPEC, n_trials=PULSAR_TRIALS)
+    b, c, n = 2, PULSAR_SPEC.nchan, PULSAR_SPEC.ntime
+    fb = torch.randn(b, c, n, device="cuda", generator=gen)
+    table = torch.from_numpy(plan.delay_array().astype(np.int32)).cuda()
+    want = D.dedisperse(fb, table)
+    times, best = [], None
+    for tile in DEDISP_SWEEP:
+        staged = D.staged_table(table, tile)
+        fn = lambda: D.dedisperse(fb, table, staged, tile)  # noqa: E731
+        check(torch.equal(fn(), want), f"dedisperse {tile} differs from "
+              f"the wrapper's tile {D.TILE}")
+        ms = median_ms(fn, reps=5)
+        times.append(f"({tile.samples_per_block} samples, "
+                     f"{tile.trials_per_block} trials, {tile.chunk} "
+                     f"channels) {ms:.4f} ms "
+                     f"[{D.blocks_per_sm(tile, staged.span_cap)} an SM]")
+        if best is None or ms < best[1]:
+            best = (tile, ms)
+    print(f"  dedisperse {(b, c, n, plan.n_trials)} tiles: "
+          + "; ".join(times) + f"; fastest {best[0]} (the wrapper's "
+          f"{D.TILE})")
+    del fb, want
+    torch.cuda.empty_cache()
+    rows, n = 2 * plan.n_trials * (2 * FDAS_ZMAX + 1), n // 2 + 1
+    p = torch.empty(rows, n, device="cuda").exponential_(generator=gen)
+    h = PULSAR_HARMONICS
+    want = H.harmonic_sum_plane(p, h)
+    times, best = [], None
+    for tile in PLANE_SWEEP:
+        fn = lambda: H.harmonic_sum_plane(p, h, tile)  # noqa: E731
+        check(_same(fn(), want)[1], f"harmonic_sum_plane {tile} differs "
+              f"from the wrapper's tile {H.plane_tile(h)}")
+        ms = median_ms(fn, reps=5)
+        times.append(f"({tile.bins} bins, buffer {tile.buffer}) "
+                     f"{ms:.4f} ms [{H.plane_blocks_per_sm(tile, h)} an "
+                     f"SM]")
+        if best is None or ms < best[1]:
+            best = (tile, ms)
+    print(f"  harmonic_sum_plane {(rows, n)} H={h} tiles: "
+          + "; ".join(times) + f"; fastest {best[0]} (the wrapper's "
+          f"{H.plane_tile(h)})")
+    del p, want
     torch.cuda.empty_cache()
 
 
@@ -2154,6 +2297,7 @@ def main() -> int:
     phase3_real_kernels(gen, measured)
     phase3_nd_kernels(gen, measured)
     phase3_pulsar_kernels(gen, measured)
+    phase3_pulsar_tiles(gen)
     phase3_rows_per_block(gen)
     phase3_host_gap(gen)
     launches = phase4_main_path(gen)

@@ -11,22 +11,83 @@ summed over channels in index order.  A CPU tensor runs
 ``repro_torch/csrc/dedisp.cu`` (its header says which TPU kernel it
 replaces, what bounds it and what its design does about that) and raises
 if the launch fails.  ``LAUNCHES`` counts kernel launches only.
+
+A block of the kernel takes a :class:`Tile` of samples and DM trials and
+stages, channel by channel, the filterbank window its trials read in
+shared memory.  :func:`staged_table` prepares what it reads beside the
+filterbank: per trial group and channel the smallest and largest delay
+and each trial's shift from the smallest (the CPU tests emulate the
+kernel from it).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.common import load_library
+from repro_torch.kernels.common import MAX_SHARED_BYTES, load_library
 
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"dedisperse": 0}
 
-#: DM trials per thread block (one warp each) and samples per block.
-TRIALS_PER_BLOCK = 8
-SAMPLES_PER_BLOCK = 128
+#: Warps of a block, and the compiled (samples a thread, trials a warp)
+#: instances.
+WARPS = 8
+INSTANCES = ((4, 8), (4, 16), (8, 8))
+#: The widest span of delays in one channel of a trial group that is
+#: staged in shared memory (less where a tile's two buffers would not fit
+#: a block, :attr:`Tile.span_max`); a wider channel is read from global
+#: memory.
+SPAN_MAX = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """A block's tile: ``samples`` a thread (t, t + 32, ...), DM
+    ``trials`` a warp, and the channels staged a step (``chunk``)."""
+    samples: int = 4
+    trials: int = 8
+    chunk: int = 32
+
+    @property
+    def samples_per_block(self) -> int:
+        return 32 * self.samples
+
+    @property
+    def trials_per_block(self) -> int:
+        return WARPS * self.trials
+
+    def width(self, span_cap: int) -> int:
+        """Values of one channel's staged window."""
+        return self.samples_per_block + span_cap
+
+    def stage_bytes(self, span_cap: int) -> int:
+        """Bytes of one stage buffer: the chunk's shifts, (lo, hi) pairs
+        and windows, rounded up to 16 (``csrc/dedisp.cu``'s)."""
+        raw = self.chunk * (4 * self.trials_per_block + 8
+                            + 4 * self.width(span_cap))
+        return (raw + 15) & ~15
+
+    def shared_bytes(self, span_cap: int) -> int:
+        return 2 * self.stage_bytes(span_cap)
+
+    @property
+    def span_max(self) -> int:
+        """The widest span this tile stages: SPAN_MAX, or less where two
+        buffers of wider windows would not fit a block."""
+        budget = MAX_SHARED_BYTES // 2 // 16 * 16 // self.chunk
+        fits = (budget - 4 * self.trials_per_block - 8) // 4 \
+            - self.samples_per_block
+        return min(SPAN_MAX, fits)
+
+
+#: The wrapper's tile, the fastest of the chip check's sweep at the pulsar
+#: search's shape: 128 samples and 64 trials a block, 32 channels a step
+#: (two buffers of 56.5 KB for the pulsar plan's spans, two blocks an SM).
+TILE = Tile()
 
 
 def reset_launches() -> None:
@@ -34,10 +95,39 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def blocks(batch: int, ndm: int, n: int) -> int:
+def blocks(batch: int, ndm: int, n: int, tile: Tile = TILE) -> int:
     """Thread blocks of one launch."""
-    return (batch * -(-ndm // TRIALS_PER_BLOCK)
-            * -(-n // SAMPLES_PER_BLOCK))
+    return (batch * -(-ndm // tile.trials_per_block)
+            * -(-n // tile.samples_per_block))
+
+
+class StagedTable(NamedTuple):
+    """What the kernel reads beside the filterbank, for one tile's trial
+    groups of DB trials: G = ceil(D / DB) groups, the last padded with
+    copies of the last trial."""
+    shifts: torch.Tensor   # (G, C, DB) int32: delay - lo of the channel
+    lohi: torch.Tensor     # (G, C, 2) int32: smallest, largest delay
+    span_cap: int          # the widest staged span (<= the tile's span_max)
+
+
+def staged_table(delays: torch.Tensor, tile: Tile = TILE) -> StagedTable:
+    """The (D, C) int32 table's :class:`StagedTable` for ``tile``, on the
+    table's device."""
+    ndm, nchan = delays.shape
+    per = tile.trials_per_block
+    groups = -(-ndm // per)
+    pad = groups * per - ndm
+    full = torch.cat([delays, delays[-1:].expand(pad, nchan)]) if pad \
+        else delays
+    full = full.reshape(groups, per, nchan)
+    lo, hi = full.amin(dim=1), full.amax(dim=1)
+    shifts = (full - lo[:, None, :]).transpose(1, 2).contiguous()
+    spans = hi - lo
+    narrow = spans[spans <= tile.span_max]
+    span_cap = int(narrow.max()) if narrow.numel() else 0
+    return StagedTable(shifts.to(torch.int32),
+                       torch.stack([lo, hi], dim=-1).to(torch.int32)
+                       .contiguous(), span_cap)
 
 
 def dedisperse_plain(fb: torch.Tensor, delays: torch.Tensor) -> torch.Tensor:
@@ -60,16 +150,29 @@ def _library() -> ctypes.CDLL:
     lib = load_library("dedisp")
     lib.repro_dedisp_error_string.argtypes = [ctypes.c_int]
     lib.repro_dedisp_error_string.restype = ctypes.c_char_p
+    _P, _I = ctypes.c_void_p, ctypes.c_int
     lib.repro_dedisperse.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.repro_dedisperse.restype = ctypes.c_int
+    lib.repro_dedisperse_blocks_per_sm.argtypes = [_I, _I, _I, _I]
+    lib.repro_dedisperse_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
-def dedisperse(fb: torch.Tensor, delays: torch.Tensor) -> torch.Tensor:
+def blocks_per_sm(tile: Tile, span_cap: int) -> int:
+    """Blocks of ``tile`` that one SM of the current card holds."""
+    return _library().repro_dedisperse_blocks_per_sm(
+        tile.samples, tile.trials, tile.chunk, span_cap)
+
+
+def dedisperse(fb: torch.Tensor, delays: torch.Tensor,
+               staged: StagedTable | None = None,
+               tile: Tile = TILE) -> torch.Tensor:
     """(B, C, N) float32 + (D, C) int32 delays in [0, N) on the same device
-    -> (B, D, N) float32.  The caller validates the delays' range."""
+    -> (B, D, N) float32.  The caller validates the delays' range.
+    ``staged`` is :func:`staged_table` of ``delays`` for ``tile`` (made
+    here when not given); ``tile`` overrides :data:`TILE` (the chip
+    check's sweep)."""
     if fb.dtype != torch.float32 or fb.ndim != 3 or not fb.is_contiguous():
         raise ValueError(f"dedisperse takes a contiguous 3-D float32 "
                          f"tensor, got {tuple(fb.shape)} {fb.dtype}")
@@ -89,11 +192,15 @@ def dedisperse(fb: torch.Tensor, delays: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, ndm, n), dtype=torch.float32, device=fb.device)
     if fb.numel() == 0:
         return out
+    if staged is None:
+        staged = staged_table(delays, tile)
     lib = _library()
     with torch.cuda.device(fb.device):
         stream = torch.cuda.current_stream(fb.device).cuda_stream
-        err = lib.repro_dedisperse(fb.data_ptr(), delays.data_ptr(),
-                                   out.data_ptr(), b, nchan, n, ndm, stream)
+        err = lib.repro_dedisperse(
+            fb.data_ptr(), staged.shifts.data_ptr(), staged.lohi.data_ptr(),
+            out.data_ptr(), b, nchan, n, ndm, tile.samples, tile.trials,
+            tile.chunk, staged.span_cap, stream)
     if err:
         msg = lib.repro_dedisp_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel dedisperse failed to launch: {msg}")

@@ -15,10 +15,19 @@ they replace, what bounds them and what their design does about that) and
 raises if the launch fails.  The plain versions add the rungs in the
 kernels' (and the reference's) order, decimation by decimation.
 ``LAUNCHES`` counts kernel launches only.
+
+The plane's kernel gives a block a tile of K bins [k0, k0 + K) and
+stages the values they read, P[j k] for each decimation j, in shared
+memory with asynchronous copies, all at once, before it adds them.
+:class:`PlaneTile` holds K and the stage buffer's capacity;
+:func:`plane_tile` chooses them for H, and :func:`stages` splits a tile's
+decimations into the buffer's stages as the kernel does (the CPU tests
+emulate the kernel from it).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -30,8 +39,15 @@ from repro_torch.kernels.common import load_library
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"harmonic_sum_plane": 0, "harmonic_sum": 0}
 
-#: Bins per thread block (one thread a bin).
+#: Bins per thread block of the ladder (one thread a bin).
 BINS_PER_BLOCK = 256
+#: Threads of a plane block, and the bins a block may take (the compiled
+#: instances: 1, 2, 4 or 8 bins a thread).
+PLANE_THREADS = 256
+PLANE_BINS = (256, 512, 1024, 2048)
+#: Values the plane's stage buffer holds by default (64 KB: three blocks
+#: an SM).
+PLANE_BUFFER = 16384
 
 
 def reset_launches() -> None:
@@ -45,7 +61,52 @@ def levels(n_harmonics: int) -> int:
 
 
 def blocks(batch: int, n: int) -> int:
+    """Thread blocks of one ladder launch."""
     return batch * -(-n // BINS_PER_BLOCK)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneTile:
+    """A plane launch's tile: ``bins`` a block (K) and the values its
+    stage buffer holds (``buffer``)."""
+    bins: int
+    buffer: int
+
+    def per_stage(self, n_harmonics: int) -> int:
+        """Decimations the buffer takes at once."""
+        return min(n_harmonics, self.buffer // self.bins)
+
+    def shared_bytes(self, n_harmonics: int) -> int:
+        return 4 * self.bins * self.per_stage(n_harmonics)
+
+
+def plane_tile(n_harmonics: int) -> PlaneTile:
+    """The default tile for H: K = PLANE_BUFFER / H within [256, 2048],
+    so that up to H = 64 every decimation goes through one stage."""
+    bins = min(max(PLANE_BUFFER // n_harmonics, PLANE_BINS[0]),
+               PLANE_BINS[-1])
+    return PlaneTile(bins, PLANE_BUFFER)
+
+
+def plane_blocks(batch: int, n: int, tile: PlaneTile) -> int:
+    """Thread blocks of one plane launch."""
+    return batch * -(-n // tile.bins)
+
+
+def last_decimation(k0: int, n: int, n_harmonics: int) -> int:
+    """The last decimation j with j k0 < n (every j for k0 = 0): no bin of
+    the tile at k0 reads past it."""
+    return n_harmonics if k0 == 0 else min(n_harmonics, (n - 1) // k0)
+
+
+def stages(k0: int, n: int, n_harmonics: int, tile: PlaneTile
+           ) -> list[range]:
+    """The decimations of the tile at k0, stage by stage, in the kernel's
+    order."""
+    last = last_decimation(k0, n, n_harmonics)
+    per = tile.per_stage(n_harmonics)
+    return [range(j0, min(last, j0 + per - 1) + 1)
+            for j0 in range(1, last + 1, per)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,8 +164,12 @@ def _library() -> ctypes.CDLL:
     lib.repro_hsum_error_string.restype = ctypes.c_char_p
     _P = ctypes.c_void_p
     lib.repro_harmonic_sum_plane.argtypes = [
-        _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P]
+        _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P]
     lib.repro_harmonic_sum_plane.restype = ctypes.c_int
+    lib.repro_harmonic_sum_plane_blocks_per_sm.argtypes = [ctypes.c_int,
+                                                           ctypes.c_int]
+    lib.repro_harmonic_sum_plane_blocks_per_sm.restype = ctypes.c_int
     lib.repro_harmonic_sum.argtypes = [
         _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
     lib.repro_harmonic_sum.restype = ctypes.c_int
@@ -129,9 +194,11 @@ def _raise_on(err: int, name: str) -> None:
     LAUNCHES[name] += 1
 
 
-def harmonic_sum_plane(p: torch.Tensor, n_harmonics: int
+def harmonic_sum_plane(p: torch.Tensor, n_harmonics: int,
+                       tile: PlaneTile | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, N) float32 power -> ((B, N) statistic, (B, N) int32 rung)."""
+    """(B, N) float32 power -> ((B, N) statistic, (B, N) int32 rung).
+    ``tile`` overrides :func:`plane_tile` (the chip check's sweep)."""
     _check(p, n_harmonics, "harmonic_sum_plane")
     if p.device.type == "cpu":
         return harmonic_sum_plane_plain(p, n_harmonics)
@@ -140,14 +207,21 @@ def harmonic_sum_plane(p: torch.Tensor, n_harmonics: int
     lev = torch.empty(p.shape, dtype=torch.int32, device=p.device)
     if p.numel() == 0:
         return stat, lev
-    scales = rung_scales(levels(n_harmonics))
+    tile = tile or plane_tile(n_harmonics)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = _library().repro_harmonic_sum_plane(
-            p.data_ptr(), stat.data_ptr(), lev.data_ptr(), b, n, len(scales),
-            scales.ctypes.data, stream)
+            p.data_ptr(), stat.data_ptr(), lev.data_ptr(), b, n,
+            levels(n_harmonics), tile.bins, tile.buffer, stream)
     _raise_on(err, "harmonic_sum_plane")
     return stat, lev
+
+
+def plane_blocks_per_sm(tile: PlaneTile, n_harmonics: int) -> int:
+    """Plane blocks of ``tile`` that one SM of the current card holds at
+    ``n_harmonics``."""
+    return _library().repro_harmonic_sum_plane_blocks_per_sm(
+        tile.bins, tile.shared_bytes(n_harmonics))
 
 
 def harmonic_sum(p: torch.Tensor, n_harmonics: int) -> torch.Tensor:

@@ -6,7 +6,7 @@ share one guarded input path, with the reference's guards (each a
 ``harmonic-sum``), logical shapes and ``bytes_moved`` formulas over the
 batch itself (the reference counts its padded batch).  ``grid`` and
 ``tile`` describe the CUDA launch: thread blocks, and (rows, bins) per
-block.
+block (the plane's bins per block depend on ``n_harmonics``).
 
 * :func:`harmonic_sum_kernel` — the demo ladder: (..., N) power spectra
   to the full (..., LEVELS, N) doubling ladder.
@@ -83,8 +83,8 @@ def harmonic_sum_plane(power, n_harmonics: int = 8
     power = _checked_power(power, n_harmonics, "harmonic_sum_plane")
     p2, b, n = _rows(power)
     stat, lev = K.harmonic_sum_plane(p2, n_harmonics)
-    record_launch("harmonic-sum-plane", grid=(K.blocks(b, n),),
-                  tile=(1, K.BINS_PER_BLOCK), bytes_moved=12 * b * n,
-                  shape=(b, n))
+    tile = K.plane_tile(n_harmonics)
+    record_launch("harmonic-sum-plane", grid=(K.plane_blocks(b, n, tile),),
+                  tile=(1, tile.bins), bytes_moved=12 * b * n, shape=(b, n))
     lead = power.shape[:-1]
     return stat.reshape(*lead, n), lev.reshape(*lead, n)

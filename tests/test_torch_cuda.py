@@ -440,11 +440,14 @@ def test_service_serves_2d_and_fdas_on_the_card(gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,nchan,n,ndm", [
-    (1, 1, 1, 1), (3, 5, 1025, 9), (2, 64, 4096, 17), (1, 1024, 2048, 8)])
+    (1, 1, 1, 1), (3, 5, 1025, 9), (2, 64, 4096, 17), (1, 1024, 2048, 8),
+    (2, 17, 127, 127), (1, 33, 129, 129), (3, 16, 4099, 130)])
 def test_dedisperse_kernel_matches_plain_on_the_card(gen, batch, nchan, n,
                                                      ndm):
-    """Ragged DM tiles and sample tiles, and a delay of N - 1 in every
-    channel of the last trial."""
+    """Ragged DM tiles and sample tiles (N and D one below, at and above
+    the 128 of a block, channels no multiple of a stage's 16), and a delay
+    of N - 1 in every channel of the last trial (wide channels past N =
+    1025, read from global memory); bit-identical."""
     import numpy as np
     from repro_torch.kernels.dedisp import dedisp_kernel as D
     from repro_torch.kernels.dedisp import dedisperse_kernel, dedisperse_ref
@@ -457,16 +460,40 @@ def test_dedisperse_kernel_matches_plain_on_the_card(gen, batch, nchan, n,
     assert D.LAUNCHES == {"dedisperse": 1}
     table = torch.from_numpy(delays.astype(np.int32)).cuda()
     want = D.dedisperse_plain(fb, table)
-    assert _rel(got, want) <= RTOL
+    assert _rel(got, want) <= RTOL and torch.equal(got, want)
     assert _rel(got, dedisperse_ref(fb, delays)) <= RTOL
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", (1, 2, 8, 32))
+@pytest.mark.parametrize("chunk", (8, 16, 32))
+@pytest.mark.parametrize("samples,trials", ((4, 8), (4, 16), (8, 8)))
+def test_dedisperse_tiles_on_the_pulsar_table(gen, samples, trials, chunk):
+    """Every compiled instance and stage size on the pulsar plan's table
+    (all channels staged) at a ragged N, bit-identical to plain."""
+    import numpy as np
+    from repro_torch.data.synthetic import FilterbankSpec
+    from repro_torch.kernels.dedisp import dedisp_kernel as D
+    from repro_torch.search import DispersionPlan
+    plan = DispersionPlan.from_spec(FilterbankSpec(nchan=1024, ntime=2**17),
+                                    n_trials=128)
+    table = torch.from_numpy(plan.delay_array().astype(np.int32)).cuda()
+    fb = _real(gen, 2, 1024, 4097)
+    tile = D.Tile(samples, trials, chunk)
+    D.reset_launches()
+    got = D.dedisperse(fb, table, tile=tile)
+    assert D.LAUNCHES == {"dedisperse": 1}
+    assert torch.equal(got, D.dedisperse_plain(fb, table))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", (1, 2, 8, 32, 64))
 @pytest.mark.parametrize("rows,n", [(1, 1), (3, 1025), (37, 4096),
-                                    (5, 65537)])
+                                    (5, 65537), (2, 2047), (2, 2049)])
 def test_harmonic_sum_kernels_match_plain_on_the_card(gen, rows, n, h):
+    """Tiles cut short at N (2047, 2049 around the 1024 and 2048 of a
+    plane block), H past the staged decimations (64)."""
     import importlib
     from repro_torch.kernels.harmonic_sum import (harmonic_sum_kernel,
                                                   harmonic_sum_plane)
@@ -478,9 +505,25 @@ def test_harmonic_sum_kernels_match_plain_on_the_card(gen, rows, n, h):
     ladder = harmonic_sum_kernel(p, h)
     assert H.LAUNCHES == {"harmonic_sum_plane": 1, "harmonic_sum": 1}
     want_stat, want_lev = H.harmonic_sum_plane_plain(p, h)
-    assert _rel(stat, want_stat) <= RTOL
+    assert _rel(stat, want_stat) <= RTOL and torch.equal(stat, want_stat)
     assert torch.equal(lev, want_lev)
     assert _rel(ladder, H.harmonic_sum_plain(p, h)) <= RTOL
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buffer", (4096, 8192, 16384))
+@pytest.mark.parametrize("bins", (256, 512, 1024, 2048))
+def test_harmonic_sum_plane_tiles_on_the_card(gen, bins, buffer):
+    """Every compiled plane instance and buffer at H = 8 on rows of 65537
+    bins, bit-identical to plain."""
+    import importlib
+    H = importlib.import_module(
+        "repro_torch.kernels.harmonic_sum.harmonic_sum_kernel")
+    p = 3.0 * torch.rand(3, 65537, device="cuda", generator=gen)
+    stat, lev = H.harmonic_sum_plane(p, 8, H.PlaneTile(bins, buffer))
+    want_stat, want_lev = H.harmonic_sum_plane_plain(p, 8)
+    assert torch.equal(stat, want_stat) and torch.equal(lev, want_lev)
     torch.cuda.synchronize()
 
 

@@ -125,7 +125,9 @@ def test_ledger_records():
     assert (port.kernel, port.shape) == (ref.kernel, ref.shape) == \
         ("harmonic-sum-plane", (21, 129))
     assert port.bytes_moved == 12 * 21 * 129
-    assert port.grid == (21,) and port.tile == (1, 256)
+    # H = 8: a plane block takes 2048 bins (eight a thread).
+    assert port.grid == (21,) and port.tile == (1, 2048)
+    assert K.plane_blocks(21, 65537, K.plane_tile(8)) == 21 * 33
     _, _, ref_recs, port_recs = run_both(
         lambda: ref_ladder(p, 8, interpret=True),
         lambda: harmonic_sum_kernel(torch.from_numpy(p), 8))

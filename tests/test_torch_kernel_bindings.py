@@ -1,7 +1,8 @@
-"""The ctypes bindings of the FFT kernel libraries against their C sources.
+"""The ctypes bindings of the kernel libraries against their C sources.
 
 ``fft_kernel`` declares the argument types of every C entry it calls
-(``_library``, ``_real_library``, ``_transpose_library``).  A declaration
+(``_library``, ``_real_library``, ``_transpose_library``), as do
+``dedisp_kernel`` and ``harmonic_sum_kernel`` (``_library``).  A declaration
 that drifts from the C signature passes garbage to the card, and shows
 only there; here each declared entry is held against the ``extern "C"``
 definition in ``src/repro_torch/csrc``, argument by argument, with the
@@ -13,7 +14,9 @@ import re
 
 import pytest
 
+from repro_torch.kernels.dedisp import dedisp_kernel as D
 from repro_torch.kernels.fft import fft_kernel as K
+from repro_torch.kernels.harmonic_sum.ops import K as H
 
 CSRC = pathlib.Path(K.__file__).resolve().parents[2] / "csrc"
 
@@ -25,7 +28,11 @@ LIBRARIES = {
     "_real_library": ("fft_real", ("fft_real.cu", "stockham.cuh",
                                    "stockham_regs.cuh")),
     "_transpose_library": ("transpose", ("transpose.cu", "stockham.cuh")),
+    "dedisp._library": ("dedisp", ("dedisp.cu",)),
+    "harmonic_sum._library": ("harmonic_sum", ("harmonic_sum.cu",)),
 }
+#: The module of each loader.
+MODULES = {"dedisp._library": D, "harmonic_sum._library": H}
 
 
 #: The definition of an exported entry: its name and parameter list.
@@ -70,10 +77,11 @@ _KIND = {ctypes.c_void_p: "ptr", ctypes.c_longlong: "long long",
 @pytest.mark.parametrize("loader", sorted(LIBRARIES))
 def test_declared_entries_match_the_c_signatures(loader, monkeypatch):
     stem, files = LIBRARIES[loader]
+    module = MODULES.get(loader, K)
     rec = _Recorder()
-    monkeypatch.setattr(K, "load_library",
+    monkeypatch.setattr(module, "load_library",
                         lambda s: rec if s == stem else None)
-    fn = getattr(K, loader)
+    fn = getattr(module, loader.rpartition(".")[2])
     fn.cache_clear()
     try:
         assert fn() is rec

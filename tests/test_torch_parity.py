@@ -10,6 +10,8 @@ import torch
 # (an import cycle); importing the plans here keeps the kernel tests,
 # which import this module first, from turning them off.
 import repro.fft.plan  # noqa: F401
+import repro.obs.ledger as ref_ledger_mod
+import repro_torch.obs.ledger as port_ledger_mod
 from repro.obs.ledger import LaunchLedger as RefLedger
 from repro_torch.obs.ledger import LaunchLedger as PortLedger
 
@@ -44,6 +46,17 @@ def run_both(ref_fn, port_fn):
     with port_ledger.capture():
         port = port_fn()
     return ref, port, ref_ledger.records, port_ledger.records
+
+
+def fresh_signatures() -> None:
+    """Start both packages' process-wide launch signatures from none.
+
+    The reference records a launch only while ``jax.jit`` traces, so its
+    jit caches are cleared too: a function that an earlier test traced
+    would otherwise run from the cache and record nothing."""
+    jax.clear_caches()
+    ref_ledger_mod._SIGNATURES.clear()
+    port_ledger_mod._SIGNATURES.clear()
 
 
 def assert_same_launches(ref_records, port_records) -> None:

@@ -15,11 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_parity import assert_close, rand_complex
-import repro.obs.ledger as ref_ledger_mod
+from test_torch_parity import assert_close, fresh_signatures, rand_complex
 from repro.core.hardware import TESLA_V100 as REF_V100
 from repro.serving import FFTService as RefService
-import repro_torch.obs.ledger as port_ledger_mod
 from repro_torch.core import dvfs
 from repro_torch.core.hardware import TESLA_V100
 from repro_torch.core.scheduler import ClockController
@@ -400,8 +398,7 @@ def test_service_matches_reference():
     ]
     # Launch signatures are kept process-wide per shape key (first capture
     # wins); start both packages from none.
-    ref_ledger_mod._SIGNATURES.clear()
-    port_ledger_mod._SIGNATURES.clear()
+    fresh_signatures()
     ref_svc = RefService(REF_V100, timer=_timer())
     port_svc = FFTService(TESLA_V100, devices=[CPU], timer=_timer())
     ref_reqs = [ref_svc.submit(x, transform=t) for x, t in payloads]

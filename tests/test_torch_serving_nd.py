@@ -12,12 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_parity import assert_close, rand_complex
-import repro.obs.ledger as ref_ledger_mod
+from test_torch_parity import assert_close, fresh_signatures, rand_complex
 from repro.core.hardware import TESLA_V100 as REF_V100
 from repro.serving import FFTService as RefService
 from repro.serving.request import FFTRequest as RefRequest
-import repro_torch.obs.ledger as port_ledger_mod
 from repro_torch.core.hardware import TESLA_V100
 from repro_torch.serving import KIND_FDAS, FFTRequest, FFTService, coalesce
 
@@ -58,8 +56,7 @@ def test_2d_and_fdas_requests_match_reference():
                          series(2048, 700, 1.0, 6)]),
          dict(kind=KIND_FDAS, templates=9)),
     ]
-    ref_ledger_mod._SIGNATURES.clear()
-    port_ledger_mod._SIGNATURES.clear()
+    fresh_signatures()
     ref_svc = RefService(REF_V100, timer=_timer(), batch_bytes=2**24)
     port_svc = FFTService(TESLA_V100, devices=[CPU], timer=_timer(),
                           batch_bytes=2**24)

@@ -13,11 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_parity import assert_close, rand_complex
-import repro.obs.ledger as ref_ledger_mod
+from test_torch_parity import assert_close, fresh_signatures, rand_complex
 from repro.core.hardware import TESLA_V100 as REF_V100
 from repro.serving import FFTService as RefService
-import repro_torch.obs.ledger as port_ledger_mod
 from repro_torch.core.hardware import TESLA_V100
 from repro_torch.data.synthetic import (FilterbankSpec, InjectedPulsar,
                                         synthetic_filterbank)
@@ -56,8 +54,7 @@ def test_pulsar_requests_match_reference():
         (rand_complex(3, (2, 256)), {}),
         (filterbank(3, 60, 4), dict(PULSAR_KW, n_harmonics=8)),
     ]
-    ref_ledger_mod._SIGNATURES.clear()
-    port_ledger_mod._SIGNATURES.clear()
+    fresh_signatures()
     ref_svc = RefService(REF_V100, timer=_timer(), batch_bytes=2**24)
     port_svc = FFTService(TESLA_V100, devices=[CPU], timer=_timer(),
                           batch_bytes=2**24)
