@@ -203,19 +203,16 @@ KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
            "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
            "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
 #: The staged kernels of the pulsar search and their compiled instances:
-#: dedisperse_kernel<samples, trials> and harmonic_sum_plane_kernel<bins a
-#: thread>.
-STAGED_KERNELS = {"dedisp": ("dedisperse_kernel", len(D.INSTANCES)),
+#: dedisperse_kernel (one) and harmonic_sum_plane_kernel<bins a thread>.
+STAGED_KERNELS = {"dedisp": ("dedisperse_kernel", 1),
                   "harmonic_sum": ("harmonic_sum_plane_kernel",
                                    len(H.PLANE_BINS))}
-#: Their tile sweeps at the pulsar search's shapes: dedisperse (samples a
-#: thread, trials a warp, channels a stage), harmonic_sum_plane (bins a
-#: block, stage buffer values; H = 8, so a buffer below 8 K values takes
-#: the decimations in several stages).
-DEDISP_SWEEP = tuple(D.Tile(s, t, c) for s, t in D.INSTANCES
-                     for c in (8, 16, 32))
-PLANE_SWEEP = tuple(H.PlaneTile(k, buf) for k in H.PLANE_BINS
-                    for buf in (2048, 4096, 8192, 16384) if buf >= k)
+#: Their tile sweeps at the pulsar search's shapes: dedisperse's channels
+#: a stage (a run-time argument), harmonic_sum_plane's bins a block.
+DEDISP_SWEEP = (8, 16, 32)
+PLANE_SWEEP = (tuple(H.PlaneTile(k) for k in H.PLANE_BINS)
+               + (H.PlaneTile(2048, 16384, 1), H.PlaneTile(1024, 8192, 1),
+                  H.PlaneTile(256, 16384, 2)))
 #: The register-pass kernels (csrc/stockham_regs.cuh) and their symbols.
 PASS_KERNELS = {"fft_c2c": "fft_c2c_regs_kernel",
                 "fft_c2c_t": "fft_c2c_t_regs_kernel",
@@ -1166,8 +1163,9 @@ def phase3_pulsar_kernels(gen: torch.Generator,
         table = torch.from_numpy(delays.astype(np.int32)).cuda()
         want = D.dedisperse_plain(fb, table)
         runs = [("wrapper", lambda: dedisperse_kernel(fb, delays))]
-        runs += [(t, lambda t=t: D.dedisperse(fb, table, tile=t))
-                 for t in (D.Tile(s, d) for s, d in D.INSTANCES)]
+        runs += [(f"{c} channels a stage",
+                  lambda c=c: D.dedisperse(fb, table, chunk=c))
+                 for c in DEDISP_SWEEP[:-1]]
         for label, fn in runs:
             diff, same = _same(fn(), want)
             check(same, f"dedisperse {tuple(fb.shape)} x {delays.shape[0]} "
@@ -1280,22 +1278,20 @@ def phase3_pulsar_tiles(gen: torch.Generator) -> None:
     fb = torch.randn(b, c, n, device="cuda", generator=gen)
     table = torch.from_numpy(plan.delay_array().astype(np.int32)).cuda()
     want = D.dedisperse(fb, table)
+    span_cap = D.staged_table(table).span_cap
     times, best = [], None
-    for tile in DEDISP_SWEEP:
-        staged = D.staged_table(table, tile)
-        fn = lambda: D.dedisperse(fb, table, staged, tile)  # noqa: E731
-        check(torch.equal(fn(), want), f"dedisperse {tile} differs from "
-              f"the wrapper's tile {D.TILE}")
+    for chunk in DEDISP_SWEEP:
+        fn = lambda: D.dedisperse(fb, table, chunk)  # noqa: E731
+        check(torch.equal(fn(), want), f"dedisperse at {chunk} channels a "
+              f"stage differs from the wrapper's {D.CHUNK}")
         ms = median_ms(fn, reps=5)
-        times.append(f"({tile.samples_per_block} samples, "
-                     f"{tile.trials_per_block} trials, {tile.chunk} "
-                     f"channels) {ms:.4f} ms "
-                     f"[{D.blocks_per_sm(tile, staged.span_cap)} an SM]")
+        times.append(f"({chunk} channels) {ms:.4f} ms "
+                     f"[{D.blocks_per_sm(span_cap, chunk)} an SM]")
         if best is None or ms < best[1]:
-            best = (tile, ms)
-    print(f"  dedisperse {(b, c, n, plan.n_trials)} tiles: "
-          + "; ".join(times) + f"; fastest {best[0]} (the wrapper's "
-          f"{D.TILE})")
+            best = (chunk, ms)
+    print(f"  dedisperse {(b, c, n, plan.n_trials)} tiles (128 samples, 64 "
+          f"trials a block): " + "; ".join(times) + f"; fastest {best[0]} "
+          f"channels (the wrapper's {D.CHUNK})")
     del fb, want
     torch.cuda.empty_cache()
     rows, n = 2 * plan.n_trials * (2 * FDAS_ZMAX + 1), n // 2 + 1
@@ -1308,7 +1304,8 @@ def phase3_pulsar_tiles(gen: torch.Generator) -> None:
         check(_same(fn(), want)[1], f"harmonic_sum_plane {tile} differs "
               f"from the wrapper's tile {H.plane_tile(h)}")
         ms = median_ms(fn, reps=5)
-        times.append(f"({tile.bins} bins, buffer {tile.buffer}) "
+        times.append(f"(design {tile.design}, {tile.bins} bins, buffer "
+                     f"{tile.buffer}) "
                      f"{ms:.4f} ms [{H.plane_blocks_per_sm(tile, h)} an "
                      f"SM]")
         if best is None or ms < best[1]:
@@ -1316,6 +1313,14 @@ def phase3_pulsar_tiles(gen: torch.Generator) -> None:
     print(f"  harmonic_sum_plane {(rows, n)} H={h} tiles: "
           + "; ".join(times) + f"; fastest {best[0]} (the wrapper's "
           f"{H.plane_tile(h)})")
+    for hh in (1, 2, 8, 32):
+        line = []
+        for tile in (H.plane_tile(hh), H.PlaneTile(2048, 16384, 1),
+                     H.PlaneTile(256, 16384, 2)):
+            fn = lambda: H.harmonic_sum_plane(p, hh, tile)  # noqa: E731
+            line.append(f"design {tile.design} ({tile.bins} bins) "
+                        f"{median_ms(fn, reps=5):.4f} ms")
+        print(f"  harmonic_sum_plane {(rows, n)} H={hh}: " + "; ".join(line))
     del p, want
     torch.cuda.empty_cache()
 

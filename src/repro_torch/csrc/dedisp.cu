@@ -17,18 +17,19 @@
 // trace time and keeps the whole (C, N) block in VMEM; a 1024 x 2^17 block
 // is 512 MB, which no SM holds.  The first port gave each warp one DM trial
 // and read every term from global memory, each filterbank sample once a
-// trial.  Here a block of eight warps takes a tile of T = 32 kS samples
-// [t0, t0 + T) of one filterbank and a group of DB = 8 kDT DM trials.  It
-// walks the channels in chunks; for each channel of a chunk it stages the
+// trial.  Here a block of eight warps takes a tile of T = 128 samples
+// [t0, t0 + T) of one filterbank and a group of DB = 64 DM trials.  It
+// walks the channels in chunks (32 channels in the wrapper's launches; a
+// run-time argument); for each channel of a chunk it stages the
 // window fb[c, t0 + lo, t0 + T + hi) in shared memory (4-byte cp.async:
 // windows start anywhere; zero past N), where lo and hi are the smallest
 // and largest delay of the group's trials in that channel, beside the
 // chunk's shifts (delay - lo, 16-byte cp.async) and (lo, hi).  Two stage
 // buffers take turns: the next chunk loads while the block adds the
-// current one.  Each thread holds kDT trials x kS samples (t0 + lane + 32 s)
-// in registers; a warp's trials share their shift, so its 32 reads of a
-// (trial, s) term are 32 consecutive words, free of bank conflicts, and
-// each staged sample serves every trial of the group.  A channel whose
+// current one.  Each thread holds kDT = 8 trials x kS = 4 samples (t0 +
+// lane + 32 s) in registers; a warp's trials share their shift, so its 32
+// reads of a (trial, s) term are 32 consecutive words, free of bank
+// conflicts, and each staged sample serves every trial of the group.  A channel whose
 // span hi - lo exceeds the staged width (span_cap: arbitrary tables) is
 // read from global memory in the same loop, as the first port did.
 // HBM and L2 see the filterbank about once a trial group; one shared-memory
@@ -38,9 +39,9 @@
 // (the reference adds channels that share a delay before the shift, so it
 // agrees to rounding); a term past N adds 0.
 //
-// The wrapper prepares, per delay table and trial-group size, the (G, C,
-// DB) shifts (trials of the last group past D repeat its last trial) and
-// the (G, C) (lo, hi) pairs, and the staged width.
+// The wrapper prepares once per delay table the (G, C, DB) shifts (trials
+// of the last group past D repeat its last trial), the (G, C) (lo, hi)
+// pairs and the staged width.
 //
 // Interface: a plain C function on device pointers, launched on the given
 // stream; it returns the cudaError_t of its launch (0 on success).
@@ -56,6 +57,10 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kS = 4;    // samples a thread: t0 + lane + 32 s
+constexpr int kDT = 8;   // DM trials a warp
+constexpr int kT = 32 * kS;       // samples a block
+constexpr int kDB = kWarps * kDT;  // trials a block (a trial group)
 constexpr size_t kDefaultShared = 48 * 1024;
 constexpr size_t kMaxShared = 232448;
 
@@ -69,15 +74,12 @@ __host__ __device__ __forceinline__ int stage_bytes(int chunk, int trials,
 // One block per (trial group, sample tile, filterbank), numbered trial
 // group fastest, then sample tile, then filterbank; eight warps, warp w
 // holding trials w kDT ... of the group.
-template <int kS, int kDT>
 __global__ void __launch_bounds__(kThreads)
     dedisperse_kernel(const float* __restrict__ fb,
                       const int* __restrict__ shifts,
                       const int2* __restrict__ lohi, float* __restrict__ out,
                       int nchan, int n, int ndm, int chunk, int span_cap,
                       int groups, int sample_tiles) {
-  constexpr int kT = 32 * kS;
-  constexpr int kDB = kWarps * kDT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int width = kT + span_cap;
   const int sbytes = stage_bytes(chunk, kDB, width);
@@ -188,81 +190,51 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kS, int kDT>
-int launch(const float* fb, const int* shifts, const int* lohi, float* out,
-           long long batch, int nchan, int n, int ndm, int chunk,
-           int span_cap, cudaStream_t stream) {
-  constexpr int kT = 32 * kS;
-  constexpr int kDB = kWarps * kDT;
+size_t shared_bytes(int chunk, int span_cap) {
+  return 2 * static_cast<size_t>(stage_bytes(chunk, kDB, kT + span_cap));
+}
+
+}  // namespace
+
+extern "C" {
+
+// ``shifts`` is the (G, C, 64 trials) int32 table of delay - lo, ``lohi``
+// the (G, C, 2) int32 (lo, hi) pairs, G = ceil(ndm / 64); a block covers
+// 128 samples and stages ``chunk`` channels a step, each window ``128 +
+// span_cap`` values wide.
+int repro_dedisperse(const float* fb, const int* shifts, const int* lohi,
+                     float* out, long long batch, int nchan, int n, int ndm,
+                     int chunk, int span_cap, void* stream) {
+  if (batch < 1 || nchan < 1 || n < 1 || ndm < 1)
+    return cudaErrorInvalidValue;
   if (chunk < 1 || span_cap < 0 || span_cap > n) return cudaErrorInvalidValue;
-  const size_t smem = 2 * static_cast<size_t>(
-                              stage_bytes(chunk, kDB, kT + span_cap));
+  const size_t smem = shared_bytes(chunk, span_cap);
   if (smem > kMaxShared) return cudaErrorInvalidValue;
   const int groups = (ndm + kDB - 1) / kDB;
   const int sample_tiles = (n + kT - 1) / kT;
   const long long blocks = batch * groups * sample_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = dedisperse_kernel<kS, kDT>;
   if (smem > kDefaultShared) {
     if (cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            dedisperse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(kMaxShared)))
       return err;
   }
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  dedisperse_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       fb, shifts, reinterpret_cast<const int2*>(lohi), out, nchan, n, ndm,
       chunk, span_cap, groups, sample_tiles);
   return cudaGetLastError();
 }
 
-template <int kS, int kDT>
-int blocks_per_sm(int chunk, int span_cap) {
-  const size_t smem =
-      2 * static_cast<size_t>(stage_bytes(chunk, kWarps * kDT,
-                                          32 * kS + span_cap));
+// Blocks that one SM holds at once for ``chunk`` and ``span_cap``, or -1.
+int repro_dedisperse_blocks_per_sm(int chunk, int span_cap) {
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, dedisperse_kernel<kS, kDT>, kThreads, smem))
+          &blocks, dedisperse_kernel, kThreads,
+          shared_bytes(chunk, span_cap)))
     return -1;
   return blocks;
-}
-
-}  // namespace
-
-// The compiled (samples a thread, trials a warp) instances.
-#define REPRO_DEDISP_INSTANCES(X) X(4, 8) X(4, 16) X(8, 8)
-
-extern "C" {
-
-// ``shifts`` is the (G, C, 8 trials) int32 table of delay - lo, ``lohi``
-// the (G, C, 2) int32 (lo, hi) pairs, G = ceil(ndm / (8 trials)); a block
-// covers 32 ``samples`` samples and stages ``chunk`` channels a step, each
-// window ``32 samples + span_cap`` values wide.
-int repro_dedisperse(const float* fb, const int* shifts, const int* lohi,
-                     float* out, long long batch, int nchan, int n, int ndm,
-                     int samples, int trials, int chunk, int span_cap,
-                     void* stream) {
-  if (batch < 1 || nchan < 1 || n < 1 || ndm < 1)
-    return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(S, DT)                                               \
-  if (samples == S && trials == DT)                                       \
-    return launch<S, DT>(fb, shifts, lohi, out, batch, nchan, n, ndm,     \
-                         chunk, span_cap, st);
-  REPRO_DEDISP_INSTANCES(REPRO_LAUNCH)
-#undef REPRO_LAUNCH
-  return cudaErrorInvalidValue;
-}
-
-// Blocks of an instance that one SM holds at once, or -1.
-int repro_dedisperse_blocks_per_sm(int samples, int trials, int chunk,
-                                   int span_cap) {
-#define REPRO_OCCUPANCY(S, DT)    \
-  if (samples == S && trials == DT) \
-    return blocks_per_sm<S, DT>(chunk, span_cap);
-  REPRO_DEDISP_INSTANCES(REPRO_OCCUPANCY)
-#undef REPRO_OCCUPANCY
-  return -1;
 }
 
 }  // extern "C"

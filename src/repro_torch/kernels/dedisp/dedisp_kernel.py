@@ -12,82 +12,55 @@ summed over channels in index order.  A CPU tensor runs
 replaces, what bounds it and what its design does about that) and raises
 if the launch fails.  ``LAUNCHES`` counts kernel launches only.
 
-A block of the kernel takes a :class:`Tile` of samples and DM trials and
-stages, channel by channel, the filterbank window its trials read in
-shared memory.  :func:`staged_table` prepares what it reads beside the
-filterbank: per trial group and channel the smallest and largest delay
-and each trial's shift from the smallest (the CPU tests emulate the
-kernel from it).
+A block of the kernel takes 128 samples and 64 DM trials and stages,
+channel by channel, the filterbank window its trials read in shared
+memory, ``chunk`` channels a step.  :func:`staged_table` prepares what it
+reads beside the filterbank: per trial group and channel the smallest and
+largest delay and each trial's shift from the smallest (the CPU tests
+emulate the kernel from it).  :func:`dedisperse` makes it once per table
+tensor and keeps it while the tensor lives unchanged.
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels.common import MAX_SHARED_BYTES, load_library
 
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"dedisperse": 0}
 
-#: Warps of a block, and the compiled (samples a thread, trials a warp)
-#: instances.
+#: A block: 8 warps, each thread 4 samples (t, t + 32, ...) of 8 trials.
 WARPS = 8
-INSTANCES = ((4, 8), (4, 16), (8, 8))
+SAMPLES_PER_BLOCK = 32 * 4
+TRIALS_PER_BLOCK = WARPS * 8
+#: Channels staged a step in the wrapper's launches, and the most a launch
+#: may take (the chip check also times fewer: a run-time argument).
+CHUNK = 32
+
+
+def stage_bytes(span_cap: int, chunk: int = CHUNK) -> int:
+    """Bytes of one stage buffer: the chunk's shifts, (lo, hi) pairs and
+    windows of 128 + ``span_cap`` values, rounded up to 16
+    (``csrc/dedisp.cu``'s)."""
+    raw = chunk * (4 * TRIALS_PER_BLOCK + 8
+                   + 4 * (SAMPLES_PER_BLOCK + span_cap))
+    return (raw + 15) & ~15
+
+
+def shared_bytes(span_cap: int, chunk: int = CHUNK) -> int:
+    return 2 * stage_bytes(span_cap, chunk)
+
+
 #: The widest span of delays in one channel of a trial group that is
-#: staged in shared memory (less where a tile's two buffers would not fit
-#: a block, :attr:`Tile.span_max`); a wider channel is read from global
-#: memory.
-SPAN_MAX = 1024
-
-
-@dataclasses.dataclass(frozen=True)
-class Tile:
-    """A block's tile: ``samples`` a thread (t, t + 32, ...), DM
-    ``trials`` a warp, and the channels staged a step (``chunk``)."""
-    samples: int = 4
-    trials: int = 8
-    chunk: int = 32
-
-    @property
-    def samples_per_block(self) -> int:
-        return 32 * self.samples
-
-    @property
-    def trials_per_block(self) -> int:
-        return WARPS * self.trials
-
-    def width(self, span_cap: int) -> int:
-        """Values of one channel's staged window."""
-        return self.samples_per_block + span_cap
-
-    def stage_bytes(self, span_cap: int) -> int:
-        """Bytes of one stage buffer: the chunk's shifts, (lo, hi) pairs
-        and windows, rounded up to 16 (``csrc/dedisp.cu``'s)."""
-        raw = self.chunk * (4 * self.trials_per_block + 8
-                            + 4 * self.width(span_cap))
-        return (raw + 15) & ~15
-
-    def shared_bytes(self, span_cap: int) -> int:
-        return 2 * self.stage_bytes(span_cap)
-
-    @property
-    def span_max(self) -> int:
-        """The widest span this tile stages: SPAN_MAX, or less where two
-        buffers of wider windows would not fit a block."""
-        budget = MAX_SHARED_BYTES // 2 // 16 * 16 // self.chunk
-        fits = (budget - 4 * self.trials_per_block - 8) // 4 \
-            - self.samples_per_block
-        return min(SPAN_MAX, fits)
-
-
-#: The wrapper's tile, the fastest of the chip check's sweep at the pulsar
-#: search's shape: 128 samples and 64 trials a block, 32 channels a step
-#: (two buffers of 56.5 KB for the pulsar plan's spans, two blocks an SM).
-TILE = Tile()
+#: staged in shared memory: two buffers of CHUNK windows fill a block's
+#: 227 KB.  A wider channel is read from global memory.
+SPAN_MAX = ((MAX_SHARED_BYTES // 2 // 16 * 16 // CHUNK
+             - 4 * TRIALS_PER_BLOCK - 8) // 4 - SAMPLES_PER_BLOCK)
 
 
 def reset_launches() -> None:
@@ -95,26 +68,26 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def blocks(batch: int, ndm: int, n: int, tile: Tile = TILE) -> int:
+def blocks(batch: int, ndm: int, n: int) -> int:
     """Thread blocks of one launch."""
-    return (batch * -(-ndm // tile.trials_per_block)
-            * -(-n // tile.samples_per_block))
+    return (batch * -(-ndm // TRIALS_PER_BLOCK)
+            * -(-n // SAMPLES_PER_BLOCK))
 
 
 class StagedTable(NamedTuple):
-    """What the kernel reads beside the filterbank, for one tile's trial
-    groups of DB trials: G = ceil(D / DB) groups, the last padded with
-    copies of the last trial."""
+    """What the kernel reads beside the filterbank, for trial groups of
+    DB = 64 trials: G = ceil(D / DB) groups, the last padded with copies
+    of the last trial."""
     shifts: torch.Tensor   # (G, C, DB) int32: delay - lo of the channel
     lohi: torch.Tensor     # (G, C, 2) int32: smallest, largest delay
-    span_cap: int          # the widest staged span (<= the tile's span_max)
+    span_cap: int          # the widest staged span (<= SPAN_MAX)
 
 
-def staged_table(delays: torch.Tensor, tile: Tile = TILE) -> StagedTable:
-    """The (D, C) int32 table's :class:`StagedTable` for ``tile``, on the
-    table's device."""
+def staged_table(delays: torch.Tensor) -> StagedTable:
+    """The (D, C) int32 table's :class:`StagedTable`, on the table's
+    device."""
     ndm, nchan = delays.shape
-    per = tile.trials_per_block
+    per = TRIALS_PER_BLOCK
     groups = -(-ndm // per)
     pad = groups * per - ndm
     full = torch.cat([delays, delays[-1:].expand(pad, nchan)]) if pad \
@@ -123,11 +96,26 @@ def staged_table(delays: torch.Tensor, tile: Tile = TILE) -> StagedTable:
     lo, hi = full.amin(dim=1), full.amax(dim=1)
     shifts = (full - lo[:, None, :]).transpose(1, 2).contiguous()
     spans = hi - lo
-    narrow = spans[spans <= tile.span_max]
+    narrow = spans[spans <= SPAN_MAX]
     span_cap = int(narrow.max()) if narrow.numel() else 0
     return StagedTable(shifts.to(torch.int32),
                        torch.stack([lo, hi], dim=-1).to(torch.int32)
                        .contiguous(), span_cap)
+
+
+#: Staged tables by delay-table tensor: (the tensor's version, table).
+_STAGED: WeakIdKeyDictionary = WeakIdKeyDictionary()
+
+
+def _staged(delays: torch.Tensor) -> StagedTable:
+    """:func:`staged_table` of ``delays``, made once while the tensor lives
+    and is not written to."""
+    hit = _STAGED.get(delays)
+    if hit is not None and hit[0] == delays._version:
+        return hit[1]
+    staged = staged_table(delays)
+    _STAGED[delays] = (delays._version, staged)
+    return staged
 
 
 def dedisperse_plain(fb: torch.Tensor, delays: torch.Tensor) -> torch.Tensor:
@@ -152,26 +140,23 @@ def _library() -> ctypes.CDLL:
     lib.repro_dedisp_error_string.restype = ctypes.c_char_p
     _P, _I = ctypes.c_void_p, ctypes.c_int
     lib.repro_dedisperse.argtypes = [
-        _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _I, _P]
+        _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P]
     lib.repro_dedisperse.restype = ctypes.c_int
-    lib.repro_dedisperse_blocks_per_sm.argtypes = [_I, _I, _I, _I]
+    lib.repro_dedisperse_blocks_per_sm.argtypes = [_I, _I]
     lib.repro_dedisperse_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
-def blocks_per_sm(tile: Tile, span_cap: int) -> int:
-    """Blocks of ``tile`` that one SM of the current card holds."""
-    return _library().repro_dedisperse_blocks_per_sm(
-        tile.samples, tile.trials, tile.chunk, span_cap)
+def blocks_per_sm(span_cap: int, chunk: int = CHUNK) -> int:
+    """Blocks that one SM of the current card holds."""
+    return _library().repro_dedisperse_blocks_per_sm(chunk, span_cap)
 
 
 def dedisperse(fb: torch.Tensor, delays: torch.Tensor,
-               staged: StagedTable | None = None,
-               tile: Tile = TILE) -> torch.Tensor:
+               chunk: int = CHUNK) -> torch.Tensor:
     """(B, C, N) float32 + (D, C) int32 delays in [0, N) on the same device
     -> (B, D, N) float32.  The caller validates the delays' range.
-    ``staged`` is :func:`staged_table` of ``delays`` for ``tile`` (made
-    here when not given); ``tile`` overrides :data:`TILE` (the chip
+    ``chunk`` (1 to CHUNK) sets the channels staged a step (the chip
     check's sweep)."""
     if fb.dtype != torch.float32 or fb.ndim != 3 or not fb.is_contiguous():
         raise ValueError(f"dedisperse takes a contiguous 3-D float32 "
@@ -184,6 +169,9 @@ def dedisperse(fb: torch.Tensor, delays: torch.Tensor,
                          f"tensor on {fb.device}, got "
                          f"{tuple(delays.shape)} {delays.dtype} on "
                          f"{delays.device}")
+    if not 1 <= chunk <= CHUNK:
+        raise ValueError(f"dedisperse stages 1 to {CHUNK} channels a step, "
+                         f"got {chunk}")
     if fb.device.type == "cpu":
         return dedisperse_plain(fb, delays)
     if fb.device.type != "cuda":
@@ -192,15 +180,13 @@ def dedisperse(fb: torch.Tensor, delays: torch.Tensor,
     out = torch.empty((b, ndm, n), dtype=torch.float32, device=fb.device)
     if fb.numel() == 0:
         return out
-    if staged is None:
-        staged = staged_table(delays, tile)
+    staged = _staged(delays)
     lib = _library()
     with torch.cuda.device(fb.device):
         stream = torch.cuda.current_stream(fb.device).cuda_stream
         err = lib.repro_dedisperse(
             fb.data_ptr(), staged.shifts.data_ptr(), staged.lohi.data_ptr(),
-            out.data_ptr(), b, nchan, n, ndm, tile.samples, tile.trials,
-            tile.chunk, staged.span_cap, stream)
+            out.data_ptr(), b, nchan, n, ndm, chunk, staged.span_cap, stream)
     if err:
         msg = lib.repro_dedisp_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel dedisperse failed to launch: {msg}")

@@ -12,8 +12,8 @@ an int32 array on the filterbank's device, built once per table and
 device: a table given as the tuple of tuples of a ``DispersionPlan`` is
 cached on the identity of that tuple (hashing a (128, 1024) table on
 every call would cost more than the launch), together with its range, so
-the guards read the cached extremes, and, on a GPU, the kernel's
-``staged_table`` (per trial group and channel the delays' span).
+the guards read the cached extremes; the kernel keeps its staged table
+(per trial group and channel the delays' span) beside the cached tensor.
 """
 from __future__ import annotations
 
@@ -28,8 +28,7 @@ from repro_torch.kernels.dedisp import dedisp_kernel
 from repro_torch.obs.ledger import record_launch
 
 #: Device tables of tuple delay tables: (id(table), device) -> (table,
-#: tensor, min, max, staged table or None); the tuple is held so that its
-#: id stays unique.
+#: tensor, min, max); the tuple is held so that its id stays unique.
 _DEVICE_TABLES: collections.OrderedDict = collections.OrderedDict()
 _MAX_TABLES = 32
 
@@ -49,9 +48,8 @@ def _as_array(delays) -> np.ndarray:
 
 
 def _device_table(delays, arr: np.ndarray | None, device: torch.device):
-    """(int32 (D, C) tensor on ``device``, min delay, max delay, the
-    kernel's staged table on a GPU else None) of the table ``delays``;
-    ``arr`` is its array, None for a tuple table."""
+    """(int32 (D, C) tensor on ``device``, min delay, max delay) of the
+    table ``delays``; ``arr`` is its array, None for a tuple table."""
     if arr is None:
         key = (id(delays), str(device))
         hit = _DEVICE_TABLES.get(key)
@@ -64,14 +62,11 @@ def _device_table(delays, arr: np.ndarray | None, device: torch.device):
     if lo < -2**31 or hi >= 2**31:
         raise ValueError(f"delays [{lo}, {hi}] do not fit int32 samples")
     table = torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(device)
-    staged = None
-    if device.type == "cuda" and table.numel():
-        staged = dedisp_kernel.staged_table(table)
     if isinstance(delays, tuple):
-        _DEVICE_TABLES[key] = (delays, table, lo, hi, staged)
+        _DEVICE_TABLES[key] = (delays, table, lo, hi)
         while len(_DEVICE_TABLES) > _MAX_TABLES:
             _DEVICE_TABLES.popitem(last=False)
-    return table, lo, hi, staged
+    return table, lo, hi
 
 
 def dedisperse_kernel(fb, delays) -> torch.Tensor:
@@ -98,7 +93,7 @@ def dedisperse_kernel(fb, delays) -> torch.Tensor:
         raise ValueError(
             f"dedisperse_kernel needs non-empty channel/time axes, got "
             f"shape {tuple(fb.shape)}")
-    table, lo, hi, staged = _device_table(delays, arr, fb.device)
+    table, lo, hi = _device_table(delays, arr, fb.device)
     ndm = table.shape[0]
     if ndm and table.shape[1] != nchan:
         raise ValueError(
@@ -114,10 +109,10 @@ def dedisperse_kernel(fb, delays) -> torch.Tensor:
             f"[0, ntime={n}); clip the DM grid to the block length")
     b = math.prod(lead)
     out = dedisp_kernel.dedisperse(fb.reshape(b, nchan, n).contiguous(),
-                                   table, staged)
-    tile = dedisp_kernel.TILE
+                                   table)
     record_launch("dedisperse", grid=(dedisp_kernel.blocks(b, ndm, n),),
-                  tile=(tile.trials_per_block, tile.samples_per_block),
+                  tile=(dedisp_kernel.TRIALS_PER_BLOCK,
+                        dedisp_kernel.SAMPLES_PER_BLOCK),
                   bytes_moved=4 * b * n * (nchan + ndm),
                   shape=(b, nchan, n))
     return out.reshape(*lead, ndm, n)

@@ -65,32 +65,45 @@ def blocks(batch: int, n: int) -> int:
     return batch * -(-n // BINS_PER_BLOCK)
 
 
+#: The windowed design's longest segment (values).
+SEGMENT_MAX = 8192
+
+
 @dataclasses.dataclass(frozen=True)
 class PlaneTile:
-    """A plane launch's tile: ``bins`` a block (K) and the values its
-    stage buffer holds (``buffer``)."""
+    """A plane launch's tile: ``bins`` a block (K), the values its
+    stage buffer holds (``buffer``, design 1) and the ``design`` (0: the
+    windows, 1: the staged gather, 2: the first port's gather)."""
     bins: int
-    buffer: int
+    buffer: int = PLANE_BUFFER
+    design: int = 0
 
     def per_stage(self, n_harmonics: int) -> int:
         """Decimations the buffer takes at once."""
         return min(n_harmonics, self.buffer // self.bins)
 
+    def segment(self, n_harmonics: int) -> int:
+        return min(SEGMENT_MAX, n_harmonics * self.bins)
+
     def shared_bytes(self, n_harmonics: int) -> int:
+        if self.design == 0:
+            seg = self.segment(n_harmonics)
+            return 8 * (seg + seg // 32)
+        if self.design == 2:
+            return 0
         return 4 * self.bins * self.per_stage(n_harmonics)
 
 
 def plane_tile(n_harmonics: int) -> PlaneTile:
-    """The default tile for H: K = PLANE_BUFFER / H within [256, 2048],
-    so that up to H = 64 every decimation goes through one stage."""
-    bins = min(max(PLANE_BUFFER // n_harmonics, PLANE_BINS[0]),
+    """The default tile for H: K = SEGMENT_MAX / H within [256, 2048]."""
+    bins = min(max(SEGMENT_MAX // n_harmonics, PLANE_BINS[0]),
                PLANE_BINS[-1])
-    return PlaneTile(bins, PLANE_BUFFER)
+    return PlaneTile(bins)
 
 
 def plane_blocks(batch: int, n: int, tile: PlaneTile) -> int:
     """Thread blocks of one plane launch."""
-    return batch * -(-n // tile.bins)
+    return batch * -(-n // (256 if tile.design == 2 else tile.bins))
 
 
 def last_decimation(k0: int, n: int, n_harmonics: int) -> int:
@@ -165,7 +178,7 @@ def _library() -> ctypes.CDLL:
     _P = ctypes.c_void_p
     lib.repro_harmonic_sum_plane.argtypes = [
         _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
     lib.repro_harmonic_sum_plane.restype = ctypes.c_int
     lib.repro_harmonic_sum_plane_blocks_per_sm.argtypes = [ctypes.c_int,
                                                            ctypes.c_int]
@@ -212,7 +225,8 @@ def harmonic_sum_plane(p: torch.Tensor, n_harmonics: int,
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = _library().repro_harmonic_sum_plane(
             p.data_ptr(), stat.data_ptr(), lev.data_ptr(), b, n,
-            levels(n_harmonics), tile.bins, tile.buffer, stream)
+            levels(n_harmonics), tile.bins, tile.design, tile.buffer,
+            stream)
     _raise_on(err, "harmonic_sum_plane")
     return stat, lev
 

@@ -115,8 +115,7 @@ def test_ledger_and_launch_geometry():
     assert port.grid == (13 * 1 * 4,) and port.tile == (64, 128)
     assert dedisp_kernel.blocks(13, 9, 512) == 13 * 1 * 4
     assert dedisp_kernel.blocks(13, 65, 513) == 13 * 2 * 5
-    assert dedisp_kernel.blocks(2, 128, 2**17, dedisp_kernel.Tile(8, 16)) \
-        == 2 * 1 * 512
+    assert dedisp_kernel.blocks(2, 128, 2**17) == 2 * 2 * 1024
 
 
 def test_plain_version_counts_no_launch():
@@ -130,11 +129,10 @@ def test_tuple_tables_are_cached_per_table_and_device():
     delays = tuple(tuple(int(d) for d in row)
                    for row in rand_delays(6, 4, 3, 64))
     cpu = torch.device("cpu")
-    first, lo, hi, staged = ops._device_table(delays, None, cpu)
-    again, _, _, _ = ops._device_table(delays, None, cpu)
+    first, lo, hi = ops._device_table(delays, None, cpu)
+    again, _, _ = ops._device_table(delays, None, cpu)
     assert again is first and first.dtype == torch.int32
     assert (lo, hi) == (min(map(min, delays)), max(map(max, delays)))
-    assert staged is None                 # the kernel's table: GPUs only
     # An equal but distinct tuple builds its own table.
     copy = tuple(tuple(row) for row in delays)
     assert ops._device_table(copy, None, cpu)[0] is not first

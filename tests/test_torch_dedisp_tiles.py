@@ -7,7 +7,7 @@ trial's shift from lo), a channel wider than the staged span read from
 the filterbank, and the sums in channel order.  The emulation is
 bit-identical to the plain version for random tables with a delay of
 N - 1, for tables that mix staged and wide channels, and for the pulsar
-plan's table, at ragged D, N and B and every compiled instance."""
+plan's table, at ragged D, N and B and every swept stage size."""
 import numpy as np
 import pytest
 import torch
@@ -18,14 +18,14 @@ from repro_torch.search import DispersionPlan
 
 
 def emulate_dedisperse(fb: torch.Tensor, delays: torch.Tensor,
-                       tile: D.Tile) -> torch.Tensor:
+                       chunk: int) -> torch.Tensor:
     """The dedisperse kernel's grid on the CPU (see the module docstring)."""
     b, nchan, n = fb.shape
     ndm = delays.shape[0]
-    st = D.staged_table(delays, tile)
-    assert tile.shared_bytes(st.span_cap) <= D.MAX_SHARED_BYTES
-    t_blk, d_blk = tile.samples_per_block, tile.trials_per_block
-    width = tile.width(st.span_cap)
+    st = D.staged_table(delays)
+    assert D.shared_bytes(st.span_cap, chunk) <= D.MAX_SHARED_BYTES
+    t_blk, d_blk = D.SAMPLES_PER_BLOCK, D.TRIALS_PER_BLOCK
+    width = t_blk + st.span_cap
     tiles = -(-n // t_blk)
     x = torch.arange(t_blk)                    # lane + 32 s of each thread
     t0 = torch.arange(tiles) * t_blk
@@ -36,9 +36,9 @@ def emulate_dedisperse(fb: torch.Tensor, delays: torch.Tensor,
     out = torch.empty(b, ndm, n)
     for g in range(st.shifts.shape[0]):
         acc = torch.zeros(b, tiles, d_blk, t_blk)
-        for c0 in range(0, nchan, tile.chunk):
-            cn = min(tile.chunk, nchan - c0)
-            buf = torch.full((b, tiles, tile.chunk * width), float("nan"))
+        for c0 in range(0, nchan, chunk):
+            cn = min(chunk, nchan - c0)
+            buf = torch.full((b, tiles, chunk * width), float("nan"))
             lo, hi = st.lohi[g, c0:c0 + cn].unbind(-1)
             for i in range(cn):                # stage the narrow channels
                 span = int(hi[i] - lo[i])
@@ -96,9 +96,9 @@ def pulsar_table():
         spec, n_trials=128).delay_array().astype(np.int32))
 
 
-def check(fb, table, tile):
+def check(fb, table, chunk=D.CHUNK):
     want = D.dedisperse_plain(fb, table)
-    assert torch.equal(emulate_dedisperse(fb, table, tile), want)
+    assert torch.equal(emulate_dedisperse(fb, table, chunk), want)
 
 
 @pytest.mark.parametrize("batch,nchan,n,ndm", [
@@ -108,47 +108,48 @@ def check(fb, table, tile):
     (1, 7, 3001, 130),      # spans past SPAN_MAX: every channel wide
 ])
 def test_random_tables(batch, nchan, n, ndm):
-    check(rand_fb(n, (batch, nchan, n)), random_table(n, ndm, nchan, n),
-          D.TILE)
+    check(rand_fb(n, (batch, nchan, n)), random_table(n, ndm, nchan, n))
 
 
-@pytest.mark.parametrize("samples,trials", D.INSTANCES)
+@pytest.mark.parametrize("ndm,nchan,n", [(70, 37, 2999), (130, 33, 1025),
+                                         (65, 9, 4097)])
 @pytest.mark.parametrize("chunk", [8, 16, 32])
-def test_every_instance_on_a_mixed_table(samples, trials, chunk):
-    tile = D.Tile(samples, trials, chunk)
-    table = mixed_table(chunk, 70, 37, 2999)
-    st = D.staged_table(table, tile)
+def test_every_instance_on_a_mixed_table(ndm, nchan, n, chunk):
+    """Every stage size of the chip check's sweep, on tables that mix
+    staged and wide channels at ragged D, C and N."""
+    table = mixed_table(chunk + n, ndm, nchan, n)
+    st = D.staged_table(table)
     spans = (st.lohi[..., 1] - st.lohi[..., 0])
     assert (spans <= st.span_cap).any() and (spans > st.span_cap).any()
-    check(rand_fb(samples * trials, (2, 37, 2999)), table, tile)
+    check(rand_fb(chunk + ndm, (2, nchan, n)), table, chunk)
 
 
 def test_the_pulsar_table():
-    """128 trials a block: all 1024 channels staged (the widest span
-    508), on 1024 samples."""
+    """All 1024 channels staged (no span past the widest staged one), 16
+    channels a stage, on 1024 samples."""
     table = pulsar_table()
-    tile = D.Tile(4, 16, 16)
-    st = D.staged_table(table, tile)
-    assert st.shifts.shape == (1, 1024, 128) and st.span_cap == 508
-    assert int(table.max()) == 508 and int(st.lohi[..., 0].max()) == 0
-    check(rand_fb(7, (1, 1024, 1024)), table, tile)
+    st = D.staged_table(table)
+    spans = st.lohi[..., 1] - st.lohi[..., 0]
+    assert int(spans.max()) == st.span_cap <= D.SPAN_MAX
+    assert int(table.max()) == 508 and int(st.lohi[0, :, 0].max()) == 0
+    check(rand_fb(7, (1, 1024, 1024)), table, 16)
 
 
 def test_the_pulsar_table_in_smaller_groups():
-    """64 trials a block (the wrapper's tile): the second group's windows
-    start past 0, and the spans halve."""
+    """64 trials a block: the second group's windows start past 0, and
+    the spans halve."""
     table = pulsar_table()
     st = D.staged_table(table)
-    assert D.TILE.trials_per_block == 64 and st.shifts.shape == (2, 1024, 64)
+    assert D.TRIALS_PER_BLOCK == 64 and st.shifts.shape == (2, 1024, 64)
     assert int(st.lohi[1, :, 0].max()) > 0 and st.span_cap < 508
-    check(rand_fb(8, (2, 1024, 777)), table, D.TILE)
+    check(rand_fb(8, (2, 1024, 777)), table)
 
 
 def test_staged_table_of_a_ragged_group():
     """The last group's trials past D repeat its last trial, so its spans
     are those of the real trials."""
     table = random_table(3, 70, 5, 300)
-    st = D.staged_table(table, D.Tile(4, 8, 16))
+    st = D.staged_table(table)
     assert st.shifts.shape == (2, 5, 64) and st.lohi.shape == (2, 5, 2)
     last = table[64:]
     assert torch.equal(st.lohi[1, :, 0], last.amin(0))
@@ -161,17 +162,29 @@ def test_staged_table_of_a_ragged_group():
 def test_default_tile_fits_two_blocks_an_sm_on_the_pulsar_table():
     """Two blocks and their 1 KB reserves fill the SM's 228 KB."""
     span = D.staged_table(pulsar_table()).span_cap
-    assert D.TILE.stage_bytes(span) == 32 * (4 * 64 + 8 + 4 * (128 + span))
-    assert 2 * D.TILE.shared_bytes(span) + 2048 <= 233472
+    assert D.stage_bytes(span) == 32 * (4 * 64 + 8 + 4 * (128 + span))
+    assert 2 * D.shared_bytes(span) + 2048 <= 233472
     # And its widest staged span fits one block.
-    assert D.TILE.shared_bytes(D.TILE.span_max) <= D.MAX_SHARED_BYTES
+    assert D.shared_bytes(D.SPAN_MAX) <= D.MAX_SHARED_BYTES
 
 
-@pytest.mark.parametrize("samples,trials", D.INSTANCES)
-@pytest.mark.parametrize("chunk", [8, 16, 32])
-def test_every_tile_fits_its_widest_span(samples, trials, chunk):
-    tile = D.Tile(samples, trials, chunk)
-    assert 508 <= tile.span_max <= D.SPAN_MAX
-    assert tile.shared_bytes(tile.span_max) <= D.MAX_SHARED_BYTES
-    if tile.span_max < D.SPAN_MAX:
-        assert tile.shared_bytes(tile.span_max + 1) > D.MAX_SHARED_BYTES
+@pytest.mark.parametrize("chunk", [1, 2, 4, 8, 16, 17, 24, 31, 32])
+def test_every_tile_fits_its_widest_span(chunk):
+    """Every stage size up to the wrapper's holds two buffers of the
+    widest staged span (the pulsar plan's 508 among them); a wider span
+    would not fit at the wrapper's."""
+    assert 508 <= D.SPAN_MAX
+    assert D.shared_bytes(D.SPAN_MAX, chunk) <= D.MAX_SHARED_BYTES
+    assert D.shared_bytes(D.SPAN_MAX + 1, D.CHUNK) > D.MAX_SHARED_BYTES
+
+
+def test_staged_table_is_made_once_per_table_tensor():
+    """The wrapper's staged table is kept while its delay tensor lives
+    unchanged, and made anew after the tensor is written to."""
+    table = random_table(4, 9, 6, 200)
+    first = D._staged(table)
+    assert D._staged(table) is first
+    assert D._staged(table.clone()) is not first
+    table[0, 0] = 199
+    again = D._staged(table)
+    assert again is not first and int(again.lohi[0, 0, 1]) == 199
