@@ -41,8 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      tile edges (random tables with delays up to N - 1, tables mixing
      staged and wide channels, the pulsar plan's table; H in {1, 2, 8, 32,
      64}), then a sweep of their tiles at the pulsar search's shapes
-     (samples and trials a block and channels a stage; bins a block and
-     the stage buffer), each with the blocks one SM holds;
+     (dedisperse's channels a stage, the plane's bins a block), each with
+     the blocks one SM holds;
   4. drive the main path — ``plan_for_length(n)(x)`` on a 2 GB batch
      (``FFTCase(n).n_fft`` transforms) for n = 1024, 8192, 2**20 and
      19321 = 139**2, then ``plan_for_length(n, "r2c")`` and ``"c2r"`` on
@@ -210,9 +210,7 @@ STAGED_KERNELS = {"dedisp": ("dedisperse_kernel", 1),
 #: Their tile sweeps at the pulsar search's shapes: dedisperse's channels
 #: a stage (a run-time argument), harmonic_sum_plane's bins a block.
 DEDISP_SWEEP = (8, 16, 32)
-PLANE_SWEEP = (tuple(H.PlaneTile(k) for k in H.PLANE_BINS)
-               + (H.PlaneTile(2048, 16384, 1), H.PlaneTile(1024, 8192, 1),
-                  H.PlaneTile(256, 16384, 2)))
+PLANE_SWEEP = H.PLANE_BINS
 #: The register-pass kernels (csrc/stockham_regs.cuh) and their symbols.
 PASS_KERNELS = {"fft_c2c": "fft_c2c_regs_kernel",
                 "fft_c2c_t": "fft_c2c_t_regs_kernel",
@@ -1186,10 +1184,10 @@ def phase3_pulsar_kernels(gen: torch.Generator,
             worst, checked = max(worst, rel), checked + 2
         if n == 65537:
             want = H.harmonic_sum_plane_plain(p, 8)
-            for tile in PLANE_SWEEP:
-                diff, same = _same(H.harmonic_sum_plane(p, 8, tile), want)
-                check(same, f"harmonic_sum_plane ({rows}, {n}) {tile}: "
-                      f"differs from plain by {diff:.3e}")
+            for bins in PLANE_SWEEP:
+                diff, same = _same(H.harmonic_sum_plane(p, 8, bins), want)
+                check(same, f"harmonic_sum_plane ({rows}, {n}) at {bins} "
+                      f"bins a block: differs from plain by {diff:.3e}")
                 checked += 1
     for rows, n in ((1, 1), (7, 1025), (1000, 64), (3, 2**20)):
         x = randn(gen, rows, n)
@@ -1299,28 +1297,18 @@ def phase3_pulsar_tiles(gen: torch.Generator) -> None:
     h = PULSAR_HARMONICS
     want = H.harmonic_sum_plane(p, h)
     times, best = [], None
-    for tile in PLANE_SWEEP:
-        fn = lambda: H.harmonic_sum_plane(p, h, tile)  # noqa: E731
-        check(_same(fn(), want)[1], f"harmonic_sum_plane {tile} differs "
-              f"from the wrapper's tile {H.plane_tile(h)}")
+    for bins in PLANE_SWEEP:
+        fn = lambda: H.harmonic_sum_plane(p, h, bins)  # noqa: E731
+        check(_same(fn(), want)[1], f"harmonic_sum_plane at {bins} bins a "
+              f"block differs from the wrapper's {H.plane_bins(h)}")
         ms = median_ms(fn, reps=5)
-        times.append(f"(design {tile.design}, {tile.bins} bins, buffer "
-                     f"{tile.buffer}) "
-                     f"{ms:.4f} ms [{H.plane_blocks_per_sm(tile, h)} an "
-                     f"SM]")
+        times.append(f"({bins} bins) {ms:.4f} ms "
+                     f"[{H.plane_blocks_per_sm(bins, h)} an SM]")
         if best is None or ms < best[1]:
-            best = (tile, ms)
+            best = (bins, ms)
     print(f"  harmonic_sum_plane {(rows, n)} H={h} tiles: "
-          + "; ".join(times) + f"; fastest {best[0]} (the wrapper's "
-          f"{H.plane_tile(h)})")
-    for hh in (1, 2, 8, 32):
-        line = []
-        for tile in (H.plane_tile(hh), H.PlaneTile(2048, 16384, 1),
-                     H.PlaneTile(256, 16384, 2)):
-            fn = lambda: H.harmonic_sum_plane(p, hh, tile)  # noqa: E731
-            line.append(f"design {tile.design} ({tile.bins} bins) "
-                        f"{median_ms(fn, reps=5):.4f} ms")
-        print(f"  harmonic_sum_plane {(rows, n)} H={hh}: " + "; ".join(line))
+          + "; ".join(times) + f"; fastest {best[0]} bins (the wrapper's "
+          f"{H.plane_bins(h)})")
     del p, want
     torch.cuda.empty_cache()
 

@@ -34,7 +34,10 @@
 // a stage at a time.  Blocks are numbered along the row, so a row's tiles
 // run together and the row stays in L2.  The rung scales are computed in
 // the kernel: a table indexed by the run-time rung would sit in each
-// thread's local memory.
+// thread's local memory.  Copying instead each decimation's contiguous
+// window P[j k0, j (k0 + K)) whole, as the TPU reads P[::j] from a resident
+// row, copies j K values for the K a tile uses; on an H100 it took at
+// least 1.6x this design's time at H = 8 (PERF.md section 6).
 //
 // The ladder (harmonic_sum) keeps its first design: one thread a bin,
 // P[j * k] gathered from global memory.
@@ -60,6 +63,8 @@ constexpr int kThreads = 256;
 constexpr int kMaxLevels = 32;
 constexpr size_t kDefaultShared = 48 * 1024;
 constexpr size_t kMaxShared = 232448;
+// Values of the plane's stage buffer (64 KB: three blocks an SM).
+constexpr int kBuffer = 16384;
 
 // The plane's rung bookkeeping once rung `lev` (h = 2^lev) is added: rung
 // 0 sets the best, a later rung's z = (S_h - h) * s_h replaces it only
@@ -88,135 +93,6 @@ __device__ __forceinline__ void rung(int lev, const float (&acc)[kBins],
   }
 }
 
-// The windowed design.  Values of one window segment (unskewed): a
-// decimation's window of j K values goes through the buffers in segments
-// of at most this many.
-constexpr int kSegmentMax = 8192;
-
-// Window slot of value e: one pad float every 32, so that stride-j reads
-// (j = 2, 4, 8) hit 32 banks.
-__device__ __forceinline__ int skew(int e) { return e + (e >> 5); }
-
-// One block a tile of kTile = 256 kBins bins [k0, k0 + kTile) of one row;
-// block i covers tile i % tiles of row i / tiles.  For each decimation j
-// it copies the contiguous window P[j k0, min(n, j (k0 + kTile))) into
-// shared memory, `segment` values at a time, two buffers taking turns; bin
-// k0 + m reads P[j (k0 + m)] at window offset j m.
-template <int kBins>
-__global__ void __launch_bounds__(kThreads)
-    harmonic_sum_plane_kernel(const float* __restrict__ p,
-                              float* __restrict__ stat,
-                              int* __restrict__ level, int n, int levels,
-                              int tiles, int segment) {
-  constexpr int kTile = kThreads * kBins;
-  extern __shared__ float sbuf[];
-  const int buf_floats = segment + (segment >> 5);
-  const long long row = blockIdx.x / tiles;
-  const int k0 = static_cast<int>(blockIdx.x % tiles) * kTile;
-  const int tid = threadIdx.x;
-  const float* pr = p + row * n;
-  const int h_max = 1 << (levels - 1);
-  const int j_last = k0 == 0 ? h_max : min(h_max, (n - 1) / k0);
-  // Values of window j (j k0 < n for j <= j_last).
-  auto window = [&](int j) -> int {
-    const long long start = static_cast<long long>(j) * k0;
-    const long long end =
-        min(static_cast<long long>(n), static_cast<long long>(j) *
-                                           (k0 + kTile));
-    return static_cast<int>(end - start);
-  };
-  auto copy = [&](int j, int s, float* buf) {
-    const int len = min(segment, window(j) - s);
-    const float* src = pr + static_cast<long long>(j) * k0 + s;
-    for (int e = tid; e < len; e += kThreads)
-      __pipeline_memcpy_async(buf + skew(e), src + e, sizeof(float));
-    __pipeline_commit();
-  };
-
-  float acc[kBins], best[kBins];
-  int best_lev[kBins];
-#pragma unroll
-  for (int b = 0; b < kBins; ++b) {
-    acc[b] = 0.0f;
-    best[b] = 0.0f;
-    best_lev[b] = 0;
-  }
-  int lev = 0;
-  int j = 1, s = 0;    // the segment being added
-  int nj = 1, ns = 0;  // the next segment to copy
-  copy(nj, ns, sbuf);
-  for (int it = 0; j <= j_last; ++it) {
-    if (nj <= j_last) {
-      ns += segment;
-      if (ns >= window(nj)) {
-        ++nj;
-        ns = 0;
-      }
-    }
-    if (nj <= j_last) {
-      copy(nj, ns, sbuf + ((it + 1) & 1) * buf_floats);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const float* cur = sbuf + (it & 1) * buf_floats;
-    const int len = min(segment, window(j) - s);
-#pragma unroll
-    for (int b = 0; b < kBins; ++b) {
-      const long long e =
-          static_cast<long long>(j) * (tid + b * kThreads) - s;
-      if (e >= 0 && e < len) {
-        const float v = cur[skew(static_cast<int>(e))];
-        acc[b] = j == 1 ? v : acc[b] + v;
-      }
-    }
-    __syncthreads();  // the buffer is refilled two segments on
-    s += segment;
-    if (s >= window(j)) {
-      if ((j & (j - 1)) == 0) rung<kBins>(lev++, acc, best, best_lev);
-      ++j;
-      s = 0;
-    }
-  }
-  for (; lev < levels; ++lev) rung<kBins>(lev, acc, best, best_lev);
-#pragma unroll
-  for (int b = 0; b < kBins; ++b) {
-    const int k = k0 + tid + b * kThreads;
-    if (k < n) {
-      stat[row * n + k] = best[b];
-      level[row * n + k] = best_lev[b];
-    }
-  }
-}
-
-// The first port's gather (one thread a bin, P[j k] read from global
-// memory), with the rung scale computed in the kernel.
-__global__ void __launch_bounds__(kThreads)
-    harmonic_sum_plane_gather_kernel(const float* __restrict__ p,
-                                     float* __restrict__ stat,
-                                     int* __restrict__ level, int n,
-                                     int levels, int tiles) {
-  const long long row = blockIdx.x / tiles;
-  const int k = (blockIdx.x % tiles) * kThreads + threadIdx.x;
-  if (k >= n) return;
-  const float* pr = p + row * n;
-  float acc[1] = {__ldg(pr + k)}, best[1];
-  int best_lev[1];
-  rung<1>(0, acc, best, best_lev);
-  int h = 1;
-  for (int lev = 1; lev < levels; ++lev) {
-    h *= 2;
-    for (int j = h / 2 + 1; j <= h; ++j) {
-      const long long idx = static_cast<long long>(j) * k;
-      if (idx < n) acc[0] += __ldg(pr + idx);
-    }
-    rung<1>(lev, acc, best, best_lev);
-  }
-  stat[row * n + k] = best[0];
-  level[row * n + k] = best_lev[0];
-}
-
 // One block a tile of kTile = 256 kBins bins [k0, k0 + kTile) of one row;
 // block i covers tile i % tiles of row i / tiles.  Decimations go through
 // the stage buffer `per_stage` at a time: slot (j - j0) kTile + m holds
@@ -224,7 +100,7 @@ __global__ void __launch_bounds__(kThreads)
 // thread, so both the copies and the reads of a warp hit 32 banks.
 template <int kBins>
 __global__ void __launch_bounds__(kThreads)
-    harmonic_sum_plane_staged_kernel(const float* __restrict__ p,
+    harmonic_sum_plane_kernel(const float* __restrict__ p,
                               float* __restrict__ stat,
                               int* __restrict__ level, int n, int levels,
                               int tiles, int per_stage) {
@@ -313,44 +189,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The plane's launch.  design 0: the windows (bins a block; the segment
-// is min(kSegmentMax, H K)); 1: the staged gather (buffer_floats); 2: the
-// first port's gather with the scale in the kernel (one bin a thread).
+// The plane's launch: bins a block -> instance, decimations a stage and
+// shared-memory bytes.
 template <int kBins>
 int launch_plane(const float* p, float* stat, int* level, long long batch,
-                 int n, int levels, int design, int buffer_floats,
-                 cudaStream_t stream) {
+                 int n, int levels, cudaStream_t stream) {
   constexpr int kTile = kThreads * kBins;
+  // H = 2^(levels - 1) is an int.
   if (batch < 1 || n < 1 || levels < 1 || levels > 31)
     return cudaErrorInvalidValue;
-  const int h_max = 1 << (levels - 1);
-  if (design == 2) {
-    const int tiles = (n + kThreads - 1) / kThreads;
-    const long long blocks = batch * tiles;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    harmonic_sum_plane_gather_kernel<<<static_cast<unsigned>(blocks),
-                                       kThreads, 0, stream>>>(
-        p, stat, level, n, levels, tiles);
-    return cudaGetLastError();
-  }
   const int tiles = (n + kTile - 1) / kTile;
   const long long blocks = batch * tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  size_t smem;
-  int arg;
-  if (design == 0) {
-    arg = static_cast<long long>(h_max) * kTile < kSegmentMax
-              ? h_max * kTile
-              : kSegmentMax;
-    smem = 2 * sizeof(float) * static_cast<size_t>(arg + (arg >> 5));
-  } else {
-    if (buffer_floats < kTile) return cudaErrorInvalidValue;
-    arg = h_max < buffer_floats / kTile ? h_max : buffer_floats / kTile;
-    smem = sizeof(float) * static_cast<size_t>(arg) * kTile;
-  }
-  if (smem > kMaxShared) return cudaErrorInvalidValue;
-  auto kernel = design == 0 ? harmonic_sum_plane_kernel<kBins>
-                            : harmonic_sum_plane_staged_kernel<kBins>;
+  const int h_max = 1 << (levels - 1);
+  const int per_stage = h_max < kBuffer / kTile ? h_max : kBuffer / kTile;
+  const size_t smem = sizeof(float) * static_cast<size_t>(per_stage) * kTile;
+  auto kernel = harmonic_sum_plane_kernel<kBins>;
   if (smem > kDefaultShared) {
     if (cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -358,7 +212,7 @@ int launch_plane(const float* p, float* stat, int* level, long long batch,
       return err;
   }
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      p, stat, level, n, levels, tiles, arg);
+      p, stat, level, n, levels, tiles, per_stage);
   return cudaGetLastError();
 }
 
@@ -378,33 +232,28 @@ int check_shape(long long batch, int n, int levels, int* tiles,
 
 extern "C" {
 
-// A block covers ``bins_per_block`` bins (256, 512, 1024 or 2048) of
-// ``design`` (see launch_plane).
+// A block covers ``bins_per_block`` bins (256, 512, 1024 or 2048) and
+// stages their decimations in a buffer of 16384 values.
 int repro_harmonic_sum_plane(const float* p, float* stat, int* level,
                              long long batch, int n, int levels,
-                             int bins_per_block, int design,
-                             int buffer_floats, void* stream) {
+                             int bins_per_block, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   switch (bins_per_block) {
     case 256:
-      return launch_plane<1>(p, stat, level, batch, n, levels, design,
-                             buffer_floats, st);
+      return launch_plane<1>(p, stat, level, batch, n, levels, st);
     case 512:
-      return launch_plane<2>(p, stat, level, batch, n, levels, design,
-                             buffer_floats, st);
+      return launch_plane<2>(p, stat, level, batch, n, levels, st);
     case 1024:
-      return launch_plane<4>(p, stat, level, batch, n, levels, design,
-                             buffer_floats, st);
+      return launch_plane<4>(p, stat, level, batch, n, levels, st);
     case 2048:
-      return launch_plane<8>(p, stat, level, batch, n, levels, design,
-                             buffer_floats, st);
+      return launch_plane<8>(p, stat, level, batch, n, levels, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// Blocks of the windowed plane kernel for ``bins_per_block`` bins and
-// ``smem`` bytes of buffers that one SM holds at once, or -1.
+// Blocks of the plane kernel for ``bins_per_block`` bins and ``smem``
+// bytes of stage buffer that one SM holds at once, or -1.
 int repro_harmonic_sum_plane_blocks_per_sm(int bins_per_block, int smem) {
   int blocks = -1;
   cudaError_t err = cudaErrorInvalidValue;

@@ -19,15 +19,13 @@ kernels' (and the reference's) order, decimation by decimation.
 The plane's kernel gives a block a tile of K bins [k0, k0 + K) and
 stages the values they read, P[j k] for each decimation j, in shared
 memory with asynchronous copies, all at once, before it adds them.
-:class:`PlaneTile` holds K and the stage buffer's capacity;
-:func:`plane_tile` chooses them for H, and :func:`stages` splits a tile's
-decimations into the buffer's stages as the kernel does (the CPU tests
-emulate the kernel from it).
+:func:`plane_bins` chooses K for H, and :func:`stages` splits a tile's
+decimations into the stage buffer's stages as the kernel does (the CPU
+tests emulate the kernel from it).
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 import math
 
@@ -45,8 +43,7 @@ BINS_PER_BLOCK = 256
 #: instances: 1, 2, 4 or 8 bins a thread).
 PLANE_THREADS = 256
 PLANE_BINS = (256, 512, 1024, 2048)
-#: Values the plane's stage buffer holds by default (64 KB: three blocks
-#: an SM).
+#: Values the plane's stage buffer holds (64 KB: three blocks an SM).
 PLANE_BUFFER = 16384
 
 
@@ -65,45 +62,26 @@ def blocks(batch: int, n: int) -> int:
     return batch * -(-n // BINS_PER_BLOCK)
 
 
-#: The windowed design's longest segment (values).
-SEGMENT_MAX = 8192
-
-
-@dataclasses.dataclass(frozen=True)
-class PlaneTile:
-    """A plane launch's tile: ``bins`` a block (K), the values its
-    stage buffer holds (``buffer``, design 1) and the ``design`` (0: the
-    windows, 1: the staged gather, 2: the first port's gather)."""
-    bins: int
-    buffer: int = PLANE_BUFFER
-    design: int = 0
-
-    def per_stage(self, n_harmonics: int) -> int:
-        """Decimations the buffer takes at once."""
-        return min(n_harmonics, self.buffer // self.bins)
-
-    def segment(self, n_harmonics: int) -> int:
-        return min(SEGMENT_MAX, n_harmonics * self.bins)
-
-    def shared_bytes(self, n_harmonics: int) -> int:
-        if self.design == 0:
-            seg = self.segment(n_harmonics)
-            return 8 * (seg + seg // 32)
-        if self.design == 2:
-            return 0
-        return 4 * self.bins * self.per_stage(n_harmonics)
-
-
-def plane_tile(n_harmonics: int) -> PlaneTile:
-    """The default tile for H: K = SEGMENT_MAX / H within [256, 2048]."""
-    bins = min(max(SEGMENT_MAX // n_harmonics, PLANE_BINS[0]),
+def plane_bins(n_harmonics: int) -> int:
+    """K for H: PLANE_BUFFER / H within [256, 2048], so that up to H =
+    64 every decimation goes through one stage."""
+    return min(max(PLANE_BUFFER // n_harmonics, PLANE_BINS[0]),
                PLANE_BINS[-1])
-    return PlaneTile(bins)
 
 
-def plane_blocks(batch: int, n: int, tile: PlaneTile) -> int:
-    """Thread blocks of one plane launch."""
-    return batch * -(-n // (256 if tile.design == 2 else tile.bins))
+def per_stage(n_harmonics: int, bins: int) -> int:
+    """Decimations the stage buffer takes at once for K = ``bins``."""
+    return min(n_harmonics, PLANE_BUFFER // bins)
+
+
+def shared_bytes(n_harmonics: int, bins: int) -> int:
+    """Bytes of the stage buffer of one block."""
+    return 4 * bins * per_stage(n_harmonics, bins)
+
+
+def plane_blocks(batch: int, n: int, bins: int) -> int:
+    """Thread blocks of one plane launch of K = ``bins``."""
+    return batch * -(-n // bins)
 
 
 def last_decimation(k0: int, n: int, n_harmonics: int) -> int:
@@ -112,12 +90,11 @@ def last_decimation(k0: int, n: int, n_harmonics: int) -> int:
     return n_harmonics if k0 == 0 else min(n_harmonics, (n - 1) // k0)
 
 
-def stages(k0: int, n: int, n_harmonics: int, tile: PlaneTile
-           ) -> list[range]:
-    """The decimations of the tile at k0, stage by stage, in the kernel's
-    order."""
+def stages(k0: int, n: int, n_harmonics: int, bins: int) -> list[range]:
+    """The decimations of the tile of K = ``bins`` at k0, stage by
+    stage, in the kernel's order."""
     last = last_decimation(k0, n, n_harmonics)
-    per = tile.per_stage(n_harmonics)
+    per = per_stage(n_harmonics, bins)
     return [range(j0, min(last, j0 + per - 1) + 1)
             for j0 in range(1, last + 1, per)]
 
@@ -178,7 +155,7 @@ def _library() -> ctypes.CDLL:
     _P = ctypes.c_void_p
     lib.repro_harmonic_sum_plane.argtypes = [
         _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+        ctypes.c_int, _P]
     lib.repro_harmonic_sum_plane.restype = ctypes.c_int
     lib.repro_harmonic_sum_plane_blocks_per_sm.argtypes = [ctypes.c_int,
                                                            ctypes.c_int]
@@ -208,10 +185,11 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def harmonic_sum_plane(p: torch.Tensor, n_harmonics: int,
-                       tile: PlaneTile | None = None
+                       bins: int | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, N) float32 power -> ((B, N) statistic, (B, N) int32 rung).
-    ``tile`` overrides :func:`plane_tile` (the chip check's sweep)."""
+    ``bins`` (one of PLANE_BINS) overrides :func:`plane_bins` (the chip
+    check's sweep)."""
     _check(p, n_harmonics, "harmonic_sum_plane")
     if p.device.type == "cpu":
         return harmonic_sum_plane_plain(p, n_harmonics)
@@ -220,22 +198,21 @@ def harmonic_sum_plane(p: torch.Tensor, n_harmonics: int,
     lev = torch.empty(p.shape, dtype=torch.int32, device=p.device)
     if p.numel() == 0:
         return stat, lev
-    tile = tile or plane_tile(n_harmonics)
+    bins = bins or plane_bins(n_harmonics)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = _library().repro_harmonic_sum_plane(
             p.data_ptr(), stat.data_ptr(), lev.data_ptr(), b, n,
-            levels(n_harmonics), tile.bins, tile.design, tile.buffer,
-            stream)
+            levels(n_harmonics), bins, stream)
     _raise_on(err, "harmonic_sum_plane")
     return stat, lev
 
 
-def plane_blocks_per_sm(tile: PlaneTile, n_harmonics: int) -> int:
-    """Plane blocks of ``tile`` that one SM of the current card holds at
-    ``n_harmonics``."""
+def plane_blocks_per_sm(bins: int, n_harmonics: int) -> int:
+    """Plane blocks of K = ``bins`` that one SM of the current card holds
+    at ``n_harmonics``."""
     return _library().repro_harmonic_sum_plane_blocks_per_sm(
-        tile.bins, tile.shared_bytes(n_harmonics))
+        bins, shared_bytes(n_harmonics, bins))
 
 
 def harmonic_sum(p: torch.Tensor, n_harmonics: int) -> torch.Tensor:

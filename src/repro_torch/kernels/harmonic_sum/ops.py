@@ -83,8 +83,8 @@ def harmonic_sum_plane(power, n_harmonics: int = 8
     power = _checked_power(power, n_harmonics, "harmonic_sum_plane")
     p2, b, n = _rows(power)
     stat, lev = K.harmonic_sum_plane(p2, n_harmonics)
-    tile = K.plane_tile(n_harmonics)
-    record_launch("harmonic-sum-plane", grid=(K.plane_blocks(b, n, tile),),
-                  tile=(1, tile.bins), bytes_moved=12 * b * n, shape=(b, n))
+    bins = K.plane_bins(n_harmonics)
+    record_launch("harmonic-sum-plane", grid=(K.plane_blocks(b, n, bins),),
+                  tile=(1, bins), bytes_moved=12 * b * n, shape=(b, n))
     lead = power.shape[:-1]
     return stat.reshape(*lead, n), lev.reshape(*lead, n)

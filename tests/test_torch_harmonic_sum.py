@@ -127,7 +127,7 @@ def test_ledger_records():
     assert port.bytes_moved == 12 * 21 * 129
     # H = 8: a plane block takes 2048 bins (eight a thread).
     assert port.grid == (21,) and port.tile == (1, 2048)
-    assert K.plane_blocks(21, 65537, K.plane_tile(8)) == 21 * 33
+    assert K.plane_blocks(21, 65537, K.plane_bins(8)) == 21 * 33
     _, _, ref_recs, port_recs = run_both(
         lambda: ref_ladder(p, 8, interpret=True),
         lambda: harmonic_sum_kernel(torch.from_numpy(p), 8))

@@ -6,7 +6,7 @@ nothing elsewhere), every read at the slot the kernel reads, the
 decimations stage by stage where they exceed the buffer, and the rungs in
 the kernel's order.  The emulation is bit-identical to the plain version
 at ragged shapes (odd N, N = 65537, a last tile cut short), for H in {1,
-2, 8, 32} and past one stage (H = 128), at every swept tile; and the
+2, 8, 32} and past one stage (H = 128), at every compiled K; and the
 copies and reads of a warp are 32 consecutive slots."""
 import numpy as np
 import pytest
@@ -20,24 +20,24 @@ def rand_power(seed, shape):
                             .astype(np.float32))
 
 
-def slot(j: int, j0: int, m, tile: K.PlaneTile):
+def slot(j: int, j0: int, m, bins: int):
     """The stage-buffer slot of bin k0 + m's decimation j."""
-    return (j - j0) * tile.bins + m
+    return (j - j0) * bins + m
 
 
-def emulate_plane(p: torch.Tensor, n_harmonics: int, tile: K.PlaneTile):
+def emulate_plane(p: torch.Tensor, n_harmonics: int, bins: int):
     """The plane kernel's grid on the CPU (see the module docstring)."""
     b, n = p.shape
     n_levels = K.levels(n_harmonics)
     scales = K.rung_scales(n_levels)
     stat = torch.empty_like(p)
     level = torch.empty(p.shape, dtype=torch.int32)
-    m = torch.arange(tile.bins)
-    for k0 in range(0, n, tile.bins):
+    m = torch.arange(bins)
+    for k0 in range(0, n, bins):
         k = k0 + m
-        acc = torch.zeros(b, tile.bins)
-        best = torch.zeros(b, tile.bins)
-        best_lev = torch.zeros(b, tile.bins, dtype=torch.int32)
+        acc = torch.zeros(b, bins)
+        best = torch.zeros(b, bins)
+        best_lev = torch.zeros(b, bins, dtype=torch.int32)
         lev = 0
 
         def rung(h):
@@ -51,18 +51,18 @@ def emulate_plane(p: torch.Tensor, n_harmonics: int, tile: K.PlaneTile):
                 best_lev = torch.where(better, lev, best_lev)
             lev += 1
 
-        for js in K.stages(k0, n, n_harmonics, tile):
-            assert len(js) <= tile.per_stage(n_harmonics)
-            buf = torch.full((b, tile.shared_bytes(n_harmonics) // 4),
+        for js in K.stages(k0, n, n_harmonics, bins):
+            assert len(js) <= K.per_stage(n_harmonics, bins)
+            buf = torch.full((b, K.shared_bytes(n_harmonics, bins) // 4),
                              float("nan"))
             for j in js:                                   # the copies
                 reads = j * k < n
-                dst = slot(j, js[0], m[reads], tile)
+                dst = slot(j, js[0], m[reads], bins)
                 assert torch.isnan(buf[:, dst]).all()      # written once
                 buf[:, dst] = p[:, j * k[reads]]
             for j in js:                                   # the adds
                 reads = j * k < n
-                v = buf[:, slot(j, js[0], m[reads], tile)]
+                v = buf[:, slot(j, js[0], m[reads], bins)]
                 assert not torch.isnan(v).any()            # copied slots
                 acc[:, reads] = v if j == 1 else acc[:, reads] + v
                 if j & (j - 1) == 0:
@@ -75,48 +75,46 @@ def emulate_plane(p: torch.Tensor, n_harmonics: int, tile: K.PlaneTile):
     return stat, level
 
 
-def check(p, h, tile):
+def check(p, h, bins):
     want = K.harmonic_sum_plane_plain(p, h)
-    got = emulate_plane(p, h, tile)
+    got = emulate_plane(p, h, bins)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("h", [1, 2, 8, 32])
 @pytest.mark.parametrize("n", [1, 255, 1025, 4097])
 def test_emulated_grid_is_the_plain_version(n, h):
-    check(rand_power(n + h, (3, n)), h, K.plane_tile(h))
+    check(rand_power(n + h, (3, n)), h, K.plane_bins(h))
 
 
 @pytest.mark.parametrize("h", [1, 2, 8, 32])
 def test_emulated_grid_at_the_pulsar_row_length(h):
     """N = 65537: rows start 4-byte aligned, the last tile holds 1 bin."""
-    check(rand_power(h, (2, 65537)), h, K.plane_tile(h))
+    check(rand_power(h, (2, 65537)), h, K.plane_bins(h))
 
 
-@pytest.mark.parametrize("bins,buffer", [
-    (bins, buffer) for bins in K.PLANE_BINS
-    for buffer in (2048, 4096, 8192, 16384) if buffer >= bins])
-def test_every_swept_tile_is_the_plain_version(bins, buffer):
-    """The chip check's sweep of K and the buffer at H = 8 (the buffer
-    holds one decimation of K values at least); a buffer below 8 K values
-    takes the decimations in several stages."""
-    check(rand_power(bins + buffer, (2, 8193)), 8, K.PlaneTile(bins, buffer))
+@pytest.mark.parametrize("h", [1, 2, 8, 32])
+@pytest.mark.parametrize("bins", K.PLANE_BINS)
+def test_every_swept_tile_is_the_plain_version(bins, h):
+    """Every compiled K (the chip check's sweep at H = 8) at each H: at
+    K = 2048 and H = 32 the decimations take four stages."""
+    check(rand_power(bins + h, (2, 8193)), h, bins)
 
 
 def test_decimations_past_one_stage():
-    tile = K.plane_tile(128)
-    assert tile == K.PlaneTile(256, 16384) and tile.per_stage(128) == 64
-    assert [list(js)[::63] for js in K.stages(0, 2049, 128, tile)] == \
+    bins = K.plane_bins(128)
+    assert bins == 256 and K.per_stage(128, bins) == 64
+    assert [list(js)[::63] for js in K.stages(0, 2049, 128, bins)] == \
         [[1, 64], [65, 128]]
-    check(rand_power(128, (2, 2049)), 128, tile)
+    check(rand_power(128, (2, 2049)), 128, bins)
 
 
 @pytest.mark.parametrize("h", [1, 2, 4, 8, 16, 32, 64, 1024])
 def test_default_tiles_fit_three_blocks_an_sm(h):
-    tile = K.plane_tile(h)
-    assert tile.bins in K.PLANE_BINS and tile.buffer >= tile.bins
-    assert 3 * (tile.shared_bytes(h) + 1024) <= 233472
-    assert tile.per_stage(h) == min(h, 64)
+    bins = K.plane_bins(h)
+    assert bins in K.PLANE_BINS and K.PLANE_BUFFER >= bins
+    assert 3 * (K.shared_bytes(h, bins) + 1024) <= 233472
+    assert K.per_stage(h, bins) == min(h, 64)
 
 
 def test_stages_of_the_pulsar_tiles():
@@ -124,25 +122,25 @@ def test_stages_of_the_pulsar_tiles():
     decimations in one stage; a tile past N / 8 takes fewer (up to the
     last that stays inside the row); one past N / 2 only its own
     values."""
-    tile, n = K.plane_tile(8), 65537
-    assert tile == K.PlaneTile(2048, 16384) and tile.shared_bytes(8) == 65536
-    assert K.stages(0, n, 8, tile) == [range(1, 9)]
-    assert K.stages(6144, n, 8, tile) == [range(1, 9)]
-    assert K.stages(8192, n, 8, tile) == [range(1, 9)]
-    assert K.stages(10240, n, 8, tile) == [range(1, 7)]
-    assert K.stages(16384, n, 8, tile) == [range(1, 5)]
-    assert K.stages(32768, n, 8, tile) == [range(1, 3)]
-    assert K.stages(65536, n, 8, tile) == [range(1, 2)]
+    bins, n = K.plane_bins(8), 65537
+    assert bins == 2048 and K.shared_bytes(8, bins) == 65536
+    assert K.stages(0, n, 8, bins) == [range(1, 9)]
+    assert K.stages(6144, n, 8, bins) == [range(1, 9)]
+    assert K.stages(8192, n, 8, bins) == [range(1, 9)]
+    assert K.stages(10240, n, 8, bins) == [range(1, 7)]
+    assert K.stages(16384, n, 8, bins) == [range(1, 5)]
+    assert K.stages(32768, n, 8, bins) == [range(1, 3)]
+    assert K.stages(65536, n, 8, bins) == [range(1, 2)]
 
 
 @pytest.mark.parametrize("j", [1, 2, 3, 8, 31, 64])
 def test_a_warp_copies_and_reads_consecutive_slots(j):
     """Lane l of warp w handles bin k0 + 32 w + l (+ 256 b): its slots
     are 32 consecutive words, one a bank, whatever j."""
-    tile = K.plane_tile(8)
+    bins = K.plane_bins(8)
     for warp in range(K.PLANE_THREADS // 32):
-        for b in range(tile.bins // K.PLANE_THREADS):
+        for b in range(bins // K.PLANE_THREADS):
             m = b * K.PLANE_THREADS + 32 * warp + np.arange(32)
-            slots = slot(j, 1, m, tile)
+            slots = slot(j, 1, m, bins)
             assert np.array_equal(np.diff(slots), np.ones(31))
             assert sorted(slots % 32) == list(range(32))
