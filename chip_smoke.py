@@ -13,9 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``dedisp``, ``harmonic_sum`` and ``spectrum``, one ``nvcc`` each, in
      parallel) and check that no instance of the register-pass kernels
      (``fft_c2c``, ``fft_c2c_t``, ``fft_c2c_axis1``, ``fft_r2c``,
-     ``fft_c2r``, ``fft_r2c_t``) or of the staged ``dedisperse`` and
-     ``harmonic_sum_plane`` kernels spills registers or keeps a stack
-     frame (each staged instance's registers, stack and spills printed);
+     ``fft_c2r``, ``fft_r2c_t``) or of the staged ``dedisperse``,
+     ``harmonic_sum_plane`` and ``harmonic_sum`` kernels spills registers
+     or keeps a stack frame (each staged instance's registers, stack and
+     spills printed);
   2. print the card's name and power limit (``nvidia-smi``);
   3. hold each kernel (the C2C variants: fft_c2c, fft_c2c_t with and
      without twiddle, fft_c2c_axis1 with and without twiddle, forward and
@@ -36,13 +37,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      Python wrapper, the kernel function, the ctypes call, the C entry)
      beside torch.fft's; fft_r2c_t at the rfft2 pass (16, 4096, 8192),
      fft_c2c_t and fft_c2c_axis1 at (16, 4096, 4096) and (238, 1024, 1024)
-     with 1, 4 and 8 rows or columns a cluster; dedisperse and
-     harmonic_sum_plane bit-identical to their plain versions at their
-     tile edges (random tables with delays up to N - 1, tables mixing
-     staged and wide channels, the pulsar plan's table; H in {1, 2, 8, 32,
-     64}), then a sweep of their tiles at the pulsar search's shapes
-     (dedisperse's channels a stage, the plane's bins a block), each with
-     the blocks one SM holds;
+     with 1, 4 and 8 rows or columns a cluster; dedisperse,
+     harmonic_sum_plane and harmonic_sum bit-identical to their plain
+     versions at their tile edges (random tables with delays up to N - 1,
+     tables mixing staged and wide channels, the pulsar plan's table; H in
+     {1, 2, 8, 32, 64}), power_spectrum_stats within KERNEL_RTOL at B = 1,
+     odd N, many short rows and the demo's shape, with the same bits from
+     two calls; then a sweep of their tiles (dedisperse's channels a
+     stage and the plane's bins a block at the pulsar search's shapes, the
+     ladder's bins a block and the spectrum's segments a row at the
+     demo's), each with the blocks one SM holds;
   4. drive the main path — ``plan_for_length(n)(x)`` on a 2 GB batch
      (``FFTCase(n).n_fft`` transforms) for n = 1024, 8192, 2**20 and
      19321 = 139**2, then ``plan_for_length(n, "r2c")`` and ``"c2r"`` on
@@ -202,15 +206,24 @@ LEDGER_TO_KERNEL = {"fft-c2c": "fft_c2c", "fft-c2c-t": "fft_c2c_t",
 KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
            "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
            "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
-#: The staged kernels of the pulsar search and their compiled instances:
-#: dedisperse_kernel (one) and harmonic_sum_plane_kernel<bins a thread>.
-STAGED_KERNELS = {"dedisp": ("dedisperse_kernel", 1),
-                  "harmonic_sum": ("harmonic_sum_plane_kernel",
-                                   len(H.PLANE_BINS))}
-#: Their tile sweeps at the pulsar search's shapes: dedisperse's channels
-#: a stage (a run-time argument), harmonic_sum_plane's bins a block.
+#: The staged kernels and their compiled instances, by library:
+#: dedisperse_kernel (one), harmonic_sum_plane_kernel<bins a thread> and
+#: harmonic_sum_kernel<bins a thread> (the ladder on the same body).
+STAGED_KERNELS = (("dedisp", "dedisperse_kernel", 1),
+                  ("harmonic_sum", "harmonic_sum_plane_kernel",
+                   len(H.PLANE_BINS)),
+                  ("harmonic_sum", "harmonic_sum_kernel", len(H.PLANE_BINS)))
+#: Their tile sweeps: dedisperse's channels a stage (a run-time argument)
+#: and harmonic_sum_plane's bins a block at the pulsar search's shapes,
+#: the ladder's bins a block at the demo's.
 DEDISP_SWEEP = (8, 16, 32)
 PLANE_SWEEP = H.PLANE_BINS
+#: power_spectrum_stats's segments a row swept at the demo's shape (a
+#: run-time argument; the wrapper's own count is timed beside them), and
+#: the shapes of its check: B = 1, one bin, odd N, many short rows.
+SPECTRUM_SWEEP = (1, 8, 16, 24, 50, 99, 198, 396)
+SPECTRUM_SHAPES = ((1, 1), (7, 1025), (1000, 64), (3, 2**20), (1, 2**20),
+                   (3, 1025), (4096, 1025), (32, 2**20))
 #: The register-pass kernels (csrc/stockham_regs.cuh) and their symbols.
 PASS_KERNELS = {"fft_c2c": "fft_c2c_regs_kernel",
                 "fft_c2c_t": "fft_c2c_t_regs_kernel",
@@ -413,6 +426,14 @@ def device_breakdown(fn) -> dict[str, float]:
     return out
 
 
+def device_ms(fn, kernel: str, calls: int = 10) -> float:
+    """Device time [ms] of ``kernel`` a call, over ``calls`` calls of ``fn``
+    in one profiled run (after one warm-up call)."""
+    fn()
+    return device_breakdown(
+        lambda: [fn() for _ in range(calls)])[kernel] / calls
+
+
 def _symbol(kernel: str) -> str:
     """The __global__ function name of ``kernel``."""
     return PASS_KERNELS.get(kernel, f"{kernel}_kernel")
@@ -444,7 +465,7 @@ def phase1_build() -> None:
               f"the ptxas logs, not {len(K.PASS_SHAPES)}")
         print(f"  {kernel}: {found} instances (points, family) "
               f"{sorted(K.PASS_SHAPES)}, none spills")
-    for stem, (sym, count) in STAGED_KERNELS.items():
+    for stem, sym, count in STAGED_KERNELS:
         log = libs[stem].with_suffix(".so.log")
         staged = _pass_kernel_spills(log, (sym,))
         regs, stack = _registers(log)
@@ -1107,10 +1128,13 @@ def _tables(pulsar_table: np.ndarray):
 
 def _pulsar_row(name: str, shape, fn, plain, compare, nbytes: float,
                 flops: float, composition=None, composition_call=None,
-                adds: float = 0.0) -> dict:
+                adds: float = 0.0, device: bool = False) -> dict:
     """Check ``fn`` against ``plain`` with ``compare`` (-> (max abs err,
     ok)), then time both and the nearest torch composition; print and
-    return the row (no single PyTorch call computes these functions)."""
+    return the row (no single PyTorch call computes these functions).
+    ``device``: also print the kernel's time launched back to back
+    (``queued_ms``) and its device time a call (``device_ms``), beside the
+    single call's, which counts the wrapper's host work at small sizes."""
     got = fn()
     want = plain()
     abs_err, ok = compare(got, want)
@@ -1126,6 +1150,9 @@ def _pulsar_row(name: str, shape, fn, plain, compare, nbytes: float,
         note = (f"none; the nearest torch composition, {composition_call}, "
                 f"{median_ms(composition, reps=5):.4f} ms")
         torch.cuda.empty_cache()
+    if device:
+        note += (f"; back to back {queued_ms(fn):.4f} ms, device time "
+                 f"{device_ms(fn, name):.4f} ms")
     bound_ms, bound_by = bound(nbytes, flops, adds)
     print(f"  {name} {tuple(shape)}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
           f"GB/s), bound {bound_ms:.4f} ms ({bound_by}; {nbytes:.0f} bytes, "
@@ -1147,12 +1174,13 @@ def _same(got, want):
 
 def phase3_pulsar_kernels(gen: torch.Generator,
                           results: dict[str, dict]) -> None:
-    """dedisperse and harmonic_sum_plane bit-identical to their plain
-    versions at their tile edges (every dedisperse instance; the plane at
-    H in {1, 2, 8, 32, 64} and at every swept tile), harmonic_sum and
-    power_spectrum_stats within KERNEL_RTOL at small, ragged shapes; then
-    each timed at the shapes the pulsar search and the demo give it; adds
-    one row per kernel to ``results``."""
+    """dedisperse, harmonic_sum_plane and harmonic_sum bit-identical to
+    their plain versions at their tile edges (every dedisperse stage size;
+    the plane and the ladder at H in {1, 2, 8, 32, 64} and at every swept
+    tile), power_spectrum_stats within KERNEL_RTOL at SPECTRUM_SHAPES and
+    bit-identical from one call to the next; then each timed at the
+    shapes the pulsar search and the demo give it; adds one row per
+    kernel to ``results``."""
     plan = DispersionPlan.from_spec(PULSAR_SPEC, n_trials=PULSAR_TRIALS)
     checked, worst = 0, 0.0
     for batch, n, delays in _tables(plan.delay_array()):
@@ -1177,31 +1205,40 @@ def phase3_pulsar_kernels(gen: torch.Generator,
                                H.harmonic_sum_plane_plain(p, h))
             check(same, f"harmonic_sum_plane ({rows}, {n}) H={h}: differs "
                   f"from plain by {diff:.3e}")
-            _, rel = rel_err(harmonic_sum_kernel(p, h),
-                             H.harmonic_sum_plain(p, h))
-            check(rel <= KERNEL_RTOL, f"harmonic_sum ({rows}, {n}) H={h}: "
-                  f"rel err {rel:.3e}")
-            worst, checked = max(worst, rel), checked + 2
+            diff, same = _same(harmonic_sum_kernel(p, h),
+                               H.harmonic_sum_plain(p, h))
+            check(same, f"harmonic_sum ({rows}, {n}) H={h}: differs from "
+                  f"plain by {diff:.3e}")
+            checked += 2
         if n == 65537:
             want = H.harmonic_sum_plane_plain(p, 8)
+            ladder = H.harmonic_sum_plain(p, 32)
             for bins in PLANE_SWEEP:
                 diff, same = _same(H.harmonic_sum_plane(p, 8, bins), want)
                 check(same, f"harmonic_sum_plane ({rows}, {n}) at {bins} "
                       f"bins a block: differs from plain by {diff:.3e}")
-                checked += 1
-    for rows, n in ((1, 1), (7, 1025), (1000, 64), (3, 2**20)):
+                diff, same = _same(H.harmonic_sum(p, 32, bins), ladder)
+                check(same, f"harmonic_sum ({rows}, {n}) H=32 at {bins} "
+                      f"bins a block: differs from plain by {diff:.3e}")
+                checked += 2
+    for rows, n in SPECTRUM_SHAPES:
         x = randn(gen, rows, n)
-        p, mean, std = power_spectrum_stats_kernel(x)
+        got = power_spectrum_stats_kernel(x)
         wp, wmean, wvar = S.power_spectrum_stats_plain(x)
-        rels = [rel_err(p, wp)[1], rel_err(mean, wmean)[1],
-                rel_err(std, torch.sqrt(torch.clamp_min(wvar, 0.0)))[1]]
+        rels = [rel_err(got[0], wp)[1], rel_err(got[1], wmean)[1],
+                rel_err(got[2], torch.sqrt(torch.clamp_min(wvar, 0.0)))[1]]
         check(max(rels) <= KERNEL_RTOL,
               f"power_spectrum_stats ({rows}, {n}): rel errs {rels}")
-        worst, checked = max(worst, *rels), checked + 1
+        again = power_spectrum_stats_kernel(x)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"power_spectrum_stats ({rows}, {n}): two calls differ")
+        worst, checked = max(worst, *rels), checked + 2
+        del x, got, again, wp
     torch.cuda.synchronize()
-    print(f"phase 3: {checked} pulsar-kernel-vs-plain checks; dedisperse "
-          f"and harmonic_sum_plane bit-identical, the others' max relative "
-          f"error {worst:.3e} (limit {KERNEL_RTOL})")
+    print(f"phase 3: {checked} pulsar-kernel-vs-plain checks; dedisperse, "
+          f"harmonic_sum_plane and harmonic_sum bit-identical, "
+          f"power_spectrum_stats's max relative error {worst:.3e} (limit "
+          f"{KERNEL_RTOL}) and the same bits from two calls")
 
     # dedisperse at the pulsar phase's shape, with its plan's table: D C N
     # adds a filterbank, less the terms past N (zero).
@@ -1229,19 +1266,16 @@ def phase3_pulsar_kernels(gen: torch.Generator,
     del p
     torch.cuda.empty_cache()
 
-    def close(got, want):
-        diff, rel = rel_err(got, want)
-        return diff, rel <= KERNEL_RTOL
     # harmonic_sum and power_spectrum_stats at the demo's shape.
     b, n, h = DEMO_SHAPE.batch, DEMO_SHAPE.n, DEMO_SHAPE.n_harmonics
     p = torch.empty(b, n, device="cuda").exponential_(generator=gen)
     levels = H.levels(h)
     results["harmonic_sum"] = _pulsar_row(
         "harmonic_sum", (b, n), lambda: harmonic_sum_kernel(p, h),
-        lambda: H.harmonic_sum_plain(p, h), close,
+        lambda: H.harmonic_sum_plain(p, h), _same,
         4 * b * n * (1 + levels), 0, lambda: harmonic_sum_ref(p, h),
         "the gather ladder of harmonic_sum_ref",
-        adds=_harmonic_adds(b, n, h))
+        adds=_harmonic_adds(b, n, h), device=True)
     del p
     x = randn(gen, b, n)
 
@@ -1260,17 +1294,21 @@ def phase3_pulsar_kernels(gen: torch.Generator,
         lambda: S.power_spectrum_stats_plain(x), stats_close,
         12 * b * n + 8 * b, 8 * b * n, composition,
         "p = x.real**2 + x.imag**2; p /= n; torch.var_mean(p, -1, "
-        "correction=0)")
+        "correction=0)", device=True)
     del x
     torch.cuda.empty_cache()
 
 
 def phase3_pulsar_tiles(gen: torch.Generator) -> None:
-    """The staged kernels' tiles at the pulsar search's shapes: dedisperse
-    over DEDISP_SWEEP on 2 filterbanks of 1024 x 2**17 with the plan's
-    table, harmonic_sum_plane over PLANE_SWEEP on its (21760, 65537) plane
-    at H = 8; each tile checked bit-identical to the wrapper's and timed
-    (median of 5), with the blocks one SM holds."""
+    """The staged kernels' tiles: dedisperse over DEDISP_SWEEP on 2
+    filterbanks of 1024 x 2**17 with the plan's table, harmonic_sum_plane
+    over PLANE_SWEEP on its (21760, 65537) plane at H = 8, harmonic_sum
+    over PLANE_SWEEP at the demo's (32, 2**20), H = 32; each tile checked
+    bit-identical to the wrapper's or the plain version and timed (median
+    of 5; the ladder also by its device time), with the blocks one SM
+    holds.  Then power_spectrum_stats over SPECTRUM_SWEEP segments a row
+    at the demo's shape, each within KERNEL_RTOL and timed by its device
+    time and back to back (its single call is mostly host time)."""
     plan = DispersionPlan.from_spec(PULSAR_SPEC, n_trials=PULSAR_TRIALS)
     b, c, n = 2, PULSAR_SPEC.nchan, PULSAR_SPEC.ntime
     fb = torch.randn(b, c, n, device="cuda", generator=gen)
@@ -1303,13 +1341,52 @@ def phase3_pulsar_tiles(gen: torch.Generator) -> None:
               f"block differs from the wrapper's {H.plane_bins(h)}")
         ms = median_ms(fn, reps=5)
         times.append(f"({bins} bins) {ms:.4f} ms "
-                     f"[{H.plane_blocks_per_sm(bins, h)} an SM]")
+                     f"[{H.blocks_per_sm(bins, h)} an SM]")
         if best is None or ms < best[1]:
             best = (bins, ms)
     print(f"  harmonic_sum_plane {(rows, n)} H={h} tiles: "
           + "; ".join(times) + f"; fastest {best[0]} bins (the wrapper's "
           f"{H.plane_bins(h)})")
     del p, want
+    torch.cuda.empty_cache()
+    b, n, h = DEMO_SHAPE.batch, DEMO_SHAPE.n, DEMO_SHAPE.n_harmonics
+    p = torch.empty(b, n, device="cuda").exponential_(generator=gen)
+    want = H.harmonic_sum_plain(p, h)
+    times, best = [], None
+    for bins in PLANE_SWEEP:
+        fn = lambda: H.harmonic_sum(p, h, bins)  # noqa: E731
+        diff, same = _same(fn(), want)
+        check(same, f"harmonic_sum at {bins} bins a block differs from "
+              f"plain by {diff:.3e}")
+        ms = median_ms(fn, reps=5)
+        dev = device_ms(fn, "harmonic_sum")
+        times.append(f"({bins} bins) {ms:.4f} ms, device {dev:.4f} ms "
+                     f"[{H.blocks_per_sm(bins, h, plane=False)} an SM]")
+        if best is None or ms < best[1]:
+            best = (bins, ms)
+    print(f"  harmonic_sum {(b, n)} H={h} tiles: " + "; ".join(times)
+          + f"; fastest {best[0]} bins (the wrapper's {H.LADDER_BINS})")
+    del p, want
+    torch.cuda.empty_cache()
+    x = randn(gen, b, n)
+    want = S.power_spectrum_stats_plain(x)
+    wave = S._wave(x.device.index)
+    times, best = [], None
+    for count in (*SPECTRUM_SWEEP, None):
+        fn = lambda: S.power_spectrum_stats(x, count)  # noqa: E731
+        rels = [rel_err(g, w)[1] for g, w in zip(fn(), want)]
+        check(max(rels) <= KERNEL_RTOL, f"power_spectrum_stats at {count} "
+              f"segments a row: rel errs {rels}")
+        ms = device_ms(fn, "power_spectrum_stats")
+        segs, seg = S.segments(b, n, wave, count)
+        label = "the wrapper's" if count is None else "asked"
+        times.append(f"({segs} segments of {seg} bins, {label}) device "
+                     f"{ms:.4f} ms, back to back {queued_ms(fn):.4f} ms")
+        if best is None or ms < best[1]:
+            best = (segs, ms)
+    print(f"  power_spectrum_stats {(b, n)} segments a row ({wave} blocks "
+          f"a wave): " + "; ".join(times) + f"; fastest {best[0]}")
+    del x, want
     torch.cuda.empty_cache()
 
 

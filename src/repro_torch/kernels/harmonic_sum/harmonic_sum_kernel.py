@@ -13,15 +13,18 @@ A CPU tensor runs the plain version; a CUDA tensor launches the kernel of
 ``repro_torch/csrc/harmonic_sum.cu`` (its header says which TPU kernels
 they replace, what bounds them and what their design does about that) and
 raises if the launch fails.  The plain versions add the rungs in the
-kernels' (and the reference's) order, decimation by decimation.
-``LAUNCHES`` counts kernel launches only.
+kernels' (and the reference's) order, decimation by decimation, so the
+kernels are bit-identical to them.  ``LAUNCHES`` counts kernel launches
+only.
 
-The plane's kernel gives a block a tile of K bins [k0, k0 + K) and
-stages the values they read, P[j k] for each decimation j, in shared
-memory with asynchronous copies, all at once, before it adds them.
-:func:`plane_bins` chooses K for H, and :func:`stages` splits a tile's
-decimations into the stage buffer's stages as the kernel does (the CPU
-tests emulate the kernel from it).
+Both kernels run one staged body: a block takes a tile of K bins [k0, k0
++ K) and stages the values they read, P[j k] for each decimation j, in
+shared memory with asynchronous copies, all at once, before it adds
+them; the plane normalises and max-reduces each rung, the ladder stores
+it.  :func:`plane_bins` chooses the plane's K for H (the ladder takes
+LADDER_BINS), and :func:`stages` splits a tile's decimations into the
+stage buffer's stages as the kernels do (the CPU tests emulate the
+kernels from it).
 """
 from __future__ import annotations
 
@@ -37,14 +40,15 @@ from repro_torch.kernels.common import load_library
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"harmonic_sum_plane": 0, "harmonic_sum": 0}
 
-#: Bins per thread block of the ladder (one thread a bin).
-BINS_PER_BLOCK = 256
-#: Threads of a plane block, and the bins a block may take (the compiled
-#: instances: 1, 2, 4 or 8 bins a thread).
+#: Threads of a block of either kernel, and the bins a block may take (the
+#: compiled instances: 1, 2, 4 or 8 bins a thread).
 PLANE_THREADS = 256
 PLANE_BINS = (256, 512, 1024, 2048)
-#: Values the plane's stage buffer holds (64 KB: three blocks an SM).
+#: Values the stage buffer holds (64 KB: three blocks an SM).
 PLANE_BUFFER = 16384
+#: K of the ladder: the fastest of ``chip_smoke.py``'s sweep of
+#: PLANE_BINS at the Sec. 5.3 demo's (32, 2**20), H = 32 (on an H100).
+LADDER_BINS = 1024
 
 
 def reset_launches() -> None:
@@ -55,11 +59,6 @@ def reset_launches() -> None:
 def levels(n_harmonics: int) -> int:
     """Rungs of the ladder up to ``n_harmonics`` (a power of two)."""
     return int(math.log2(n_harmonics)) + 1
-
-
-def blocks(batch: int, n: int) -> int:
-    """Thread blocks of one ladder launch."""
-    return batch * -(-n // BINS_PER_BLOCK)
 
 
 def plane_bins(n_harmonics: int) -> int:
@@ -80,7 +79,7 @@ def shared_bytes(n_harmonics: int, bins: int) -> int:
 
 
 def plane_blocks(batch: int, n: int, bins: int) -> int:
-    """Thread blocks of one plane launch of K = ``bins``."""
+    """Thread blocks of one launch of either kernel at K = ``bins``."""
     return batch * -(-n // bins)
 
 
@@ -157,11 +156,11 @@ def _library() -> ctypes.CDLL:
         _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, _P]
     lib.repro_harmonic_sum_plane.restype = ctypes.c_int
-    lib.repro_harmonic_sum_plane_blocks_per_sm.argtypes = [ctypes.c_int,
-                                                           ctypes.c_int]
-    lib.repro_harmonic_sum_plane_blocks_per_sm.restype = ctypes.c_int
+    lib.repro_harmonic_sum_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.repro_harmonic_sum_blocks_per_sm.restype = ctypes.c_int
     lib.repro_harmonic_sum.argtypes = [
-        _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
+        _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        _P]
     lib.repro_harmonic_sum.restype = ctypes.c_int
     return lib
 
@@ -208,15 +207,18 @@ def harmonic_sum_plane(p: torch.Tensor, n_harmonics: int,
     return stat, lev
 
 
-def plane_blocks_per_sm(bins: int, n_harmonics: int) -> int:
-    """Plane blocks of K = ``bins`` that one SM of the current card holds
-    at ``n_harmonics``."""
-    return _library().repro_harmonic_sum_plane_blocks_per_sm(
-        bins, shared_bytes(n_harmonics, bins))
+def blocks_per_sm(bins: int, n_harmonics: int, plane: bool = True) -> int:
+    """Blocks of K = ``bins`` of the plane kernel (else the ladder's) that
+    one SM of the current card holds at ``n_harmonics``."""
+    return _library().repro_harmonic_sum_blocks_per_sm(
+        int(plane), bins, shared_bytes(n_harmonics, bins))
 
 
-def harmonic_sum(p: torch.Tensor, n_harmonics: int) -> torch.Tensor:
-    """(B, N) float32 power -> (B, L, N) ladder, L = log2 H + 1."""
+def harmonic_sum(p: torch.Tensor, n_harmonics: int,
+                 bins: int | None = None) -> torch.Tensor:
+    """(B, N) float32 power -> (B, L, N) ladder, L = log2 H + 1.
+    ``bins`` (one of PLANE_BINS) overrides LADDER_BINS (the chip check's
+    sweep)."""
     _check(p, n_harmonics, "harmonic_sum")
     if p.device.type == "cpu":
         return harmonic_sum_plain(p, n_harmonics)
@@ -227,7 +229,8 @@ def harmonic_sum(p: torch.Tensor, n_harmonics: int) -> torch.Tensor:
         return out
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = _library().repro_harmonic_sum(p.data_ptr(), out.data_ptr(), b,
-                                            n, n_levels, stream)
+        err = _library().repro_harmonic_sum(
+            p.data_ptr(), out.data_ptr(), b, n, n_levels,
+            bins or LADDER_BINS, stream)
     _raise_on(err, "harmonic_sum")
     return out

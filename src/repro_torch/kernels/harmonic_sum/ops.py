@@ -6,7 +6,8 @@ share one guarded input path, with the reference's guards (each a
 ``harmonic-sum``), logical shapes and ``bytes_moved`` formulas over the
 batch itself (the reference counts its padded batch).  ``grid`` and
 ``tile`` describe the CUDA launch: thread blocks, and (rows, bins) per
-block (the plane's bins per block depend on ``n_harmonics``).
+block (the plane's depend on ``n_harmonics``; the ladder's are
+``LADDER_BINS``).
 
 * :func:`harmonic_sum_kernel` — the demo ladder: (..., N) power spectra
   to the full (..., LEVELS, N) doubling ladder.
@@ -64,8 +65,9 @@ def harmonic_sum_kernel(power, n_harmonics: int = 32) -> torch.Tensor:
     power = _checked_power(power, n_harmonics, "harmonic_sum_kernel")
     p2, b, n = _rows(power)
     out = K.harmonic_sum(p2, n_harmonics)
-    record_launch("harmonic-sum", grid=(K.blocks(b, n),),
-                  tile=(1, K.BINS_PER_BLOCK),
+    record_launch("harmonic-sum",
+                  grid=(K.plane_blocks(b, n, K.LADDER_BINS),),
+                  tile=(1, K.LADDER_BINS),
                   bytes_moved=4 * b * n * (1 + out.shape[-2]),
                   shape=(b, n))
     return out.reshape(*power.shape[:-1], out.shape[-2], n)

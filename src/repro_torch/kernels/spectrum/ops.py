@@ -3,7 +3,8 @@
 The counterpart of ``repro.kernels.spectrum.ops``: its guard, ledger name
 (``power-spectrum-stats``), logical shape and ``bytes_moved`` formula over
 the batch itself (the reference counts its padded batch).  ``grid`` and
-``tile`` describe the CUDA launch: one block per row.  The spectrum stays
+``tile`` count rows: one a row, the whole row a tile (the kernel cuts each
+row into ``spectrum_kernel.segments``, a block each).  The spectrum stays
 interleaved complex64 (the reference splits re/im planes); real input is
 cast to complex64, as the reference's wrapper does.
 """

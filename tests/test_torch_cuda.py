@@ -495,7 +495,8 @@ def test_dedisperse_tiles_on_the_pulsar_table(gen, n, chunk):
                                     (5, 65537), (2, 2047), (2, 2049)])
 def test_harmonic_sum_kernels_match_plain_on_the_card(gen, rows, n, h):
     """Tiles cut short at N (2047, 2049 around the 1024 and 2048 of a
-    plane block), H past the staged decimations (64)."""
+    block), H past the staged decimations (64); both kernels
+    bit-identical to their plain versions."""
     import importlib
     from repro_torch.kernels.harmonic_sum import (harmonic_sum_kernel,
                                                   harmonic_sum_plane)
@@ -509,7 +510,7 @@ def test_harmonic_sum_kernels_match_plain_on_the_card(gen, rows, n, h):
     want_stat, want_lev = H.harmonic_sum_plane_plain(p, h)
     assert _rel(stat, want_stat) <= RTOL and torch.equal(stat, want_stat)
     assert torch.equal(lev, want_lev)
-    assert _rel(ladder, H.harmonic_sum_plain(p, h)) <= RTOL
+    assert torch.equal(ladder, H.harmonic_sum_plain(p, h))
     torch.cuda.synchronize()
 
 
@@ -530,8 +531,28 @@ def test_harmonic_sum_plane_tiles_on_the_card(gen, bins, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n", [(1, 1), (7, 1025), (3, 2**20)])
+@pytest.mark.parametrize("h", (1, 8, 32))
+@pytest.mark.parametrize("bins", (256, 512, 1024, 2048))
+def test_harmonic_sum_ladder_tiles_on_the_card(gen, bins, h):
+    """Every compiled ladder instance at H = 1, 8 and 32 (several stages
+    at K >= 1024) on rows of 65537 bins, bit-identical to plain."""
+    import importlib
+    H = importlib.import_module(
+        "repro_torch.kernels.harmonic_sum.harmonic_sum_kernel")
+    p = 3.0 * torch.rand(3, 65537, device="cuda", generator=gen)
+    assert torch.equal(H.harmonic_sum(p, h, bins),
+                       H.harmonic_sum_plain(p, h))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1), (7, 1025), (3, 2**20),
+                                    (1, 2**20), (3, 1025), (4096, 1025),
+                                    (1, 255)])
 def test_power_spectrum_stats_kernel_matches_plain_on_the_card(gen, rows, n):
+    """B = 1 (thousands of segments a row), odd N (rows start at either
+    alignment), many short rows (one segment each); two calls give the
+    same bits."""
     from repro_torch.kernels.spectrum import (power_spectrum_stats_kernel,
                                               spectrum_kernel as S)
     x = _rand(gen, rows, n)
@@ -544,6 +565,26 @@ def test_power_spectrum_stats_kernel_matches_plain_on_the_card(gen, rows, n):
     # One bin has no spread: both stds are exactly 0.
     assert (torch.equal(std, want_std) if n == 1
             else _rel(std, want_std) <= RTOL)
+    again = power_spectrum_stats_kernel(x)
+    assert all(torch.equal(a, b) for a, b in zip(again, (p, mean, std)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", (1, 2, 7, 67, 1000))
+def test_power_spectrum_stats_segments_and_an_odd_offset(gen, count):
+    """Each segment count, on a spectrum that starts 8 bytes past a
+    16-byte boundary (pairs of p stored one by one), and the default's
+    tickets left at zero for the next launch."""
+    from repro_torch.kernels.spectrum import spectrum_kernel as S
+    flat = _rand(gen, 5 * 4097 + 1)
+    x = flat[1:].view(5, 4097)
+    assert x.data_ptr() % 16 == 8
+    want = S.power_spectrum_stats_plain(x)
+    for got in (S.power_spectrum_stats(x, count), S.power_spectrum_stats(x)):
+        assert all(_rel(g, w) <= RTOL for g, w in zip(got, want))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not S._TICKETS[(x.device.index, stream)].any()
     torch.cuda.synchronize()
 
 

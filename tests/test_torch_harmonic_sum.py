@@ -135,7 +135,9 @@ def test_ledger_records():
     assert (port.kernel, port.shape) == (ref.kernel, ref.shape) == \
         ("harmonic-sum", (21, 129))
     assert port.bytes_moved == 4 * 21 * 129 * (1 + 4)
-    assert K.blocks(21, 1025) == 21 * 5
+    # The ladder's blocks take 1024 bins whatever H.
+    assert port.grid == (21,) and port.tile == (1, 1024)
+    assert K.plane_blocks(32, 2**20, K.LADDER_BINS) == 32 * 1024
 
 
 def test_plain_versions_count_no_launch():

@@ -1,13 +1,16 @@
-"""The tiling of the ``harmonic_sum_plane`` kernel
-(``csrc/harmonic_sum.cu``) emulated on the CPU: per tile of K bins, the
-stage buffer filled as the kernel fills it (slot (j - j0) K + m holds
-P[j (k0 + m)] for the stage's decimations j, where j (k0 + m) < N;
-nothing elsewhere), every read at the slot the kernel reads, the
-decimations stage by stage where they exceed the buffer, and the rungs in
-the kernel's order.  The emulation is bit-identical to the plain version
-at ragged shapes (odd N, N = 65537, a last tile cut short), for H in {1,
-2, 8, 32} and past one stage (H = 128), at every compiled K; and the
-copies and reads of a warp are 32 consecutive slots."""
+"""The tiling of the staged body that the ``harmonic_sum_plane`` and
+``harmonic_sum`` kernels share (``csrc/harmonic_sum.cu``) emulated on
+the CPU: per tile of K bins, the stage buffer filled as the kernel fills
+it (slot (j - j0) K + m holds P[j (k0 + m)] for the stage's decimations
+j, where j (k0 + m) < N; nothing elsewhere), every read at the slot the
+kernel reads, the decimations stage by stage where they exceed the
+buffer, and the rungs handed to the epilogue in the kernel's order.  The
+plane's epilogue keeps the best normalised rung; the ladder's stores each
+rung, the rungs past a tile's last decimation included, every (rung, bin)
+once.  Both emulations are bit-identical to the plain versions at ragged
+shapes (odd N, N = 65537, a last tile cut short), for H in {1, 2, 8, 32}
+and past one stage (H = 128), at every compiled K; and the copies and
+reads of a warp are 32 consecutive slots."""
 import numpy as np
 import pytest
 import torch
@@ -25,32 +28,17 @@ def slot(j: int, j0: int, m, bins: int):
     return (j - j0) * bins + m
 
 
-def emulate_plane(p: torch.Tensor, n_harmonics: int, bins: int):
-    """The plane kernel's grid on the CPU (see the module docstring)."""
+def staged_rungs(p: torch.Tensor, n_harmonics: int, bins: int):
+    """The staged body's grid on the CPU (see the module docstring):
+    yields (k0, rung, S_h of the tile's K bins) tile by tile, each tile's
+    rungs in order, as the kernel hands them to its epilogue."""
     b, n = p.shape
     n_levels = K.levels(n_harmonics)
-    scales = K.rung_scales(n_levels)
-    stat = torch.empty_like(p)
-    level = torch.empty(p.shape, dtype=torch.int32)
     m = torch.arange(bins)
     for k0 in range(0, n, bins):
         k = k0 + m
         acc = torch.zeros(b, bins)
-        best = torch.zeros(b, bins)
-        best_lev = torch.zeros(b, bins, dtype=torch.int32)
         lev = 0
-
-        def rung(h):
-            nonlocal lev, best, best_lev
-            if lev == 0:
-                best = acc - 1.0
-            else:
-                z = (acc - float(h)) * float(scales[lev])
-                better = z > best
-                best = torch.where(better, z, best)
-                best_lev = torch.where(better, lev, best_lev)
-            lev += 1
-
         for js in K.stages(k0, n, n_harmonics, bins):
             assert len(js) <= K.per_stage(n_harmonics, bins)
             buf = torch.full((b, K.shared_bytes(n_harmonics, bins) // 4),
@@ -66,13 +54,48 @@ def emulate_plane(p: torch.Tensor, n_harmonics: int, bins: int):
                 assert not torch.isnan(v).any()            # copied slots
                 acc[:, reads] = v if j == 1 else acc[:, reads] + v
                 if j & (j - 1) == 0:
-                    rung(j)
-        while lev < n_levels:                              # nothing to add
-            rung(2 ** lev)
-        keep = k < n
-        stat[:, k[keep]] = best[:, keep]
-        level[:, k[keep]] = best_lev[:, keep]
+                    yield k0, lev, acc.clone()
+                    lev += 1
+        for lev in range(lev, n_levels):                   # nothing to add
+            yield k0, lev, acc.clone()
+
+
+def emulate_plane(p: torch.Tensor, n_harmonics: int, bins: int):
+    """The plane kernel: the staged body with the plane's epilogue."""
+    n = p.shape[-1]
+    n_levels = K.levels(n_harmonics)
+    scales = K.rung_scales(n_levels)
+    stat = torch.empty_like(p)
+    level = torch.empty(p.shape, dtype=torch.int32)
+    for k0, lev, acc in staged_rungs(p, n_harmonics, bins):
+        if lev == 0:
+            best = acc - 1.0
+            best_lev = torch.zeros(acc.shape, dtype=torch.int32)
+        else:
+            z = (acc - float(2 ** lev)) * float(scales[lev])
+            better = z > best
+            best = torch.where(better, z, best)
+            best_lev = torch.where(better, lev, best_lev)
+        if lev == n_levels - 1:
+            k = k0 + torch.arange(bins)
+            keep = k < n
+            stat[:, k[keep]] = best[:, keep]
+            level[:, k[keep]] = best_lev[:, keep]
     return stat, level
+
+
+def emulate_ladder(p: torch.Tensor, n_harmonics: int, bins: int):
+    """The ladder kernel: the staged body with the ladder's epilogue,
+    which stores rung lev of bin k at out[row, lev, k], each once."""
+    b, n = p.shape
+    out = torch.full((b, K.levels(n_harmonics), n), float("nan"))
+    for k0, lev, acc in staged_rungs(p, n_harmonics, bins):
+        k = k0 + torch.arange(bins)
+        keep = k < n
+        assert torch.isnan(out[:, lev, k[keep]]).all()     # stored once
+        out[:, lev, k[keep]] = acc[:, keep]
+    assert not torch.isnan(out).any()                      # every rung
+    return out
 
 
 def check(p, h, bins):
@@ -99,6 +122,18 @@ def test_every_swept_tile_is_the_plain_version(bins, h):
     """Every compiled K (the chip check's sweep at H = 8) at each H: at
     K = 2048 and H = 32 the decimations take four stages."""
     check(rand_power(bins + h, (2, 8193)), h, bins)
+
+
+@pytest.mark.parametrize("bins", K.PLANE_BINS)
+@pytest.mark.parametrize("h", [1, 2, 8, 32, 128])
+@pytest.mark.parametrize("n", [1, 255, 1025, 4097, 65537])
+def test_emulated_ladder_is_the_plain_version(n, h, bins):
+    """The ladder's epilogue on the staged schedule at every compiled K:
+    H = 128 takes two stages at K = 256 and more at larger K; N = 1 and
+    255 end inside the first tile, 65537 holds one bin in its last."""
+    p = rand_power(n + h + bins, (2, n))
+    assert torch.equal(emulate_ladder(p, h, bins),
+                       K.harmonic_sum_plain(p, h))
 
 
 def test_decimations_past_one_stage():
