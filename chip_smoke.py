@@ -78,15 +78,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``power_spectrum_stats_kernel`` and ``harmonic_sum_kernel`` on the
      same spectrum (counts set to 0 just before, read just after), held
      against the demo's plain stages and the zero-padded oracle;
-  9. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+  9. run the paper's experiment on the card (after every other phase, so
+     that a clock lock disturbs none): print the supported clock grid
+     (NVML), the default application clock and the board power at rest;
+     run the main path's C2C 1024 and 8192 and R2C 16384 plans on 2 GB
+     batches (counts set to 0 just before, read just after), each back to
+     back for 2 s of device time, at 7 clocks of the grid from f_max down
+     to about 0.45 f_max and the H100_SXM model's optimum for each case —
+     or, where the driver denies the lock (``clock_lock: denied``), at the
+     default clocks — under the board's energy counter, with board power
+     and the SM clock sampled every 10 ms on a host thread; print, per
+     case and clock, the observed SM clock, ms a batch, W, J/transform
+     from the counter and from the samples and GFLOPS/W beside the
+     H100_SXM model's, and where clocks were locked the measured optimum
+     against boost; check the results against ``torch.fft``, that no
+     sample failed, that the counter rose and that a locked clock held;
+ 10. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -99,7 +116,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import TESLA_V100, FFTCase, fft_workload, sweep  # noqa: E402
+from repro_torch.core import (H100_SXM, TESLA_V100, FFTCase,  # noqa: E402
+                              energy_from_trace, energy_per_transform,
+                              fft_flops, fft_workload, sweep)
 from repro_torch.data.synthetic import FilterbankSpec, InjectedPulsar  # noqa: E402
 from repro_torch.fft import multidim  # noqa: E402
 from repro_torch.fft import pipeline as demo  # noqa: E402
@@ -123,6 +142,7 @@ from repro_torch.kernels.spectrum import spectrum_kernel as S  # noqa: E402
 from repro_torch.kernels.fft.ref import fft_ref, irfft_ref, rfft_ref  # noqa: E402
 from repro_torch.obs.ledger import LaunchLedger  # noqa: E402
 from repro_torch.obs.metrics import latency_summary  # noqa: E402
+from repro_torch.power import nvml  # noqa: E402
 from repro_torch.search import (DispersionPlan, TemplateBank,  # noqa: E402
                                 extract_candidates, fdas_conv_plan,
                                 fdas_search, matched_filter_plane,
@@ -328,6 +348,24 @@ PULSAR_LEDGER = {"dedisperse": 1, "fft-c2c-axis1": 1, "fft-c2c-t": 1,
                  "fft-c2c-mul": 1, "fft-c2c": 1, "harmonic-sum-plane": 1}
 #: The Sec. 5.3 demo at the reference's Table 4 shape (benchmarks/run.py).
 DEMO_SHAPE = demo.PipelineShape(batch=32, n=2**20, n_harmonics=32)
+#: Phase 9, the paper's experiment on the card: the main path's cases
+#: (transform, n), each on a 2 GB batch of FFTCase(n).n_fft transforms.
+ENERGY_CASES = (("c2c", 1024), ("c2c", 8192), ("r2c", 16384))
+#: Clocks phase 9 locks where the driver allows it: this many on the card's
+#: grid from f_max down to about ENERGY_LOW_FRAC of it, plus each case's
+#: optimum on the H100_SXM model.
+ENERGY_CLOCKS = 7
+ENERGY_LOW_FRAC = 0.45
+#: Device time of one measurement, after ENERGY_WARM_S of the same runs
+#: (the board's power reading is a windowed average that must settle).
+ENERGY_RUN_S = 2.0
+ENERGY_WARM_S = 1.0
+#: Idle seconds before the board power at rest is read.  With the
+#: process's CUDA context up the card keeps its SM clock at f_max while
+#: idle (32 s measured), so this reads the idle power at f_max.
+ENERGY_SETTLE_S = 5.0
+#: Power, clock and counter sampling period (the paper's Fig. 19: 10 ms).
+SAMPLE_S = 0.01
 
 
 def reset_launches() -> None:
@@ -2355,6 +2393,197 @@ def phase8_demo(gen: torch.Generator) -> dict[str, int]:
     return run
 
 
+def _grid_clocks(grid: list[int]) -> list[int]:
+    """ENERGY_CLOCKS clocks of the card's grid (descending) from f_max down
+    to about ENERGY_LOW_FRAC of it."""
+    want = np.linspace(grid[0], ENERGY_LOW_FRAC * grid[0], ENERGY_CLOCKS)
+    return sorted({min(grid, key=lambda g: abs(g - w)) for w in want},
+                  reverse=True)
+
+
+def _rest_power(handle) -> tuple[float, float, int]:
+    """Board power at rest, ENERGY_SETTLE_S after the card's last work (the
+    power reading is a windowed average): the mean of 1 s of SAMPLE_S
+    samples and the energy counter's rise over its steps in that second
+    over their time; with the SM clock then."""
+    torch.cuda.synchronize()
+    time.sleep(ENERGY_SETTLE_S)
+    sm = nvml.sm_clock(handle)
+    with nvml.PowerTrace(handle, SAMPLE_S) as trace:
+        t0 = time.perf_counter()
+        time.sleep(1.0)
+        t1 = time.perf_counter()
+    check(trace.failed_reads == 0 and bool(trace.power_w),
+          f"phase 9: {trace.failed_reads} failed reads at rest")
+    ticks = trace.ticks(t0, t1)
+    check(len(ticks) >= 2, f"phase 9: the energy counter stepped "
+          f"{len(ticks)} times in 1 s at rest")
+    (ta, ea), (tb, eb) = ticks[0], ticks[-1]
+    return (statistics.fmean(trace.power_w), (eb - ea) / 1e3 / (tb - ta),
+            sm)
+
+
+def _energy_run(handle, plan, x: torch.Tensor) -> dict:
+    """``plan(x)`` back to back for ENERGY_WARM_S, then for at least
+    ENERGY_RUN_S of device time, with board power, SM clock and the energy
+    counter sampled every SAMPLE_S on a host thread.
+
+    The counter steps about every 100 ms, so the runs' mean power is its
+    rise between its first and last step inside their device time, over
+    the time between those steps, and their energy that power times their
+    device time.  The trace's energy is Eq. (3) on the power samples over
+    the same device time."""
+    est = queued_ms(lambda: plan(x), reps=5)
+    warm = math.ceil(ENERGY_WARM_S * 1e3 / est)
+    runs = math.ceil(ENERGY_RUN_S * 1e3 / est)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with nvml.PowerTrace(handle, SAMPLE_S) as trace:
+        e_before = nvml.energy_mj(handle)
+        for _ in range(warm):
+            plan(x)
+        start.record()
+        for _ in range(runs):
+            plan(x)
+        stop.record()
+        stop.synchronize()
+        t_end = time.perf_counter()
+        e_after = nvml.energy_mj(handle)
+        time.sleep(2 * SAMPLE_S)
+    device_s = start.elapsed_time(stop) / 1e3
+    t_start = t_end - device_s
+    check(e_after > e_before, f"phase 9: the energy counter did not rise "
+          f"({e_before} -> {e_after} mJ)")
+    check(trace.failed_reads == 0, f"phase 9: {trace.failed_reads} of "
+          f"{len(trace.t)} samples failed (NaN power or no counter)")
+    ticks = trace.ticks(t_start, t_end)
+    check(len(ticks) >= 2, f"phase 9: the energy counter stepped "
+          f"{len(ticks)} times in {device_s:.3f} s of runs")
+    (ta, ea), (tb, eb) = ticks[0], ticks[-1]
+    watts = (eb - ea) / 1e3 / (tb - ta)
+    power, dts, sm = trace.window(t_start, t_end)
+    trace_j = energy_from_trace(power, dts)
+    return {"runs": runs, "ms": device_s * 1e3 / runs, "device_s": device_s,
+            "counter_w": watts, "counter_j": watts * device_s,
+            "counter_de_j": (eb - ea) / 1e3, "counter_span_s": tb - ta,
+            "counter_steps": len(ticks), "trace_j": trace_j,
+            "trace_w": trace_j / device_s, "samples": len(power),
+            "sm_mhz": statistics.median(sm), "sm_range": (min(sm), max(sm))}
+
+
+def phase9_energy(gen: torch.Generator) -> dict[str, int]:
+    """The paper's experiment on the card: the main path's C2C 1024 and
+    8192 and R2C 16384 plans on 2 GB batches, each run back to back under
+    the board's energy counter at each clock the driver lets the script
+    lock (the H100 model's optimum for each case among them), else at the
+    default clocks; J/transform from the counter and from the sampled
+    power, beside the H100_SXM model's.  Returns the launches of the
+    runs."""
+    handle = nvml.device_handle(torch.cuda.current_device())
+    grids = nvml.supported_clocks(handle)
+    for mem, graphics in grids.items():
+        print(f"phase 9: supported clocks at memory {mem} MHz: "
+              f"{len(graphics)} graphics clocks {graphics}")
+    grid = grids[max(grids)]
+    step = min(a - b for a, b in zip(grid, grid[1:]))
+    print(f"phase 9: default application clock {nvml.default_clock(handle)} "
+          f"MHz; SM clock after phase 8 {nvml.sm_clock(handle)} MHz")
+    rest_w, rest_counter_w, rest_sm = _rest_power(handle)
+    print(f"phase 9: board power at rest {rest_w:.4f} W (mean of 1 s of "
+          f"{SAMPLE_S * 1e3:.0f} ms samples, {ENERGY_SETTLE_S:.0f} s idle, "
+          f"SM clock {rest_sm} MHz); energy counter over the same second "
+          f"{rest_counter_w:.4f} W")
+    cases = []
+    for kind, n in ENERGY_CASES:
+        case = FFTCase(n, transform=kind)
+        plan = plan_for_length(n, kind)
+        if kind == "c2c":
+            x = randn(gen, case.n_fft, n)
+            ref = fft_ref(x)
+        else:
+            x = torch.randn(case.n_fft, n, device="cuda", generator=gen)
+            ref = rfft_ref(x)
+        prof = fft_workload(case, H100_SXM)
+        if kind == "c2c":
+            check(prof.flops == fft_flops(n, n_fft=case.n_fft),
+                  f"phase 9: model FLOPs of {case.name} != fft_flops")
+        res = sweep(prof, H100_SXM)
+        cases.append((kind, n, case, plan, x, ref, prof, res))
+    locker = nvml.NvmlClockLocker(handle)
+    try:
+        with locker.locked(grid[0]):
+            pass
+        clocks = sorted(set(_grid_clocks(grid))
+                        | {int(c[7].optimal.f) for c in cases}, reverse=True)
+    except nvml.ClockLockDenied as e:
+        print(f"clock_lock: denied ({e})")
+        clocks = [None]
+    rows: dict[tuple, dict] = {}
+    reset_launches()
+    for f in clocks:
+        lock = contextlib.nullcontext() if f is None else locker.locked(f)
+        with lock:
+            for kind, n, case, plan, x, ref, prof, res in cases:
+                label = f"{kind} n={n}"
+                row = _energy_run(handle, plan, x)
+                rows[label, f] = row
+                _, rel = rel_err(plan(x), ref)
+                check(rel <= PLAN_RTOL[plan.algorithm],
+                      f"phase 9: {label} at {f or 'default'} MHz: plan vs "
+                      f"torch.fft rel err {rel:.3e}")
+                if f is not None:
+                    check(abs(row["sm_mhz"] - f) <= step,
+                          f"phase 9: {label} locked at {f} MHz ran at "
+                          f"{row['sm_mhz']} MHz")
+                transforms = row["runs"] * case.n_fft
+                model = res.at(row["sm_mhz"])
+                best = energy_per_transform(res, case.n_fft)
+                print(f"phase 9: {label} clock requested "
+                      f"{f or 'default'} observed {row['sm_mhz']:.0f} MHz "
+                      f"(median of {row['samples']} samples, "
+                      f"{row['sm_range'][0]}..{row['sm_range'][1]}): "
+                      f"{row['ms']:.4f} ms a batch of {case.n_fft} over "
+                      f"{row['runs']} runs ({row['device_s']:.3f} s); "
+                      f"counter {row['counter_w']:.2f} W ("
+                      f"{row['counter_de_j']:.3f} J over "
+                      f"{row['counter_span_s']:.3f} s, "
+                      f"{row['counter_steps']} steps), "
+                      f"{row['counter_j'] / transforms:.4e} J/transform; "
+                      f"trace {row['trace_w']:.2f} W, "
+                      f"{row['trace_j'] / transforms:.4e} J/transform; "
+                      f"{prof.flops * row['runs'] / row['counter_j'] / 1e9:.3f}"
+                      f" GFLOPS/W; rel err {rel:.3e} | H100_SXM model at "
+                      f"{model.f:.0f} MHz: {model.time * 1e3:.4f} ms, "
+                      f"{model.power:.2f} W, "
+                      f"{model.energy / case.n_fft:.4e} J/transform, "
+                      f"{model.gflops_per_watt:.3f} GFLOPS/W; model optimum "
+                      f"{best['optimal_mhz']:.0f} MHz "
+                      f"{best['optimal_j']:.4e} J/transform (boost "
+                      f"{best['boost_j']:.4e}), slowdown "
+                      f"{res.slowdown:.4f}, power cut "
+                      f"{res.power_reduction:.4f}")
+    torch.cuda.synchronize()
+    run = launch_counts()
+    check(run["fft_c2c"] > 0 and run["fft_r2c"] > 0,
+          f"phase 9: launches {run}")
+    if clocks != [None]:
+        for kind, n, case, *_ in cases:
+            label = f"{kind} n={n}"
+            per = {f: rows[label, f] for f in clocks}
+            f_opt = min(per, key=lambda f: per[f]["counter_j"])
+            opt, boost = per[f_opt], per[clocks[0]]
+            print(f"phase 9: {label} measured optimum {f_opt} MHz against "
+                  f"boost {clocks[0]} MHz: time "
+                  f"{opt['ms'] / boost['ms'] - 1:+.4f}, power cut "
+                  f"{1 - opt['counter_w'] / boost['counter_w']:.4f}, "
+                  f"J/transform {opt['counter_j'] / boost['counter_j']:.4f}"
+                  f" of boost's")
+    del cases
+    torch.cuda.empty_cache()
+    print(f"phase 9: launches {({k: v for k, v in run.items() if v})}")
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2371,7 +2600,8 @@ def main() -> int:
     phase3_rows_per_block(gen)
     phase3_host_gap(gen)
     launches = phase4_main_path(gen)
-    for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo):
+    for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
+                  phase9_energy):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

@@ -1,6 +1,5 @@
 """Optimal-frequency search — the paper's central procedure (numpy copy of
-``repro.core.dvfs``, limited to ``sweep``, ``mean_optimal`` and the
-cached-sweep budget reselection the serving layer uses).
+``repro.core.dvfs``).
 
 For each workload sweep the device's allowed core-clock grid, compute
 E(f) = P(f)·t(f), and pick the minimum-energy clock (Sec. 4).  Across a
@@ -114,6 +113,26 @@ def sweep(
         base = evaluate(profile, device, pm, np.array([device.f_base]))[0]
     return SweepResult(profile=profile, points=points, optimal=optimal,
                        boost=boost, base=base)
+
+
+def energy_per_transform(result: SweepResult, n_transforms: int
+                         ) -> dict[str, float]:
+    """Per-transform J/time at the optimal and boost clocks (Eqs. 3-6).
+
+    The sweep models a memory-budget-sized batch of ``n_transforms``
+    transforms (Eq. 6); energy and time are linear in the count, so
+    per-transform figures are exact divisions (an R2C sweep at the same N
+    carries ~2x the transforms per batch at ~the same batch energy: the
+    paper's Eq. 5/6 argument for real inputs).
+    """
+    k = max(n_transforms, 1)
+    return {
+        "optimal_j": result.optimal.energy / k,
+        "boost_j": result.boost.energy / k,
+        "optimal_s": result.optimal.time / k,
+        "boost_s": result.boost.time / k,
+        "optimal_mhz": result.optimal.f,
+    }
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,13 +1,15 @@
 """Energy and efficiency metrics — Eqs. (3)-(7) of the paper (numpy copy of
-``repro.core.energy``, limited to what the FFT sweep and the serving
-layer need).
+``repro.core.energy``).
 
   E_f   = sum_i P_i * t_i                       (3)  energy of a run
   E_ef  = C_p * t / E_f = C_p / P_avg           (4)  energy efficiency
+  C_p   = 5 N log2(N) * N_b * N_FFT / t         (5)  FFT computational perf
   N_FFT = M_GB / (N * B)                        (6)  transforms per batch
   I_ef  = E_ef,o / E_ef,d                       (7)  efficiency increase
 
-The model is analytic, so (3) collapses to E(f) = P(f) * t(f).
+The model is analytic, so (3) collapses to E(f) = P(f) * t(f); the sampled
+form prices a measured power trace (the paper's 10 ms nvidia-smi samples,
+``repro_torch.power.nvml.PowerTrace`` on the card).
 """
 from __future__ import annotations
 
@@ -34,9 +36,21 @@ def guarded_ratio(num: float, den: float, *, on_zero: float = 1.0) -> float:
     return num / den
 
 
+def fft_flops(n: int, n_batches: int = 1, n_fft: int = 1) -> float:
+    """Eq. (5) numerator: 5 N log2(N) * N_b * N_FFT."""
+    return 5.0 * n * np.log2(n) * n_batches * n_fft
+
+
 def ffts_per_batch(m_bytes: float, n: int, elem_bytes: int) -> int:
     """Eq. (6): how many length-N transforms fill ``m_bytes`` of memory."""
     return max(int(m_bytes // (n * elem_bytes)), 1)
+
+
+def energy_from_trace(power_samples: np.ndarray, dt: np.ndarray | float) -> float:
+    """Eq. (3) on a sampled power trace (paper: 10 ms nvidia-smi samples)."""
+    p = np.asarray(power_samples, dtype=np.float64)
+    dt = np.broadcast_to(np.asarray(dt, dtype=np.float64), p.shape)
+    return float(np.sum(p * dt))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,10 @@
 
 A numpy copy of ``repro.core.hardware``: the same :class:`DeviceSpec` and
 the paper's three device records, so that the port prices a workload
-exactly as the reference does.  Paper reference: Table 1 (allowed core clock
-frequencies) and Table 2 (GPU card specifications).
+exactly as the reference does, and the record of the card the port runs on
+(:data:`H100_SXM`) in place of the reference's TPU record.  Paper
+reference: Table 1 (allowed core clock frequencies) and Table 2 (GPU card
+specifications).
 
 Frequencies are MHz, bandwidths are bytes/s, powers are watts.
 """
@@ -134,3 +136,45 @@ TITAN_V = DeviceSpec(
     stall_power_frac=0.75, exec_overlap=1.0,
     mem_power_frac=0.30,
 )
+
+# Driver cap observed by the paper on the Titan V during compute kernels.
+TITAN_V_DRIVER_CAP_MHZ = 1335.0
+
+# ---------------------------------------------------------------------------
+# NVIDIA H100 SXM (80 GB HBM3) — the card the port runs on.  It takes the
+# place of the reference's TPU record.
+#
+# From NVIDIA's data sheet (SXM part): peak_flops is the float32 rate
+# outside the tensor cores, hbm_bandwidth, memory_bytes and tdp as
+# published.  cache_bandwidth is derived: 132 SMs x 128 bytes a clock of
+# shared memory x f_max.  Read on an H100 80GB HBM3 at a 700 W power limit
+# (chip_smoke.py phase 9, through NVML): the supported graphics-clock grid
+# (1980 down to 345 MHz in 15 MHz steps, at either memory clock), the
+# default application clock (1980 MHz) and the board power at rest
+# (129.32 W: idle with a CUDA context up, the SM clock held at 1980 MHz,
+# which is the model's P(f_max) at zero utilisation).
+# The voltage, issue and power-split parameters are the DeviceSpec
+# defaults: uncalibrated, not fitted to any measurement of this card.
+# ---------------------------------------------------------------------------
+
+H100_SXM = DeviceSpec(
+    name="h100-sxm",
+    f_max=1980.0, f_base=1980.0, f_min=345.0, f_step=15.0,
+    peak_flops=67e12,             # FP32, outside the tensor cores
+    hbm_bandwidth=3.35e12,
+    cache_bandwidth=132 * 128 * 1980e6,
+    memory_bytes=80e9,
+    tdp=700.0,
+    idle_power=129.32,
+)
+
+DEVICES: dict[str, DeviceSpec] = {
+    d.name: d for d in (TESLA_V100, JETSON_NANO, TITAN_V, H100_SXM)
+}
+
+
+def get_device(name: str) -> DeviceSpec:
+    try:
+        return DEVICES[name]
+    except KeyError as e:
+        raise KeyError(f"unknown device {name!r}; have {sorted(DEVICES)}") from e

@@ -1,5 +1,4 @@
-"""Execution-time-vs-frequency model (numpy copy of ``repro.core.perf_model``,
-limited to what the FFT sweep needs).
+"""Execution-time-vs-frequency model (numpy copy of ``repro.core.perf_model``).
 
 A kernel is described by latency components executed with overlap:
 
@@ -65,6 +64,35 @@ class WorkloadProfile:
         beta = device.exec_overlap
         return beta * np.maximum(t_flat, t_core) + (1.0 - beta) * (t_flat + t_core)
 
+    def regime_on(self, device: DeviceSpec) -> str:
+        """Classify into the paper's (a)/(b)/(c) behaviours empirically:
+        evaluate t(f) on the device's clock grid, as Fig. 6 does."""
+        freqs = device.frequencies()
+        t = self.time(freqs, device)
+        if len(t) > 2 and t[2] > t[0] * 1.005:
+            return "c"
+        if t.min() < t[0] * 0.998:
+            return "a"
+        return "b"
+
+    @property
+    def knee_frac(self) -> float:
+        """f/f_max below which a core-clocked resource becomes the bound."""
+        if self.t_flat <= 0:
+            return 1.0
+        return min(self.t_core / self.t_flat, 1.0) if self.t_core > 0 else 0.0
+
+    def regime(self, device: DeviceSpec | None = None) -> str:
+        """The paper's (a)/(b)/(c) behaviour: on ``device``'s clock grid
+        (what Fig. 6 plots), else from the structural bound."""
+        if device is not None:
+            return self.regime_on(device)
+        if self.t_flat <= 0 or self.t_core / self.t_flat >= 0.97:
+            return "c"
+        if self.contention > 0.005:
+            return "a"
+        return "b"
+
     def _t0(self, device: DeviceSpec) -> float:
         """Execution time at f_max."""
         return float(self.time(np.array([device.f_max]), device)[0])
@@ -82,3 +110,50 @@ class WorkloadProfile:
     def mem_utilisation(self, device: DeviceSpec) -> float:
         t0 = self._t0(device)
         return float(np.clip(self.t_mem / t0, 0.0, 1.0)) if t0 > 0 else 0.0
+
+
+def absolute_profile(
+    name: str,
+    *,
+    device: DeviceSpec,
+    hbm_bytes: float,
+    flops: float,
+    issue_efficiency: float = 1.0,
+    cache_bytes: float = 0.0,
+    collective_bytes: float = 0.0,
+    contention: float = 0.0,
+    mxu_flops: float | None = None,
+    stages: float = 0.0,
+    stage_bytes: float = 0.0,
+    passes: float = 1.0,
+    pass_bytes: float = 0.0,
+) -> WorkloadProfile:
+    """Build a profile from absolute traffic/flop counts.
+
+    ``issue_efficiency`` maps raw FLOPs onto the effective issue-limited
+    throughput: achieved_flops = issue_efficiency * peak_flops.  The FFT is
+    far from peak FLOPs (a shuffle-heavy butterfly), so its ceiling is
+    issue-limited (the paper's Fig. 20).  ``mxu_flops`` (default:
+    ``flops``) is what occupies the FPU/matrix units.
+
+    ``stages * stage_bytes`` adds to ``cache_bytes`` (butterfly stages x
+    working-set bytes exchanged a stage, ``repro_torch.fft.radix.stage_count``)
+    and ``passes * pass_bytes`` to ``hbm_bytes`` (the plan graph's HBM
+    passes, ``repro_torch.fft.plan_nd``).
+    """
+    if mxu_flops is None:
+        mxu_flops = flops
+    cache_bytes = cache_bytes + stages * stage_bytes
+    hbm_bytes = hbm_bytes + passes * pass_bytes
+    t_issue = flops / (device.peak_flops * issue_efficiency) if flops else 0.0
+    return WorkloadProfile(
+        name=name,
+        t_mem=hbm_bytes / device.hbm_bandwidth,
+        t_issue=t_issue,
+        t_cache=cache_bytes / device.cache_bandwidth,
+        t_compute=mxu_flops / device.peak_flops,
+        t_coll=(collective_bytes / device.link_bandwidth
+                if device.link_bandwidth and collective_bytes else 0.0),
+        contention=contention,
+        flops=flops,
+    )

@@ -543,3 +543,15 @@ def pulsar_search_total_profile(case: PulsarCase,
                                 device: DeviceSpec) -> WorkloadProfile:
     """All four stages merged into one profile (service-level sweeps)."""
     return merge_profiles(case.name, pulsar_search_workload(case, device))
+
+
+# The FFT-length sweep the paper covers (powers of two 2^5..2^22 plus a few
+# radix-7+/Bluestein lengths for completeness).
+def paper_lengths() -> list[int]:
+    pow2 = [2**k for k in range(5, 23)]
+    other = [3**7, 7**4, 139**2]            # mixed radix-3, radix-7, Bluestein
+    return pow2 + other
+
+
+# V100 lengths the paper singles out as regime (c).
+V100_REGIME_C_LENGTHS = {8192}

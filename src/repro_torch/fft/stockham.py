@@ -23,6 +23,7 @@ from :mod:`repro_torch.fft.radix` and are copied to the device once per
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -208,3 +209,12 @@ def rfft(x, axis: int = -1) -> torch.Tensor:
 def irfft(x, axis: int = -1) -> torch.Tensor:
     """C2R inverse of :func:`rfft` along ``axis`` (1/N normalised)."""
     return _along_axis(_irfft_pow2, _as_complex(x), axis)
+
+
+#: The reference module's own name for the power-of-two test.
+_is_pow2 = is_pow2
+
+
+def fft_flop_count(n: int, batch: int = 1) -> float:
+    """5 N log2 N per transform — the paper's Eq. (5) accounting."""
+    return 5.0 * n * math.log2(n) * batch

@@ -31,7 +31,11 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.kernels.harmonic_sum.ops",
                  "repro_torch.kernels.harmonic_sum.harmonic_sum_kernel",
                  "repro_torch.kernels.spectrum.ops",
-                 "repro_torch.kernels.spectrum.spectrum_kernel"):
+                 "repro_torch.kernels.spectrum.spectrum_kernel",
+                 "repro_torch.core.calibration", "repro_torch.power",
+                 "repro_torch.power.sampler", "repro_torch.power.watchdog",
+                 "repro_torch.power.telemetry", "repro_torch.power.governor",
+                 "repro_torch.power.site", "repro_torch.power.nvml"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
