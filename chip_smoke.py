@@ -93,7 +93,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      H100_SXM model's, and where clocks were locked the measured optimum
      against boost; check the results against ``torch.fft``, that no
      sample failed, that the counter rose and that a locked clock held;
- 10. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 10. run the autotuner (``repro_torch.tune``) on the card: tune C2C 1024,
+     8192 and 2**20, R2C 1024 and 16384 and C2R 16384 at phase 9's 2 GB
+     batches (``objective="energy"``, the H100_SXM model) into a cache
+     file in a fresh temporary directory; print each key's candidates,
+     its survivors with their times (``time_fn``: CUDA events, min of 3
+     after 1 warm-up) and launch geometry, the chosen config and its
+     speedup over the heuristic; hold every survivor against
+     ``torch.fft``, check that no key regresses the heuristic, tune each
+     key TUNE_REPEATS more times into fresh caches (how often the choice
+     repeats, and the speedups' range), check that a
+     fresh load of the saved cache replays every key with 0 measurements
+     and the same config, and that ``plan_for_length`` under the tuned
+     context launches the chosen per_block with the heuristic's launch
+     count (counts set to 0 just before, read just after); print the
+     common config and its regret, tune the FDAS segment and run phase 5's
+     search under it (the tone still at its cell); where a tuned config
+     differs from the heuristic (three keys at most), measure both in
+     J/transform with phase 9's energy counter at the default clocks;
+ 11. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -108,6 +126,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -122,8 +141,10 @@ from repro_torch.core import (H100_SXM, TESLA_V100, FFTCase,  # noqa: E402
 from repro_torch.data.synthetic import FilterbankSpec, InjectedPulsar  # noqa: E402
 from repro_torch.fft import multidim  # noqa: E402
 from repro_torch.fft import pipeline as demo  # noqa: E402
-from repro_torch.fft.convolve import device_filter_spectra  # noqa: E402
-from repro_torch.fft.plan import fft_mul, plan_for_length, pow2_fft  # noqa: E402
+from repro_torch.fft.convolve import (device_filter_spectra,  # noqa: E402
+                                      select_nfft)
+from repro_torch.fft.plan import (fft_mul, plan_for_length,  # noqa: E402
+                                  plan_with_config, pow2_fft)
 from repro_torch.fft.plan_nd import plan_nd  # noqa: E402
 from repro_torch.fft.radix import (DEFAULT_RADICES,  # noqa: E402
                                    mixed_radix_flop_count, r2c_flop_count)
@@ -150,6 +171,11 @@ from repro_torch.search import (DispersionPlan, TemplateBank,  # noqa: E402
                                 pulsar_search, serving_candidates,
                                 serving_sifted, sift_candidates)
 from repro_torch.serving import KIND_FDAS, KIND_PULSAR, FFTService  # noqa: E402
+from repro_torch.tune import (TuningCache, TuningContext,  # noqa: E402
+                              common_config, get_tuning_context,
+                              install_common_default, set_tuning_context,
+                              tune_length, tune_segment, use_tuning)
+from repro_torch.tune.tuner import _fft_operand, plan_launches  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
 #: FLOP/s outside the tensor cores (an FMA counts two).  A plain float32
@@ -366,6 +392,17 @@ ENERGY_WARM_S = 1.0
 ENERGY_SETTLE_S = 5.0
 #: Power, clock and counter sampling period (the paper's Fig. 19: 10 ms).
 SAMPLE_S = 0.01
+#: Phase 10: the keys the autotuner tunes on the card (each at phase 9's
+#: 2 GB batch), the tolerance every survivor is held to against torch.fft
+#: (the pow2 plans'), and the most keys whose tuned and heuristic configs
+#: are priced in J/transform by the energy counter.
+TUNE_KEYS = (("c2c", 1024), ("c2c", 8192), ("c2c", 2**20), ("r2c", 1024),
+             ("r2c", 16384), ("c2r", 16384))
+TUNE_RTOL = PLAN_RTOL["stockham"]
+TUNE_ENERGY_KEYS = 3
+#: Times phase 10 tunes each key again, into fresh caches, to show how
+#: often the tuner's choice repeats.
+TUNE_REPEATS = 5
 
 
 def reset_launches() -> None:
@@ -551,12 +588,17 @@ def _registers(log) -> tuple[dict[str, int], dict[str, int]]:
     return regs, stack
 
 
-def phase2_card() -> str:
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
-    line = out.strip().splitlines()[0]
+    return out.strip().splitlines()[0]
+
+
+def phase2_card() -> str:
+    line = _card()
     print(line)
     return line
 
@@ -1829,6 +1871,24 @@ def _fdas_stages(x: torch.Tensor, bank: TemplateBank) -> tuple:
              for i, name in enumerate(names)}, power)
 
 
+def _fdas_tone(label: str, res, bank: TemplateBank) -> tuple[int, int]:
+    """Check that the power plane is finite and of the search's shape and
+    that the injected tone is its peak and the top candidate of row 0, at
+    its (template, bin) cell; returns that cell."""
+    nbins = FDAS_N // 2 + 1
+    check(tuple(res.power.shape) == (FDAS_ROWS, bank.n_templates, nbins)
+          and bool(torch.isfinite(res.power).all()),
+          f"{label}: bad power plane")
+    t_hit, b_hit = divmod(int(res.power[0].argmax()), nbins)
+    t_want = int(np.argmin(np.abs(np.array(bank.drifts) - FDAS_Z)))
+    top = (int(res.candidates.template[0, 0]), int(res.candidates.bin[0, 0]))
+    check(t_hit == t_want and abs(b_hit - FDAS_K0) <= 1 and top == (t_hit,
+                                                                    b_hit),
+          f"{label}: tone found at (template {t_hit}, bin {b_hit}), top "
+          f"candidate {top}; injected at (template {t_want}, bin {FDAS_K0})")
+    return t_hit, b_hit
+
+
 def phase5_fdas(gen: torch.Generator) -> dict[str, int]:
     """fdas_search on FDAS_ROWS series of FDAS_N points with the linear
     85-template bank; returns the run's launches."""
@@ -1855,17 +1915,8 @@ def phase5_fdas(gen: torch.Generator) -> dict[str, int]:
     check(inverse.shape == (planes, plan.nfft),
           f"fdas: inverse launch {inverse.shape}, want ({planes}, "
           f"{plan.nfft}): one launch for all T planes")
-    nbins = FDAS_N // 2 + 1
-    check(tuple(res.power.shape) == (FDAS_ROWS, bank.n_templates, nbins)
-          and bool(torch.isfinite(res.power).all()), "fdas: bad power plane")
+    t_hit, b_hit = _fdas_tone("fdas", res, bank)
     power0 = res.power[0]
-    t_hit, b_hit = divmod(int(power0.argmax()), nbins)
-    t_want = int(np.argmin(np.abs(np.array(bank.drifts) - FDAS_Z)))
-    top = (int(res.candidates.template[0, 0]), int(res.candidates.bin[0, 0]))
-    check(t_hit == t_want and abs(b_hit - FDAS_K0) <= 1 and top == (t_hit,
-                                                                    b_hit),
-          f"fdas: tone found at (template {t_hit}, bin {b_hit}), top "
-          f"candidate {top}; injected at (template {t_want}, bin {FDAS_K0})")
     # One row's plane against the direct oracle, both from torch.fft's
     # spectrum of the row; then the served power plane end to end.
     xm = x[:1] - x[:1].mean(dim=-1, keepdim=True)
@@ -2584,6 +2635,192 @@ def phase9_energy(gen: torch.Generator) -> dict[str, int]:
     return run
 
 
+def _tuned_check(kind: str, n: int, batch: int, res) -> None:
+    """Hold every survivor the tuner timed against ``torch.fft`` on the
+    tuner's own operand, and print each one's time and launches."""
+    x = _fft_operand(n, kind, batch, torch.device("cuda"))
+    ref = {"c2c": fft_ref, "r2c": rfft_ref, "c2r": irfft_ref}[kind](x)
+    for cfg, wall in zip(res.survivors, res.walls):
+        with use_tuning(None):
+            y = plan_with_config(n, kind, cfg)(x)
+        abs_err, rel = rel_err(y, ref)
+        del y
+        check(rel <= TUNE_RTOL, f"phase 10: {kind} n={n} survivor {cfg} vs "
+              f"torch.fft rel err {rel:.3e} > {TUNE_RTOL}")
+        launches = []
+        for name, l in plan_launches(n, kind, batch, cfg):
+            card = (f" (card {K.resident_blocks(name, l)})"
+                    if name in ("fft_c2c", "fft_r2c", "fft_c2r") else "")
+            launches.append(f"{name} points {l.points} per_block "
+                            f"{l.per_block} threads {l.threads} "
+                            f"resident_blocks {l.resident_blocks}{card}")
+        launches = "; ".join(launches)
+        print(f"  {kind} n={n} survivor tile_b={cfg.tile_b} radices="
+              f"{cfg.radices} split={cfg.split}: {wall * 1e3:.4f} ms "
+              f"(time_fn, CUDA events, min of 3 after 1 warm-up); "
+              f"max_abs_err {abs_err:.3e} rel {rel:.3e}; {launches}")
+    del x, ref
+    torch.cuda.empty_cache()
+
+
+def _routed(kind: str, n: int, batch: int, cfg) -> dict[str, int]:
+    """``plan_for_length(n, kind)`` under the active tuning context, with
+    every count set to 0 just before and read just after: the ledger's
+    tiles must be the chosen config's per_block, its launch count the
+    heuristic plan's, its output within TUNE_RTOL of ``torch.fft``.
+    Returns the run's launches."""
+    x = _fft_operand(n, kind, batch, torch.device("cuda"))
+    reset_launches()
+    plan_with_config(n, kind)(x)
+    torch.cuda.synchronize()
+    heuristic = sum(launch_counts().values())
+    plan = plan_for_length(n, kind)
+    ledger = LaunchLedger()
+    reset_launches()
+    with ledger.capture():
+        y = plan(x)
+    torch.cuda.synchronize()
+    run = launch_counts()
+    tiles = [r.tile[0] for r in ledger.records]
+    want = [l.per_block for _, l in plan_launches(n, kind, batch, cfg)]
+    check(tiles == want, f"phase 10: {kind} n={n} routed tiles {tiles}, "
+          f"the chosen config {cfg} launches {want}")
+    check(sum(run.values()) == heuristic,
+          f"phase 10: {kind} n={n} routed launches {run}, heuristic "
+          f"{heuristic}")
+    _, rel = rel_err(y, {"c2c": fft_ref, "r2c": rfft_ref,
+                         "c2r": irfft_ref}[kind](x))
+    check(rel <= TUNE_RTOL, f"phase 10: {kind} n={n} routed plan rel err "
+          f"{rel:.3e}")
+    print(f"  {kind} n={n} routed: ledger tiles {tiles} (chosen per_block "
+          f"{want}), launches {({k: v for k, v in run.items() if v})} = "
+          f"heuristic's {heuristic}, rel err {rel:.3e}")
+    del x, y
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase10_tune(gen: torch.Generator) -> dict[str, int]:
+    """The autotuner on the card: tune TUNE_KEYS at phase 9's 2 GB batches
+    into a cache file in a fresh temporary directory (no user cache is
+    read or written), check every survivor, the never-regress rule, the
+    zero-measurement replay and the routed plans; print the common config
+    and the tuned FDAS segment, run phase 5's search under it; measure
+    J/transform of tuned against heuristic where they differ.  Returns the
+    launches of the routed plans and the FDAS run."""
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in launch_counts()}
+    cuda = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tune-") as tmp:
+        path = os.path.join(tmp, "tune.json")
+        cache = TuningCache()
+        tuned = {}
+        for kind, n in TUNE_KEYS:
+            batch = FFTCase(n, transform=kind).n_fft
+            res = tune_length(n, kind, objective="energy", cache=cache,
+                              model_device=H100_SXM, batch=batch, save=False,
+                              device=cuda)
+            tuned[kind, n] = (batch, res)
+            print(f"phase 10: {kind} n={n} batch {batch}: "
+                  f"{res.record.candidates} candidates, "
+                  f"{len(res.survivors)} survivors, {res.measurements} "
+                  f"timed calls; chosen tile_b={res.config.tile_b} radices="
+                  f"{res.config.radices} split={res.config.split} "
+                  f"({res.config.source}), {res.record.measured_s * 1e3:.4f}"
+                  f" ms against the heuristic's "
+                  f"{res.record.heuristic_s * 1e3:.4f}, speedup_vs_heuristic "
+                  f"{res.speedup_vs_heuristic:.4f}")
+            _tuned_check(kind, n, batch, res)
+            check(res.speedup_vs_heuristic >= 1.0,
+                  f"phase 10: {kind} n={n} speedup "
+                  f"{res.speedup_vs_heuristic} < 1")
+        for (kind, n), (batch, res) in tuned.items():
+            picks: dict[str, int] = {}
+            speedups = []
+            for _ in range(TUNE_REPEATS):
+                again = tune_length(n, kind, objective="energy",
+                                    cache=TuningCache(),
+                                    model_device=H100_SXM, batch=batch,
+                                    save=False, device=cuda)
+                cfg = again.config
+                label = (f"tile_b={cfg.tile_b} radices={cfg.radices} "
+                         f"split={cfg.split}")
+                picks[label] = picks.get(label, 0) + 1
+                speedups.append(again.speedup_vs_heuristic)
+            print(f"phase 10: {kind} n={n} tuned {TUNE_REPEATS} more times "
+                  f"into fresh caches: chosen {picks}; speedup_vs_heuristic "
+                  f"{min(speedups):.4f}..{max(speedups):.4f}")
+        check(cache.save(path) == path, "phase 10: cache not saved")
+        replay = TuningCache.load(path=path)
+        for (kind, n), (batch, res) in tuned.items():
+            again = tune_length(n, kind, cache=replay, model_device=H100_SXM,
+                                batch=batch, save=False, device=cuda)
+            check(again.replayed and again.measurements == 0
+                  and again.config == res.config,
+                  f"phase 10: {kind} n={n} replay {again}")
+        print(f"phase 10: replay of {len(tuned)} keys from {len(replay)} "
+              f"records of the saved cache: 0 measurements, the same configs")
+        with use_tuning(TuningContext(replay)):
+            for (kind, n), (batch, res) in tuned.items():
+                for kernel, count in _routed(kind, n, batch,
+                                             res.config).items():
+                    launches[kernel] += count
+        common, regret = common_config(replay, model_device=H100_SXM)
+        prev = get_tuning_context()
+        try:
+            ctx = install_common_default(replay, model_device=H100_SXM)
+            check(get_tuning_context() is ctx and ctx.common == common,
+                  "phase 10: common default not installed")
+        finally:
+            set_tuning_context(prev)
+        print(f"phase 10: common config tile_b={common.tile_b} radices="
+              f"{common.radices} ({common.source}), mean regret {regret:.6f}"
+              f" (H100_SXM model, {len(tuned)} keys)")
+        bank = TemplateBank.linear(zmax=FDAS_ZMAX)
+        seg_key = (FDAS_N // 2 + 1, bank.taps, bank.n_templates)
+        seg = tune_segment(*seg_key, cache=replay, model_device=H100_SXM,
+                           save=False)
+        chosen = seg.config.segment
+        print(f"phase 10: tuned segment for {seg_key}: nfft {chosen} "
+              f"(model {seg.record.score:.6e} J/row) against select_nfft's "
+              f"{select_nfft(bank.taps, *seg_key[::2])} "
+              f"({seg.record.heuristic_score:.6e}); "
+              f"{seg.record.candidates} candidates")
+        x = _fdas_series(gen)
+        with use_tuning(TuningContext(replay)):
+            check(fdas_conv_plan(FDAS_N, bank).nfft == chosen,
+                  "phase 10: FDAS plan ignores the tuned segment")
+            reset_launches()
+            res = fdas_search(x, bank)
+            torch.cuda.synchronize()
+        for kernel, count in launch_counts().items():
+            launches[kernel] += count
+        t_hit, b_hit = _fdas_tone("phase 10: fdas", res, bank)
+        print(f"phase 10: fdas under the tuned segment {chosen}: tone at "
+              f"(template {t_hit}, bin {b_hit})")
+        del x, res
+        torch.cuda.empty_cache()
+    differ = [(kind, n, batch, res) for (kind, n), (batch, res)
+              in tuned.items() if not res.config.is_heuristic]
+    handle = nvml.device_handle(torch.cuda.current_device())
+    for kind, n, batch, res in differ[:TUNE_ENERGY_KEYS]:
+        x = _fft_operand(n, kind, batch, cuda)
+        rows = {label: _energy_run(handle, plan_with_config(n, kind, cfg), x)
+                for label, cfg in (("tuned", res.config), ("heuristic", None))}
+        print(f"phase 10: {kind} n={n} J/transform at the default clocks "
+              f"(energy counter, {batch} a batch): " + "; ".join(
+                  f"{label} {r['counter_j'] / (r['runs'] * batch):.4e} "
+                  f"({r['ms']:.4f} ms a batch, {r['counter_w']:.2f} W, SM "
+                  f"{r['sm_mhz']:.0f} MHz)" for label, r in rows.items())
+              + f" | {_card()}")
+        del x
+        torch.cuda.empty_cache()
+    if not differ:
+        print("phase 10: every key kept the heuristic config; no energy run")
+    print(f"phase 10: wall time {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2601,7 +2838,7 @@ def main() -> int:
     phase3_host_gap(gen)
     launches = phase4_main_path(gen)
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
-                  phase9_energy):
+                  phase9_energy, phase10_tune):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

@@ -26,7 +26,9 @@ Three cost levers, as in the reference:
 The segments are a ``Tensor.unfold`` window view of the front-padded
 signal (the reference gathers ``xp[..., idx]``); the kernel wrapper makes
 it contiguous.  ``conv_plan`` exposes the pass/traffic accounting that
-``core.workloads.conv_workload`` consumes.
+``core.workloads.conv_workload`` consumes; with ``nfft=0`` it takes a
+segment the autotuner chose (``repro_torch.tune.tune_segment``) before
+the cost model's.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch
 from repro_torch.fft.radix import (DEFAULT_RADICES, is_pow2,
                                    mixed_radix_flop_count, next_pow2)
 from repro_torch.fft.stockham import _as_complex
+from repro_torch.tune.context import plan_config
 
 #: Complex bytes per point at the engine's working precision (complex64).
 _ELEM = 8
@@ -136,15 +139,28 @@ class ConvPlan:
             self.forward_passes / self.templates)
 
 
-@functools.lru_cache(maxsize=None)
 def conv_plan(n: int, taps: int, templates: int = 1, nfft: int = 0,
               radices: tuple[int, ...] = DEFAULT_RADICES) -> ConvPlan:
     """Build (or return the memoised) overlap-save plan.
 
-    ``nfft=0`` picks the segment length with the :func:`select_nfft` cost
-    model.  An explicit ``nfft`` must be a power of two no shorter than
-    the filter.
+    ``nfft=0`` defers the segment length to the active tuning context
+    (``repro_torch.tune``: key ``(device, (n, taps, templates), "conv")``)
+    and falls back to the :func:`select_nfft` cost model when the key is
+    untuned, its segment is no power of two at least ``taps`` long, or
+    tuning is disabled.  An explicit ``nfft`` must be a power of two no
+    shorter than the filter.
     """
+    if nfft == 0:
+        cfg = plan_config((n, taps, templates), "conv")
+        if (cfg is not None and cfg.segment and is_pow2(cfg.segment)
+                and cfg.segment >= taps):
+            nfft = cfg.segment
+    return _conv_plan(n, taps, templates, nfft, radices)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_plan(n: int, taps: int, templates: int, nfft: int,
+               radices: tuple[int, ...]) -> ConvPlan:
     from repro_torch.fft.plan import (MAX_KERNEL_N,  # lazy: import cycle
                                       plan_for_length)
 

@@ -115,15 +115,27 @@ class PlanSweepCache:
 
     @staticmethod
     def _tuned_config(key: ShapeKey):
-        """The tuned config this key's plan build will resolve to (None
-        for FDAS keys: their segment is part of the key, or the cost
-        model's).  Pulsar keys resolve the config of their inner R2C over
-        the filterbank's time axis."""
+        """The tuned config this key's plan build will resolve to.
+
+        Every kind keys on the config its build consults (the context
+        memoises, so repeated lookups never re-read the tuning cache).
+        FDAS entries with ``segment=0`` resolve the conv key exactly like
+        ``fft.convolve.conv_plan`` will at build time (an explicit segment
+        is already part of the ShapeKey); pulsar entries key on both their
+        tunable inner passes: the R2C over the filterbank's time axis and
+        the overlap-save conv against the acceleration bank.
+        """
         if key.kind == KIND_FDAS:
-            return None
+            if key.segment:
+                return None          # segment pinned in the ShapeKey itself
+            return plan_config((key.n // 2 + 1, _fdas_bank(key.templates).taps,
+                                key.templates), "conv")
         if key.kind == KIND_PULSAR:
-            return plan_config((key.shape[-1] if key.shape else key.n,),
-                               "r2c")
+            ntime = key.shape[-1] if key.shape else key.n
+            return (plan_config((ntime,), "r2c"),
+                    plan_config((ntime // 2 + 1,
+                                 _fdas_bank(key.templates).taps,
+                                 key.templates), "conv"))
         return plan_config(key.shape or (key.n,), key.transform)
 
     def entry(self, key: ShapeKey) -> CacheEntry:

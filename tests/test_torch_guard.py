@@ -35,7 +35,11 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.core.calibration", "repro_torch.power",
                  "repro_torch.power.sampler", "repro_torch.power.watchdog",
                  "repro_torch.power.telemetry", "repro_torch.power.governor",
-                 "repro_torch.power.site", "repro_torch.power.nvml"):
+                 "repro_torch.power.site", "repro_torch.power.nvml",
+                 "repro_torch.tune.cache", "repro_torch.tune.timing",
+                 "repro_torch.tune.tuner", "repro_torch.obs.trace",
+                 "repro_torch.obs.log", "repro_torch.obs.drift",
+                 "repro_torch.data.arrivals"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"

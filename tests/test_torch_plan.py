@@ -18,6 +18,7 @@ from repro_torch.fft import stockham as port_stockham
 from repro_torch.kernels.fft import fft_kernel
 from repro_torch.obs.ledger import LaunchLedger
 from repro_torch.tune.config import ConfigKey, KernelConfig
+from repro_torch.tune.cache import TuneRecord, TuningCache
 from repro_torch.tune.context import TuningContext, use_tuning
 
 #: The reference records launches only while jax.jit traces, so every
@@ -89,8 +90,9 @@ def test_plan_with_config_matches_reference(n, radices, split):
 
 def test_tuning_context_supplies_the_config():
     cfg = KernelConfig(radices=(2,))
-    ctx = TuningContext({ConfigKey("test-device", (64,)): cfg},
-                        device="test-device")
+    cache = TuningCache(device="test-device")
+    cache.put(ConfigKey("test-device", (64,)), TuneRecord(config=cfg))
+    ctx = TuningContext(cache)
     with use_tuning(ctx):
         plan = port_plan.plan_for_length(64)
         port_plan.plan_for_length(64)
