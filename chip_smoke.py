@@ -111,25 +111,59 @@ Phases, in order; any failure raises and the script exits non-zero:
      search under it (the tone still at its cell); where a tuned config
      differs from the heuristic (three keys at most), measure both in
      J/transform with phase 9's energy counter at the default clocks;
- 11. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 11. the robust service (``FFTService`` with ``slo=``, ``fault_plan=``,
+     ``telemetry=``, ``tracer=`` and ``journal=``): (a) phase 6's wave 0
+     at full width on two worker slots of the card, with the C2C stream
+     two full 2 GB batches submitted last, under a pinned KILL_DEVICE
+     (the first C2C batch, retried on the other slot), FAIL_CLOCK_LOCK
+     (an R2C batch, rung 1), FAIL_PLAN_BUILD (a rank-2 batch, rung 1) and
+     STALL_WORKER (the FDAS batch, redistributed), and an SLO that sends
+     the second C2C batch to rung 2, which on the card runs the boost
+     heuristic plan's kernels (counts set to 0 just before, read just
+     after): every result held to phase 6's tolerance and cells, each
+     receipt's rung, retries and reason, kernel launches and ledger
+     records on every batch; each batch's service and execute time beside
+     its rung, its modelled energy and the NVML energy counter's joules
+     over the batch (``NvmlEnergySampler``), the watchdog labels and
+     drift; (d) the
+     tracer's spans, the flight-recorder snapshot of the injected kill,
+     ``metrics_text()`` against ``BENCH_obs.json``'s series, and one
+     chaos wave drained with and without a tracer; (b) the reference's
+     chaos stream (``benchmarks/run.py``) of 8192 requests on four slots
+     of the card twice and its first 1024 on the card and on four CPU
+     slots: equal digests, every request receipted, availability 1.0,
+     every fault kind the run reached fired, kernels launched on the
+     card; (c) crash recovery at the reference harness's rate, period and
+     deadline: 16384 requests of the stream in Poisson waves through a
+     journal, two
+     CRASH_PROCESS arrivals and a KILL_HOST (2 hosts x 2 slots), a
+     snapshot after each wave, ``FFTService.recover`` after each crash:
+     no lost or duplicated receipt, the journal exactly-once, every
+     replayed receipt equal to the live one; the journal's records/s and
+     the time to recover;
+ 12. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT,
                                 "src"))
 
 import numpy as np  # noqa: E402
@@ -138,6 +172,7 @@ import torch  # noqa: E402
 from repro_torch.core import (H100_SXM, TESLA_V100, FFTCase,  # noqa: E402
                               energy_from_trace, energy_per_transform,
                               fft_flops, fft_workload, sweep)
+from repro_torch.data.arrivals import arrival_times, wave_slices  # noqa: E402
 from repro_torch.data.synthetic import FilterbankSpec, InjectedPulsar  # noqa: E402
 from repro_torch.fft import multidim  # noqa: E402
 from repro_torch.fft import pipeline as demo  # noqa: E402
@@ -163,14 +198,25 @@ from repro_torch.kernels.spectrum import spectrum_kernel as S  # noqa: E402
 from repro_torch.kernels.fft.ref import fft_ref, irfft_ref, rfft_ref  # noqa: E402
 from repro_torch.obs.ledger import LaunchLedger  # noqa: E402
 from repro_torch.obs.metrics import latency_summary  # noqa: E402
-from repro_torch.power import nvml  # noqa: E402
+from repro_torch.obs.trace import Tracer  # noqa: E402
+from repro_torch.power import FleetTelemetry, nvml  # noqa: E402
+from repro_torch.power.nvml import NvmlEnergySampler  # noqa: E402
+from repro_torch.runtime.faults import (CRASH_PROCESS,  # noqa: E402
+                                        FAIL_CLOCK_LOCK, FAIL_PLAN_BUILD,
+                                        FAULT_KINDS, KILL_DEVICE,
+                                        STALL_WORKER, FaultEvent, FaultPlan,
+                                        HostTopology)
+from repro_torch.runtime.journal import RequestJournal, read_journal  # noqa: E402
 from repro_torch.search import (DispersionPlan, TemplateBank,  # noqa: E402
                                 extract_candidates, fdas_conv_plan,
                                 fdas_search, matched_filter_plane,
                                 plan_pulsar_stages, power_plane,
                                 pulsar_search, serving_candidates,
                                 serving_sifted, sift_candidates)
-from repro_torch.serving import KIND_FDAS, KIND_PULSAR, FFTService  # noqa: E402
+from repro_torch.serving import (KIND_FDAS, KIND_PULSAR, SLO,  # noqa: E402
+                                 AdmissionController, FFTRequest,
+                                 FFTService, ReplayResult, SLOPolicy,
+                                 coalesce, rung_name)
 from repro_torch.tune import (TuningCache, TuningContext,  # noqa: E402
                               common_config, get_tuning_context,
                               install_common_default, set_tuning_context,
@@ -2186,6 +2232,9 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
           f"{rep.throughput_tps:.1f} transforms/s over execution, "
           f"J/transform {rep.joules_per_transform:.4e}, I_ef "
           f"{rep.i_ef:.4f}; launches {launches}")
+    SERVE_DATA.update(xc=xc, xr=xr, x2=x2, x1=x1, xf=xf, xp=xp, bank=bank,
+                      pulsar_refs=pulsar_refs, pulsar_cells=pulsar_cells,
+                      fdas_refs=fdas_refs)
     del svc, refs
     torch.cuda.empty_cache()
     return launches
@@ -2821,6 +2870,634 @@ def phase10_tune(gen: torch.Generator) -> dict[str, int]:
     return launches
 
 
+#: Phase 11, the robust service.  (a) phase 6's wave 0 at full width on
+#: ROBUST_SLOTS worker slots of one card under four pinned faults and an
+#: SLO that sends the last C2C batch to rung 2 (on the card, the rung-1
+#: plan's kernels at boost): the C2C
+#: stream is two full 2 GB batches (ROBUST_C2C_BATCHES), submitted last so
+#: that only the second crosses the admission threshold; ROBUST_STALL_S is
+#: the stall pinned on the FDAS batch.
+ROBUST_SLOTS = 2
+ROBUST_C2C_BATCHES = 2
+ROBUST_STALL_S = 0.05
+#: (b) the reference's chaos stream (benchmarks/run.py): CHAOS_REQUESTS in
+#: waves of CHAOS_WAVE on CHAOS_SLOTS worker slots of one card, twice, and
+#: its first CHAOS_CPU_REQUESTS on as many CPU slots.  The admission
+#: controller reads SLO deadlines against modelled seconds, never a clock,
+#: so the reference harness's deadlines (``_run_chaos`` 7e-6 s,
+#: ``_run_recovery`` 6e-5 s, set on its TPU_V5E model of REF_HBM_BANDWIDTH)
+#: are scaled by the two models' HBM bandwidths to give the H100_SXM model
+#: the same pressure; one more run prints the mix at the unscaled 7e-6 s.
+CHAOS_REQUESTS = 8192
+CHAOS_WAVE = 512
+CHAOS_SLOTS = 4
+CHAOS_CPU_REQUESTS = 1024
+REF_HBM_BANDWIDTH = 819e9
+REF_CHAOS_DEADLINE_S = 7e-6
+CHAOS_DEADLINE_S = REF_CHAOS_DEADLINE_S * REF_HBM_BANDWIDTH \
+    / H100_SXM.hbm_bandwidth
+#: (c) crash recovery at the reference harness's arrival rate and wave
+#: period (``_run_recovery``) and its deadline, scaled as above:
+#: RECOVERY_REQUESTS of the chaos stream in Poisson arrival waves (one
+#: drain every RECOVERY_PERIOD_S of arrival time), two CRASH_PROCESS
+#: arrivals, one KILL_HOST on a batch the run reaches, 2 simulated hosts
+#: of 2 worker slots, a snapshot after every wave.  16384 requests make
+#: five waves at that period, so that a snapshot falls between the two
+#: crashes.
+RECOVERY_REQUESTS = 16384
+RECOVERY_RATE_HZ = 1e5
+RECOVERY_PERIOD_S = 4e-2
+RECOVERY_DEADLINE_S = 6e-5 * REF_HBM_BANDWIDTH / H100_SXM.hbm_bandwidth
+RECOVERY_CRASHES = 2
+RECOVERY_HOST_KILL_BATCHES = (10,)
+#: (d) drains of one chaos wave timed with and without the tracer.
+TRACE_REPS = 3
+#: The receipt fields a replayed receipt must carry bit for bit.
+RECEIPT_FIELDS = ("status", "reason", "rung", "retries", "batch_id",
+                  "worker", "clock_mhz", "modelled_time_s", "energy_j",
+                  "boost_energy_j", "measured_energy_j", "realtime_margin")
+#: Phase 6 keeps its payloads, references and candidate cells here for
+#: phase 11.
+SERVE_DATA: dict = {}
+
+
+def _chaos_pool(seed: int) -> dict:
+    """The reference chaos harness's payload pool (benchmarks/run.py): one
+    array per distinct request shape, resubmitted, never mutated."""
+    rng = np.random.default_rng(seed)
+
+    def cplx(shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    def real(shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return {
+        "fft": {(n, b): cplx((b, n))
+                for n in (256, 512, 1024) for b in (1, 2, 3, 4)},
+        "r2c": {b: real((b, 512)) for b in (1, 2)},
+        "fft2": cplx((2, 64, 64)),
+        "fdas": real((1, 1024)),
+        "pulsar": real((4, 256)),
+    }
+
+
+def _chaos_payload(i: int, pool: dict):
+    """Payload and submit kwargs of request ``i`` of the mixed stream (a
+    pure function of (i, pool), as recovery needs)."""
+    if i % 997 == 111:
+        return pool["pulsar"], {"kind": "pulsar", "dm_trials": 4,
+                                "templates": 3, "n_harmonics": 4}
+    if i % 211 == 23:
+        return pool["fdas"], {"kind": "fdas", "templates": 3}
+    if i % 53 == 17:
+        return pool["fft2"], {"ndim": 2}
+    if i % 7 == 3:
+        return pool["r2c"][1 + i % 2], {"transform": "r2c"}
+    return pool["fft"][((256, 512, 1024)[i % 3], 1 + i % 4)], {}
+
+
+def _digest(rows) -> str:
+    """blake2b over (kind, outcome, rung, reason) in submission order."""
+    h = hashlib.blake2b(digest_size=16)
+    for t in rows:
+        h.update(f"{t[0]}:{t[1]}:{t[2]}:{t[3]}".encode() if t is not None
+                 else b"MISSING")
+    return h.hexdigest()
+
+
+def _by_rung(receipts) -> dict:
+    """Served requests, transforms and J/transform (modelled, measured)
+    by rung name."""
+    out: dict = {}
+    for r in receipts:
+        if r.status != "served":
+            continue
+        g = out.setdefault(rung_name(r.rung), {"n": 0, "transforms": 0,
+                                               "j": 0.0, "measured_j": 0.0})
+        g["n"] += 1
+        g["transforms"] += r.request.batch
+        g["j"] += r.energy_j
+        g["measured_j"] += r.measured_energy_j or 0.0
+    return {k: {"n": g["n"], "j_per_transform": g["j"] / g["transforms"],
+                "measured_j_per_transform": g["measured_j"] / g["transforms"]}
+            for k, g in sorted(out.items())}
+
+
+def _chaos_service(devices, plan, seed: int = 0,
+                   deadline_s: float = CHAOS_DEADLINE_S) -> FFTService:
+    return FFTService(
+        H100_SXM, devices=devices, keep_results=False,
+        slo=SLOPolicy(default=SLO(deadline_s=deadline_s)),
+        fault_plan=plan, drain_deadline_s=300.0,
+        telemetry=FleetTelemetry.for_serving(H100_SXM, seed=seed,
+                                             fault_plan=plan))
+
+
+def _chaos_run(n: int, devices, *, seed: int = 0,
+               deadline_s: float = CHAOS_DEADLINE_S) -> dict:
+    """One open-loop chaos run of the reference harness on ``devices``."""
+    pool = _chaos_pool(seed)
+    plan = FaultPlan.generate(
+        seed, n_batches=max(2 * 8 * (n // CHAOS_WAVE + 1), 16),
+        stall_duration_s=0.02)
+    scheduled = list(plan.events)
+    svc = _chaos_service(devices, plan, seed, deadline_s)
+    submitted = []
+    t0 = time.perf_counter()
+    for start in range(0, n, CHAOS_WAVE):
+        for i in range(start, min(start + CHAOS_WAVE, n)):
+            x, kw = _chaos_payload(i, pool)
+            submitted.append(svc.submit(x, **kw))
+        svc.drain()
+    wall = time.perf_counter() - t0
+    receipts = [svc.receipt(r) for r in submitted]
+    shed = [r for r in receipts if r is not None and r.status == "shed"]
+    reached = {ev.kind for ev in scheduled
+               if ev.batch_id is not None and ev.batch_id < svc._next_batch_id}
+    return {
+        "wall_s": wall, "requests_per_s": n / wall,
+        "missing": sum(r is None for r in receipts),
+        "digest": _digest(None if r is None else (q.kind, r.outcome, r.rung,
+                                                  r.reason)
+                          for q, r in zip(submitted, receipts)),
+        "outcomes": dict(collections.Counter(
+            r.outcome for r in receipts if r is not None)),
+        "shed_by_reason": dict(collections.Counter(r.reason for r in shed)),
+        "fired": {k: plan.fired_count(k) for k in FAULT_KINDS
+                  if plan.fired_count(k)},
+        "unfired": sorted(k for k in reached if not plan.fired_count(k)),
+        "availability": svc.report().availability,
+        "by_rung": _by_rung(r for r in receipts if r is not None),
+        "batches": svc._next_batch_id,
+    }
+
+
+def _robust_requests(n_c2c: int):
+    """Phase 6's wave 0, the C2C stream last: (stream, index, payload,
+    submit kwargs) in submission order."""
+    d = SERVE_DATA
+    out = [("r2c", i, np.roll(d["xr"], i, axis=0), {"transform": "r2c"})
+           for i in range(SERVE_REQUESTS)]
+    out += [("2d", i, np.roll(d["x2"], i, axis=0), {"ndim": 2})
+            for i in range(SERVE_2D)]
+    out += [("fdas", i, x, {"kind": KIND_FDAS,
+                            "templates": d["bank"].n_templates})
+            for i, x in enumerate(d["xf"])]
+    out += [("pulsar", i, x, {"kind": KIND_PULSAR, "dm_trials": PULSAR_TRIALS,
+                              "templates": d["bank"].n_templates,
+                              "n_harmonics": PULSAR_HARMONICS})
+            for i, x in enumerate(d["xp"])]
+    out.append(("1d", 0, d["x1"], {}))
+    out += [("c2c", i, np.roll(d["xc"], i, axis=0), {}) for i in range(n_c2c)]
+    return out
+
+
+def _robust_plan(device: torch.device):
+    """The submission list, its batches (as the service will coalesce
+    them), the pinned FaultPlan and the SLO that puts the last C2C batch,
+    and only it, above the hard-degrade threshold (rung 2)."""
+    batch_bytes = FFTService(H100_SXM, devices=[device]).batch_bytes
+    probe = [FFTRequest(x=SERVE_DATA["xc"])]
+    per_batch = coalesce(probe * 64, device_name=H100_SXM.name,
+                         batch_bytes=batch_bytes)[0].requests
+    reqs = _robust_requests(ROBUST_C2C_BATCHES * len(per_batch))
+    requests = [FFTRequest(x=x, **kw) for _, _, x, kw in reqs]
+    batches = coalesce(requests, device_name=H100_SXM.name,
+                       batch_bytes=batch_bytes)
+    index = {id(r): k for k, r in enumerate(requests)}
+    stream_of = {b.batch_id: reqs[index[id(b.requests[0])]][0]
+                 for b in batches}
+    first = {}
+    for b in batches:
+        first.setdefault(stream_of[b.batch_id], []).append(b)
+    c2c_a, c2c_b = first["c2c"]
+    # Cold admission estimates (the service's cache is empty when its
+    # controller runs): the threshold sits between the last request of
+    # the first C2C batch and the first of the second.
+    est = np.cumsum([r.bytes * AdmissionController.COLD_PASSES
+                     / H100_SXM.hbm_bandwidth for r in requests])
+    k0 = index[id(c2c_b.requests[0])]
+    policy = SLOPolicy(default=SLO(deadline_s=(est[k0 - 1] + est[k0]) / 2,
+                                   degrade_at=1.0, degrade_hard_at=1.0,
+                                   shed_at=None))
+    plan = FaultPlan([
+        FaultEvent(KILL_DEVICE, batch_id=c2c_a.batch_id),
+        FaultEvent(FAIL_CLOCK_LOCK, batch_id=first["r2c"][0].batch_id),
+        FaultEvent(FAIL_PLAN_BUILD, batch_id=first["2d"][0].batch_id),
+        FaultEvent(STALL_WORKER, batch_id=first["fdas"][0].batch_id,
+                   duration=ROBUST_STALL_S)])
+    expected = {b.batch_id: (0, 0, None) for b in batches}
+    expected[c2c_a.batch_id] = (0, 1, None)
+    expected[c2c_b.batch_id] = (2, 0, "admission:backlog-hard")
+    expected[first["r2c"][0].batch_id] = (1, 0, "fault:clock-lock-failed")
+    expected[first["2d"][0].batch_id] = (1, 0, "fault:plan-build-failed")
+    return reqs, stream_of, policy, plan, expected
+
+
+def _robust_check(kind: str, i: int, r, refs: dict, device) -> float:
+    """Hold one served result against its reference (phase 6's checks);
+    returns its relative error (0 for the candidate streams)."""
+    d = SERVE_DATA
+    if kind == "pulsar":
+        got = r.result[0]
+        cells = {tuple(int(v) for v in row[:3])
+                 for row in got.tolist() if row[0] >= 0}
+        _, rel = rel_err(got[:, 4].sort().values,
+                         d["pulsar_refs"][i][0][:, 4].sort().values)
+        check(cells == d["pulsar_cells"][i] and rel <= 1e-4,
+              f"phase 11: pulsar {i}: cells {cells} != phase 6's "
+              f"{d['pulsar_cells'][i]} or statistics rel {rel:.3e}")
+        return 0.0
+    if kind == "fdas":
+        want, got = d["fdas_refs"][i][0], r.result[0]
+        _, rel = rel_err(got[:, 2].sort().values, want[:, 2].sort().values)
+        check(torch.equal(got[0, :2], want[0, :2]) and rel <= 1e-4,
+              f"phase 11: fdas {i}: top cell {got[0, :2].tolist()} != "
+              f"{want[0, :2].tolist()} or powers rel {rel:.3e}")
+        return 0.0
+    ref = refs["1d"] if kind == "1d" else torch.roll(refs[kind], i, 0)
+    _, rel = rel_err(r.result, ref)
+    check(rel <= PLAN_RTOL["stockham"], f"phase 11: {kind} {i} at rung "
+          f"{r.rung}: result vs torch.fft rel {rel:.3e}")
+    return rel
+
+
+def _robust_wave(device: torch.device) -> tuple[FFTService, Tracer]:
+    """Part (a): phase 6's wave 0 under the pinned faults on two worker
+    slots of ``device``; returns the service and its tracer."""
+    reqs, stream_of, policy, plan, expected = _robust_plan(device)
+    handle = nvml.device_handle(device.index or 0)
+    # Each batch's power is the energy counter's mean over the batch: the
+    # wrapper below opens the window at the counter's step before the
+    # batch, the service's one telemetry read per batch closes it at the
+    # step after.
+    sampler = NvmlEnergySampler({w: handle for w in range(ROBUST_SLOTS)})
+    telemetry = FleetTelemetry(H100_SXM, sampler)
+    tracer = Tracer()
+    svc = FFTService(H100_SXM, devices=[device] * ROBUST_SLOTS, slo=policy,
+                     fault_plan=plan, tracer=tracer, telemetry=telemetry)
+    per_batch: dict[int, tuple[dict, int]] = {}
+    window: dict[int, tuple[float, float]] = {}
+    execute = svc._execute_batch
+
+    def counted(batch, worker, dev):
+        """The batch's own kernel launches, ledger records and energy
+        window (its last attempt's, for a batch killed and retried)."""
+        before, mark = launch_counts(), len(svc.ledger.records)
+        sampler.mark(worker)
+        sampler.last.pop(worker, None)
+        try:
+            execute(batch, worker, dev)
+            window[batch.batch_id] = sampler.last.get(
+                worker, (math.nan, math.nan))
+        finally:
+            after = launch_counts()
+            per_batch[batch.batch_id] = (
+                {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]},
+                len(svc.ledger.records) - mark)
+
+    svc._execute_batch = counted
+    print(f"phase 11: (a) phase 6's wave 0 on {ROBUST_SLOTS} worker slots "
+          f"of one card ({device}, the same card twice): {len(reqs)} "
+          f"requests, {len(set(stream_of))} batches; faults "
+          + ", ".join(f"{ev.kind} on batch {ev.batch_id}"
+                      for ev in plan.events)
+          + f"; SLO deadline {policy.default.deadline_s:.6e} s (modelled) "
+          "puts the last C2C batch at rung 2, on the card the boost "
+          "heuristic plan's kernels")
+    submitted = [(svc.submit(x, **kw), kind, i) for kind, i, x, kw in reqs]
+    t0 = time.perf_counter()
+    receipts = svc.drain()
+    wall = time.perf_counter() - t0
+    check(len(receipts) == len(reqs) and all(
+        r.request is q for (q, _, _), r in zip(submitted, receipts)),
+          f"phase 11: {len(receipts)} receipts for {len(reqs)} requests")
+    def on_card(name):
+        return torch.from_numpy(SERVE_DATA[name]).to(device)
+
+    refs = {"c2c": torch.fft.fft(on_card("xc")),
+            "r2c": torch.fft.rfft(on_card("xr")),
+            "2d": torch.fft.fft2(on_card("x2")),
+            "1d": torch.fft.fft(on_card("x1"))}
+    worst: dict[int, float] = {}
+    for (req, kind, i), r in zip(submitted, receipts):
+        check(r.status == "served" and (r.rung, r.retries, r.reason)
+              == expected[r.batch_id],
+              f"phase 11: {kind} {i} on batch {r.batch_id}: (rung, "
+              f"retries, reason) ({r.rung}, {r.retries}, {r.reason!r}) "
+              f"!= {expected[r.batch_id]}")
+        rel = _robust_check(kind, i, r, refs, device)
+        worst[r.batch_id] = max(worst.get(r.batch_id, 0.0), rel)
+    del refs
+    check(plan.pending() == 0 and svc.stalls_honoured == 1
+          and svc.redistributions >= 2,
+          f"phase 11: {plan.pending()} faults pending, "
+          f"{svc.stalls_honoured} stalls, {svc.redistributions} "
+          "redistributions")
+    for bid, (launches, records) in sorted(per_batch.items()):
+        check(bool(launches) and records > 0,
+              f"phase 11: batch {bid} at rung {expected[bid][0]} launched "
+              f"{launches}, {records} ledger records")
+    by_batch: dict[int, list] = {}
+    for r in receipts:
+        by_batch.setdefault(r.batch_id, []).append(r)
+    # The execute span (the plan and the wait for the card, without the
+    # stack and copy) of each batch's last attempt.
+    execute_s = {s.attrs["batch_id"]: s.duration for s in tracer.spans
+                 if s.name == "execute"}
+    for bid, rs in sorted(by_batch.items()):
+        r0 = rs[0]
+        rows = sum(r.request.batch for r in rs)
+        gb = sum(r.request.bytes for r in rs) / 1e9
+        launches, records = per_batch[bid]
+        measured = sum(r.measured_energy_j for r in rs)
+        dt, joules = window[bid]
+        print(f"phase 11: (a) batch {bid} {stream_of[bid]}: {len(rs)} "
+              f"requests, {rows} rows, {gb:.3f} GB; rung {r0.rung} "
+              f"({r0.rung_name}), retries {r0.retries}, reason "
+              f"{r0.reason!r}, worker {r0.worker}; service "
+              f"{r0.service_latency * 1e3:.3f} ms "
+              f"({gb / r0.service_latency:.1f} GB/s), of it execute "
+              f"{execute_s[bid] * 1e3:.3f} ms; launches {launches or 'none'}"
+              f", {records} ledger records; H100 model "
+              f"{sum(r.energy_j for r in rs):.6e} J; "
+              f"NVML energy counter over the batch (from the counter's step"
+              f" before it to the one after) {joules:.6e} J in "
+              f"{dt * 1e3:.3f} ms ({joules / dt:.2f} W), receipts (that mean"
+              f" power x modelled time) {measured:.6e} J; max rel err "
+              f"{worst[bid]:.3e}")
+    rung_rate = {}
+    for bid, rs in by_batch.items():
+        if stream_of[bid] == "c2c":
+            gb = sum(r.request.bytes for r in rs) / 1e9
+            rung_rate[rs[0].rung] = (rs[0].service_latency / gb,
+                                     execute_s[bid] / gb)
+    (s0, e0), (s2, e2) = rung_rate[0], rung_rate[2]
+    print(f"phase 11: (a) C2C (4096, 4096) ms per GB, service (execute): "
+          f"rung 0 (tuned plan, after one retry) {s0 * 1e3:.3f} "
+          f"({e0 * 1e3:.3f}), rung 2 (boost heuristic plan) {s2 * 1e3:.3f} "
+          f"({e2 * 1e3:.3f}): {s2 / s0:.2f}x ({e2 / e0:.2f}x) | {_card()}")
+    rep = svc.report()
+    print(f"phase 11: (a) drain {wall:.3f} s; report: {rep.n_requests} served,"
+          f" {rep.degraded} degraded, {rep.retried} retried, "
+          f"{rep.redistributions} redistributions, {rep.breaker_opens} "
+          f"breaker opens, availability {rep.availability}; watchdog labels "
+          f"{rep.telemetry['labels']}; drift {svc.drift.summary()}")
+    svc._execute_batch = execute
+    return svc, tracer
+
+
+def _observability(svc: FFTService, tracer: Tracer, device) -> None:
+    """Part (d): span counts, flight-recorder snapshots, metrics series,
+    and the drain time of one chaos wave with and without a tracer."""
+    spans = collections.Counter(s.name for s in tracer.spans)
+    snaps = [(s.error_type, s.message) for s in tracer.flight.snapshots]
+    check(any(t == "DeviceLostError" for t, _ in snaps),
+          f"phase 11: the injected kill took no flight-recorder snapshot: "
+          f"{snaps}")
+    text = svc.metrics_text()
+    names = {line.split("{")[0].split(" ")[0]
+             for line in text.splitlines() if line and line[0] != "#"}
+    with open(os.path.join(ROOT, "BENCH_obs.json")) as f:
+        want = set(json.load(f)["metrics_series"])
+    check(want <= names, f"phase 11: metrics_text() lacks {want - names}")
+    print(f"phase 11: (d) spans {dict(spans)}; flight-recorder snapshots "
+          f"{snaps}; metrics_text() {len(names)} series, every one of "
+          f"BENCH_obs.json's {len(want)} among them")
+    pool = _chaos_pool(0)
+    wave = [_chaos_payload(i, pool) for i in range(CHAOS_WAVE)]
+    times: dict[str, list[float]] = {"tracer": [], "none": []}
+    services = {mode: FFTService(H100_SXM, devices=[device] * CHAOS_SLOTS,
+                                 keep_results=False,
+                                 tracer=Tracer() if mode == "tracer" else None)
+                for mode in times}
+    for rep in range(TRACE_REPS + 1):
+        for mode, s in services.items():
+            for x, kw in wave:
+                s.submit(x, **kw)
+            t0 = time.perf_counter()
+            s.drain()
+            if rep:                               # the first drain warms
+                times[mode].append(time.perf_counter() - t0)
+    on, off = (statistics.median(times[m]) for m in ("tracer", "none"))
+    print(f"phase 11: (d) one chaos wave ({CHAOS_WAVE} requests) drains in "
+          f"{on * 1e3:.3f} ms with the tracer, {off * 1e3:.3f} ms without "
+          f"(median of {TRACE_REPS}): {(on / off - 1) * 100:+.2f} % | "
+          f"{_card()}")
+
+
+def _recovery_run(device: torch.device, *, seed: int = 0) -> dict:
+    """Part (c): benchmarks/run.py's crash-and-recover harness on worker
+    slots of ``device``, with a journal in a fresh temporary directory."""
+    pool = _chaos_pool(seed)
+    n = RECOVERY_REQUESTS
+    waves = list(wave_slices(arrival_times(n, seed=seed + 1,
+                                           rate_hz=RECOVERY_RATE_HZ),
+                             RECOVERY_PERIOD_S))
+    topology = HostTopology(CHAOS_SLOTS, devices_per_host=2)
+    crash_arrivals = tuple(n * (k + 1) // (RECOVERY_CRASHES + 1)
+                           for k in range(RECOVERY_CRASHES))
+    jdir = tempfile.mkdtemp(prefix="chip-smoke-journal-")
+    append_s = [0.0]
+    recover_s: list[float] = []
+
+    def make_plan():
+        return FaultPlan.generate(
+            seed, n_batches=max(16 * (len(waves) + 1), 64),
+            stall_duration_s=0.02, crash_arrivals=crash_arrivals,
+            host_kill_batches=RECOVERY_HOST_KILL_BATCHES)
+
+    def timed(journal):
+        append = journal.append
+
+        def fn(rtype, data):
+            t0 = time.perf_counter()
+            seq = append(rtype, data)
+            append_s[0] += time.perf_counter() - t0
+            return seq
+        journal.append = fn
+        return journal
+
+    def build(plan, recover_from=None):
+        kw = dict(device_spec=H100_SXM, devices=[device] * CHAOS_SLOTS,
+                  keep_results=False,
+                  slo=SLOPolicy(default=SLO(deadline_s=RECOVERY_DEADLINE_S)),
+                  fault_plan=plan, drain_deadline_s=300.0,
+                  telemetry=FleetTelemetry.for_serving(
+                      H100_SXM, seed=seed, fault_plan=plan),
+                  topology=topology)
+        if recover_from is None:
+            return FFTService(journal=timed(RequestJournal(jdir)), **kw)
+        t0 = time.perf_counter()
+        svc = FFTService.recover(
+            recover_from, payload_fn=lambda ref, meta: _chaos_payload(
+                ref, pool)[0], **kw)
+        recover_s.append(time.perf_counter() - t0)
+        timed(svc.journal)
+        return svc
+
+    outcomes: dict[int, tuple] = {}
+    live: dict[int, tuple] = {}
+    counters = collections.Counter()
+    fired = collections.Counter()
+
+    def collect(receipts):
+        for r in receipts:
+            ref = r.request.payload_ref
+            t = (r.request.kind, r.outcome, r.rung, r.reason)
+            fields = tuple(getattr(r, f) for f in RECEIPT_FIELDS)
+            if r.recovered:
+                if ref not in outcomes:
+                    outcomes[ref] = t
+                    counters["recovered_only"] += 1
+                elif live.get(ref) == fields and outcomes[ref] == t:
+                    counters["replays_verified"] += 1
+                else:
+                    counters["replay_mismatches"] += 1
+            elif ref in outcomes:
+                counters["duplicates"] += 1
+            else:
+                outcomes[ref] = t
+                live[ref] = fields
+
+    def absorb(svc, plan):
+        for ev in plan.fired:
+            fired[ev.kind] += 1
+        counters["host_kills"] += svc.host_kills
+
+    plan = make_plan()
+    svc = build(plan)
+    crashes = snapshots = 0
+    t0 = time.perf_counter()
+    for start, stop in waves:
+        for i in range(start, stop):
+            if plan.take(CRASH_PROCESS, arrival=i) is not None:
+                absorb(svc, plan)
+                svc.journal.crash()
+                crashes += 1
+                plan = make_plan()
+                svc = build(plan, recover_from=jdir)
+                plan.drop_consumed(batch_before=svc._next_batch_id,
+                                   arrival_before=i + 1)
+                collect(svc.recovered_receipts)
+            x, kw = _chaos_payload(i, pool)
+            svc.submit(x, payload_ref=i, **kw)
+        collect(svc.drain())
+        svc.snapshot()
+        snapshots += 1
+    collect(svc.drain())
+    wall = time.perf_counter() - t0
+    absorb(svc, plan)
+    svc.journal.close()
+    audit = ReplayResult(retain=0)
+    _, stats = read_journal(jdir, sink=audit.feed)
+    shutil.rmtree(jdir, ignore_errors=True)
+    return {"waves": len(waves), "crashes": crashes,
+            "snapshots": snapshots, "wall_s": wall,
+            "lost": n - len(outcomes), "duplicates": counters["duplicates"]
+            + audit.duplicate_terminals,
+            "replays_verified": counters["replays_verified"],
+            "replay_mismatches": counters["replay_mismatches"],
+            "recovered_only": counters["recovered_only"],
+            "host_kills": counters["host_kills"], "fired": dict(fired),
+            "records": stats.records, "invalid": stats.invalid,
+            "admits": audit.admits_total, "terminals": audit.terminals_total,
+            "open_admits": len(audit.open_admits),
+            "incarnations": audit.incarnations,
+            "append_s": append_s[0], "recover_s": recover_s,
+            "outcomes": dict(collections.Counter(t[1] for t in
+                                                 outcomes.values())),
+            "rungs": dict(collections.Counter(
+                rung_name(t[2]) for t in outcomes.values()
+                if t[1] != "shed"))}
+
+
+def phase11_robust(gen: torch.Generator) -> dict[str, int]:
+    """The robust service on the card: (a) phase 6's wave 0 under pinned
+    faults and admission pressure, (b) the reference's chaos stream, (c)
+    crash recovery from the journal, (d) observability; returns the
+    launches of (a), the phase's main path."""
+    t0 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    reset_launches()
+    svc, tracer = _robust_wave(device)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print("phase 11: (a) launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    _observability(svc, tracer, device)
+    del svc, tracer
+    torch.cuda.empty_cache()
+    slots = [device] * CHAOS_SLOTS
+    reset_launches()
+    runs = [_chaos_run(CHAOS_REQUESTS, slots) for _ in range(2)]
+    torch.cuda.synchronize()
+    chaos_launches = {k: v for k, v in launch_counts().items() if v}
+    print(f"phase 11: (b) launches of the two card runs {chaos_launches}")
+    check(chaos_launches.get("fft_c2c", 0) > 0,
+          f"phase 11: the chaos runs launched {chaos_launches}")
+    for k, run in enumerate(runs):
+        print(f"phase 11: (b) chaos run {k}: {CHAOS_REQUESTS} requests in "
+              f"waves of {CHAOS_WAVE} on {CHAOS_SLOTS} slots of {device}: "
+              f"{run['wall_s']:.3f} s, {run['requests_per_s']:.1f} "
+              f"requests/s, {run['batches']} batches; outcomes "
+              f"{run['outcomes']}; sheds {run['shed_by_reason']}; faults "
+              f"fired {run['fired']}; availability {run['availability']}; "
+              f"by rung {run['by_rung']}; digest {run['digest']} | {_card()}")
+        check(run["missing"] == 0 and run["availability"] == 1.0
+              and not run["unfired"],
+              f"phase 11: chaos run {k}: {run['missing']} missing, "
+              f"availability {run['availability']}, unfired {run['unfired']}")
+    unscaled = _chaos_run(CHAOS_REQUESTS, slots,
+                          deadline_s=REF_CHAOS_DEADLINE_S)
+    print(f"phase 11: (b) deadline {CHAOS_DEADLINE_S:.6e} s (the reference's "
+          f"{REF_CHAOS_DEADLINE_S} s x {REF_HBM_BANDWIDTH:.3e} / "
+          f"{H100_SXM.hbm_bandwidth:.3e} B/s); at the unscaled "
+          f"{REF_CHAOS_DEADLINE_S} s: outcomes {unscaled['outcomes']}, sheds "
+          f"{unscaled['shed_by_reason']}, served by rung "
+          f"{ {k: v['n'] for k, v in unscaled['by_rung'].items()} }")
+    check(runs[0]["digest"] == runs[1]["digest"],
+          f"phase 11: chaos digests differ: {runs[0]['digest']} "
+          f"{runs[1]['digest']}")
+    card = _chaos_run(CHAOS_CPU_REQUESTS, slots)
+    cpu = _chaos_run(CHAOS_CPU_REQUESTS, [torch.device("cpu")] * CHAOS_SLOTS)
+    print(f"phase 11: (b) first {CHAOS_CPU_REQUESTS} requests: card digest "
+          f"{card['digest']} ({card['wall_s']:.3f} s), CPU digest "
+          f"{cpu['digest']} ({cpu['wall_s']:.3f} s)")
+    check(card["digest"] == cpu["digest"] and card["missing"] == cpu[
+        "missing"] == 0, "phase 11: card and CPU chaos digests differ")
+    rec = _recovery_run(device)
+    print(f"phase 11: (c) recovery: {RECOVERY_REQUESTS} requests in "
+          f"{rec['waves']} arrival waves, {rec['crashes']} crashes, "
+          f"{rec['host_kills']} host kill, {rec['snapshots']} snapshots; "
+          f"lost {rec['lost']}, duplicated {rec['duplicates']}, replays "
+          f"verified {rec['replays_verified']} (mismatched "
+          f"{rec['replay_mismatches']}, recovered only "
+          f"{rec['recovered_only']}); journal {rec['records']} records "
+          f"({rec['admits']} admits, {rec['terminals']} terminals, "
+          f"{rec['open_admits']} open, {rec['incarnations']} incarnations); "
+          f"faults fired {rec['fired']}; outcomes {rec['outcomes']}, served "
+          f"by rung {rec['rungs']}; deadline {RECOVERY_DEADLINE_S:.6e} s, "
+          f"period {RECOVERY_PERIOD_S} s")
+    print(f"phase 11: (c) journal {rec['records'] / rec['wall_s']:.1f} "
+          f"records/s over the run ({rec['wall_s']:.3f} s), "
+          f"{rec['records'] / rec['append_s']:.1f} records/s inside append; "
+          "time to recover (replay + warm cache rebuild) "
+          + ", ".join(f"{s * 1e3:.3f} ms" for s in rec["recover_s"])
+          + f" | {_card()}")
+    check(rec["crashes"] == RECOVERY_CRASHES and rec["host_kills"] == 1
+          and rec["lost"] == 0 and rec["duplicates"] == 0
+          and rec["replay_mismatches"] == 0 and rec["replays_verified"] > 0
+          and rec["invalid"] == 0 and rec["open_admits"] == 0
+          and rec["admits"] == rec["terminals"] == RECOVERY_REQUESTS,
+          f"phase 11: recovery {rec}")
+    print(f"phase 11: wall time {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2838,7 +3515,7 @@ def main() -> int:
     phase3_host_gap(gen)
     launches = phase4_main_path(gen)
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
-                  phase9_energy, phase10_tune):
+                  phase9_energy, phase10_tune, phase11_robust):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

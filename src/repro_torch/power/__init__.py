@@ -22,9 +22,10 @@ sensors lie, stall or disappear:
              lowest-priority-first shedding, an emergency clock-floor
              rung on hard-cap breach)
   nvml       the card's end of the two hardware hooks: board power and
-             the energy counter (NvmlPowerSampler, energy_mj) and the
-             clock lock around a dispatch (NvmlClockLocker), through
-             ctypes over the driver's libnvidia-ml.so.1
+             the energy counter (NvmlPowerSampler, NvmlEnergySampler,
+             energy_mj) and the clock lock around a dispatch
+             (NvmlClockLocker), through ctypes over the driver's
+             libnvidia-ml.so.1
 """
 from repro_torch.power.governor import GovernorConfig, PowerGovernor
 from repro_torch.power.sampler import (PowerReading, PowerSampler,

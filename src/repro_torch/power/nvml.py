@@ -10,6 +10,8 @@ which ships with the driver:
 
   * :class:`NvmlPowerSampler` — board power (``nvmlDeviceGetPowerUsage``,
     mW); a failed read is reported as NaN, never raised;
+  * :class:`NvmlEnergySampler` — the mean power of a window the caller
+    opens (a batch), from the energy counter: no lag behind the window;
   * :func:`energy_mj` — the board's energy counter
     (``nvmlDeviceGetTotalEnergyConsumption``, mJ since the driver loaded),
     the primary energy reading: the power reading may be a windowed
@@ -222,6 +224,62 @@ class NvmlPowerSampler(PowerSampler):
             p = power_w(self.handles[device_index])
         except NvmlError:
             p = float("nan")
+        return PowerReading(device_index, now, p)
+
+
+class NvmlEnergySampler(PowerSampler):
+    """Mean board power over a window, from the energy counter.
+
+    :meth:`mark` opens a window on a device index (at a batch's start);
+    :meth:`sample` closes it and reports the counter's rise over the
+    ``clock`` time between the ends [W]: the energy the card drew in that
+    interval, where the board power read is NVML's own windowed average,
+    read late.  The counter moves in steps, so each end waits for its
+    next step (at most ``tick_timeout_s``): the window is the batch and
+    at most one step on each side.  ``last[i]`` keeps the closed window's
+    (seconds, joules).  A failed read, a counter that did not step in
+    time, or a sample with no open window is NaN.
+    """
+
+    def __init__(self, handles: dict[int, Handle], *,
+                 clock=time.perf_counter, tick_timeout_s: float = 1.0):
+        self.handles = dict(handles)
+        self._clock = clock
+        self.tick_timeout_s = tick_timeout_s
+        self._open: dict[int, tuple[float, int]] = {}
+        self.last: dict[int, tuple[float, float]] = {}
+
+    def _tick(self, device_index: int) -> tuple[float, int] | None:
+        """The clock and counter at the counter's next step."""
+        handle = self.handles[device_index]
+        try:
+            e0 = energy_mj(handle)
+            t0 = self._clock()
+            while True:
+                e, t = energy_mj(handle), self._clock()
+                if e != e0:
+                    return t, e
+                if t - t0 > self.tick_timeout_s:
+                    return None
+        except NvmlError:
+            return None
+
+    def mark(self, device_index: int) -> None:
+        start = self._tick(device_index)
+        if start is None:
+            self._open.pop(device_index, None)
+        else:
+            self._open[device_index] = start
+
+    def sample(self, device_index: int, now: float, *,
+               token: int | None = None) -> PowerReading:
+        p = float("nan")
+        start = self._open.pop(device_index, None)
+        end = self._tick(device_index) if start is not None else None
+        if end is not None and end[0] > start[0]:
+            dt, joules = end[0] - start[0], (end[1] - start[1]) / 1e3
+            self.last[device_index] = (dt, joules)
+            p = joules / dt
         return PowerReading(device_index, now, p)
 
 

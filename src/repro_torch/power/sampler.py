@@ -20,8 +20,9 @@ device's *current* clock and utilisation, plus deterministic seeded
 measurement noise and a bounded thermal-drift term.  Sensor faults
 (dropout / spike / stale) come from a fault plan: any object with
 ``take(kind, *, batch_id, worker)`` that returns a truthy event once per
-scheduled fault of ``kind`` (the reference's ``FaultPlan`` contract), so a
-seeded run reproduces the exact same telemetry stream bit for bit.
+scheduled fault of ``kind`` (``repro_torch.runtime.faults.FaultPlan``, or
+the reference's, which keeps the same contract), so a seeded run
+reproduces the exact same telemetry stream bit for bit.
 """
 from __future__ import annotations
 
@@ -33,12 +34,8 @@ from typing import Callable, Iterator
 
 from repro_torch.core.hardware import DeviceSpec
 from repro_torch.core.power_model import PowerModel
-
-#: The telemetry-plane fault kinds a fault plan may schedule (the values of
-#: the reference's ``runtime.faults.SENSOR_*``).
-SENSOR_DROPOUT = "sensor-dropout"
-SENSOR_SPIKE = "sensor-spike"
-SENSOR_STALE = "sensor-stale"
+from repro_torch.runtime.faults import (SENSOR_DROPOUT, SENSOR_SPIKE,
+                                        SENSOR_STALE)
 
 
 @dataclasses.dataclass(frozen=True)

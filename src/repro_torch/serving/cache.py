@@ -15,22 +15,28 @@ without re-sweeping.
 (``plan_fn`` builds the 1-D plans; N-D keys go through ``plan_nd``, as in
 the reference).  The port runs eagerly, so an entry's ``fn`` is the plan's
 own function: nothing is compiled.
+
+:meth:`PlanSweepCache.degraded_entry` is the degradation ladder's rung 1:
+the heuristic plan (tuning context bypassed) priced at the boost clock
+alone, with no clock-grid sweep anywhere on its build path.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
+
 from repro_torch.core import dvfs
-from repro_torch.core.energy import OperatingPoint, guarded_ratio
+from repro_torch.core.energy import OperatingPoint, evaluate, guarded_ratio
 from repro_torch.core.hardware import DeviceSpec
 from repro_torch.core.perf_model import WorkloadProfile
 from repro_torch.core.power_model import PowerModel
 from repro_torch.core.workloads import (ConvCase, FFTCase,
                                         fdas_total_profile, fft_workload)
 from repro_torch.data.synthetic import FilterbankSpec
-from repro_torch.fft.plan import FFTPlan, plan_for_length
-from repro_torch.fft.plan_nd import plan_nd
+from repro_torch.fft.plan import FFTPlan, plan_for_length, plan_with_config
+from repro_torch.fft.plan_nd import plan_nd, plan_nd_with_config
 from repro_torch.search.fdas import fdas_search, serving_candidates
 from repro_torch.search.pipeline import (DispersionPlan, plan_pulsar_stages,
                                          pulsar_search, serving_sifted)
@@ -45,12 +51,27 @@ class CacheStats:
     misses: int = 0
     plan_builds: int = 0
     sweeps: int = 0
+    degraded_builds: int = 0    # sweep-free boost-heuristic entries built
 
     @property
     def hit_rate(self) -> float:
         """Hits / lookups; 0.0 for an untouched cache."""
         return guarded_ratio(self.hits, self.hits + self.misses,
                              on_zero=0.0)
+
+    def fill_metrics(self, registry) -> None:
+        """Publish the cache counters into a MetricsRegistry."""
+        for field, help in (
+                ("hits", "plan+sweep cache hits"),
+                ("misses", "plan+sweep cache misses"),
+                ("plan_builds", "plans compiled"),
+                ("sweeps", "DVFS sweeps run"),
+                ("degraded_builds", "sweep-free boost-heuristic builds")):
+            registry.gauge(f"repro_cache_{field}", help).set(
+                getattr(self, field))
+        registry.gauge("repro_cache_hit_rate",
+                       "hits / lookups (0 when untouched)").set(
+                           self.hit_rate)
 
 
 @dataclasses.dataclass
@@ -98,16 +119,19 @@ class PlanSweepCache:
         # transforms — single-arg injectables only serve c2c traffic.
         plan_fn: Callable[..., FFTPlan] = plan_for_length,
         sweep_fn: Callable[..., dvfs.SweepResult] = dvfs.sweep,
+        power_model: PowerModel | None = None,
     ):
         self.device = device
         self.batch_bytes = batch_bytes
         self._plan_fn = plan_fn
         self._sweep_fn = sweep_fn
-        self._power_model = PowerModel(device)
+        self._power_model = (power_model if power_model is not None
+                             else PowerModel(device))
         # Entries are keyed on (shape key, active tuned kernel config): the
         # plan a shape resolves to depends on the tuning context, so a
         # re-tune can never be served a plan built under the previous one.
         self._entries: dict[tuple, CacheEntry] = {}
+        self._degraded: dict[ShapeKey, CacheEntry] = {}
         self.stats = CacheStats()
 
     def __len__(self) -> int:
@@ -150,28 +174,58 @@ class PlanSweepCache:
         return entry
 
     def peek(self, key: ShapeKey) -> CacheEntry | None:
-        """The cached entry, or None — never builds, never counts."""
+        """The cached tuned entry, or None — never builds, never counts
+        (the admission controller's backlog estimates read it)."""
         return self._entries.get((key, self._tuned_config(key)))
 
-    def _build(self, key: ShapeKey) -> CacheEntry:
+    def degraded_entry(self, key: ShapeKey) -> CacheEntry:
+        """The degradation ladder's rung-1 entry for ``key``: the
+        heuristic plan (tuning context bypassed) and NO clock-grid sweep —
+        the one operating point is boost, evaluated directly."""
+        cached = self._degraded.get(key)
+        if cached is not None:
+            return cached
+        entry = self._build(key, degraded=True)
+        self._degraded[key] = entry
+        return entry
+
+    def _boost_only_sweep(self, profile: WorkloadProfile) -> dvfs.SweepResult:
+        """A single-point 'sweep': the boost clock, evaluated directly."""
+        boost = evaluate(profile, self.device, self._power_model,
+                         np.array([self.device.f_max]))[0]
+        return dvfs.SweepResult(profile=profile, points=[boost],
+                                optimal=boost, boost=boost, base=None)
+
+    def _build(self, key: ShapeKey, *, degraded: bool = False) -> CacheEntry:
         self.stats.plan_builds += 1
         extras: dict = {}
         if key.kind == KIND_PULSAR:
-            plan, fn, profile, n_fft, extras = self._build_pulsar(key)
+            plan, fn, profile, n_fft, extras = self._build_pulsar(
+                key, degraded=degraded)
         elif key.kind == KIND_FDAS:
             plan, fn, profile, n_fft = self._build_fdas(key)
         else:
-            plan, fn, profile, n_fft = self._build_fft(key)
-        self.stats.sweeps += 1
-        sweep = self._sweep_fn(profile, self.device, self._power_model)
+            plan, fn, profile, n_fft = self._build_fft(key,
+                                                       degraded=degraded)
+        if degraded:
+            self.stats.degraded_builds += 1
+            sweep = self._boost_only_sweep(profile)
+        else:
+            self.stats.sweeps += 1
+            sweep = self._sweep_fn(profile, self.device, self._power_model)
         return CacheEntry(key=key, plan=plan, fn=fn, profile=profile,
                           sweep=sweep, n_fft_model=n_fft, **extras)
 
-    def _build_fft(self, key: ShapeKey):
+    def _build_fft(self, key: ShapeKey, *, degraded: bool = False):
         if key.shape:
             # N-D shapes are first-class: one plan graph (fused
             # transpose-write passes) + one sweep per distinct shape.
-            plan = plan_nd(key.shape, key.transform)
+            plan = (plan_nd_with_config(key.shape, key.transform)
+                    if degraded else plan_nd(key.shape, key.transform))
+        elif degraded:
+            # Degraded builds bypass the tuning context: the heuristic
+            # plan, no tuning-cache consults.
+            plan = plan_with_config(key.n, key.transform)
         elif key.transform == "c2c":
             plan = self._plan_fn(key.n)
         else:
@@ -201,9 +255,11 @@ class PlanSweepCache:
         # models: ConvCase.n_rows (real half-spectrum rows).
         return case.plan, fn, profile, case.n_rows
 
-    def _build_pulsar(self, key: ShapeKey):
+    def _build_pulsar(self, key: ShapeKey, *, degraded: bool = False):
         """Pulsar-pipeline entries: the full search (dedispersion -> FDAS
-        -> harmonic sum -> sift) with a per-stage clock plan.
+        -> harmonic sum -> sift) with a per-stage clock plan.  Degraded
+        builds replace every per-stage clock sweep with the boost point
+        (no grid sweep anywhere on the build path).
 
         The geometry comes from the key alone — a default
         ``FilterbankSpec`` at the key's (nchan, ntime), the default DM grid
@@ -220,10 +276,14 @@ class PlanSweepCache:
         spec = FilterbankSpec(nchan=nchan, ntime=ntime)
         dplan = DispersionPlan.from_spec(spec, n_trials=key.dm_trials)
         bank = _fdas_bank(key.templates)
+        stage_sweep = (
+            (lambda profile, device, power_model=None, **kw:
+             self._boost_only_sweep(profile))
+            if degraded else self._sweep_fn)
         stage_plan = plan_pulsar_stages(
             spec, dplan, bank, key.n_harmonics, self.device,
             batch_bytes=self.batch_bytes, power_model=self._power_model,
-            sweep_fn=self._sweep_fn)
+            sweep_fn=stage_sweep)
 
         def fn(x, _plan=dplan, _bank=bank, _h=key.n_harmonics):
             return serving_sifted(

@@ -5,9 +5,9 @@ Batches land on the least-loaded device queue at submit time; during the
 drain loop each device pops its own queue FIFO and, when empty, steals
 the freshest batch from the longest queue (repro_torch.runtime.workqueue).
 Batch-parallel work needs no collectives, only load balance (the paper's
-Sec. 2.3).  The dispatcher is cooperative: round-robin ticks on one host.
-The reference's drain deadline belongs to the robustness plane, which a
-later slice of the port brings.
+Sec. 2.3).  The dispatcher is cooperative: round-robin ticks on one host.  Several
+worker slots may name the same device (``[cuda:0] * 4``): the breakers,
+redistribution and retries of the robust service then run on one card.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.runtime.faults import DrainDeadlineError
 from repro_torch.runtime.workqueue import WorkStealingQueue
 from repro_torch.serving.batcher import Batch
 
@@ -51,15 +52,38 @@ class Dispatcher:
         """Remove and return every queued batch (failure recovery)."""
         return self.queue.clear()
 
-    def drain(self, execute: Callable[[Batch, int, torch.device], None]
-              ) -> int:
+    def fill_metrics(self, registry) -> None:
+        """Publish dispatch counters into a MetricsRegistry."""
+        registry.gauge("repro_dispatch_workers",
+                       "worker slots (devices)").set(
+                           self.queue.n_workers)
+        registry.gauge("repro_dispatch_steals",
+                       "batches stolen by idle workers").set(self.steals)
+
+    def drain(
+        self,
+        execute: Callable[[Batch, int, torch.device], None],
+        *,
+        timer: Callable[[], float] | None = None,
+        deadline_s: float | None = None,
+    ) -> int:
         """Run every queued batch; returns the number executed.
 
         ``execute(batch, worker, device)`` is called once per batch, on the
-        worker that actually ran it (owner or thief).
+        worker that actually ran it (owner or thief).  ``execute`` may
+        re-queue a batch instead of running it (fault redistribution), so
+        with ``deadline_s`` set (seconds on ``timer``'s clock, measured
+        from drain start) a wedged worker surfaces a
+        :class:`~repro_torch.runtime.faults.DrainDeadlineError` naming the
+        stuck batches' shape keys instead of looping forever.
         """
         executed = 0
+        t0 = timer() if timer is not None and deadline_s is not None else 0.0
         while self.queue.pending():
+            if (deadline_s is not None and timer is not None
+                    and timer() - t0 > deadline_s):
+                raise DrainDeadlineError(
+                    deadline_s, [b.key for b in self.queue.items()])
             for worker in range(self.queue.n_workers):
                 batch = self.queue.pop(worker)
                 if batch is None:

@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.energy import guarded_ratio
 from repro_torch.core.workloads import COMPLEX_BYTES
 from repro_torch.fft.radix import is_pow2
 
@@ -100,6 +101,13 @@ class FFTRequest:
     request_id: int = dataclasses.field(
         default_factory=lambda: next(_REQUEST_IDS))
     t_enqueue: float = 0.0               # stamped by the service
+    # Durable identity (repro_torch.runtime.journal): request_id restarts
+    # with the process, jseq never does.  None on journal-less services.
+    jseq: int | None = None              # journal admit sequence number
+    # An opaque, JSON-safe token the *client* can resolve back to the
+    # payload (a stream index, an object-store key).  Journaled with the
+    # admit record so recovery can re-materialise in-flight payloads.
+    payload_ref: Any = None
 
     def __post_init__(self):
         if not isinstance(self.x, (np.ndarray, torch.Tensor)):
@@ -191,7 +199,17 @@ class StageReceipt:
 
 @dataclasses.dataclass
 class RequestReceipt:
-    """Per-request accounting, filled in when the batch executes."""
+    """Per-request accounting, filled in when the batch executes.
+
+    Every submitted request terminates in exactly one receipt — served at
+    some degradation rung (possibly after retries) or shed with an
+    explicit reason.  ``rung`` is the graceful-degradation rung the
+    request actually executed at (0 = tuned plan + DVFS lock, 1 =
+    heuristic plan at boost, 2 = the pure-torch engine; see
+    ``repro_torch.serving.slo``); ``reason`` states why a request was
+    degraded or shed (``admission:*`` for load shedding / pressure,
+    ``fault:*`` for failure-driven outcomes).
+    """
 
     request: FFTRequest
     batch_id: int
@@ -204,15 +222,72 @@ class RequestReceipt:
     modelled_time_s: float      # model-predicted execution time of this share
     energy_j: float             # model-predicted energy of this share
     boost_energy_j: float       # same share executed at the boost clock
+    # --- telemetry (repro_torch.power), None when the service is unmetered
+    measured_energy_j: float | None = None   # watchdog-fresh telemetry share
     result: Any = None          # transform output (None if not retained)
     # --- pulsar-pipeline requests only -----------------------------------
     stages: list[StageReceipt] | None = None   # per-stage clock + J shares
     realtime_margin: float | None = None       # S = t_acquire / t_process
+    # --- robustness accounting (serving.slo / runtime.faults) --------------
+    status: str = "served"      # "served" | "shed"
+    rung: int = 0               # degradation rung the batch executed at
+    retries: int = 0            # executions lost to faults before success
+    reason: str | None = None   # why degraded/shed (None: clean rung-0)
     # --- kernel launch ledger (repro_torch.obs.ledger) ---------------------
     # The launch signature of this request's shape: one LaunchRecord per
     # kernel launch of the first batch of the shape the process served.
+    # [] for shed requests and for the pure-torch engine (rung 2 on a CPU
+    # slot).
     launches: list = dataclasses.field(default_factory=list)
+    # --- crash consistency (runtime.journal / serving.recovery) ------------
+    # ``recovered`` marks a receipt replayed from the journal after a
+    # process crash (its status/reason/rung are bit-identical to the
+    # original; latencies and results are not re-measurable).
+    # ``incarnation`` is the journal incarnation that issued it ("" on
+    # journal-less services).
+    recovered: bool = False
+    incarnation: str = ""
+
+    @classmethod
+    def make_shed(cls, request: FFTRequest, reason: str,
+                  now: float) -> "RequestReceipt":
+        """A terminal receipt for a request that was never executed."""
+        return cls(request=request, batch_id=-1, worker=-1,
+                   queue_latency=max(now - request.t_enqueue, 0.0),
+                   service_latency=0.0, clock_mhz=0.0, modelled_time_s=0.0,
+                   energy_j=0.0, boost_energy_j=0.0, status="shed",
+                   reason=reason)
+
+    @property
+    def outcome(self) -> str:
+        """"served" | "retried" | "shed" — the chaos-harness taxonomy."""
+        if self.status == "shed":
+            return "shed"
+        return "retried" if self.retries > 0 else "served"
+
+    @property
+    def rung_name(self) -> str:
+        from repro_torch.serving.slo import rung_name
+        return rung_name(self.rung)
 
     @property
     def latency(self) -> float:
         return self.queue_latency + self.service_latency
+
+    @property
+    def joules_per_transform(self) -> float:
+        return self.energy_j / max(self.request.batch, 1)
+
+    @property
+    def i_ef_boost(self) -> float:
+        """Eq. 7 for this request (identical work => energy ratio); a shed
+        request did no work at either clock: 1.0 (guarded_ratio)."""
+        return guarded_ratio(self.boost_energy_j, self.energy_j, on_zero=1.0)
+
+    @property
+    def energy_error_frac(self) -> float | None:
+        """(measured - modelled) / modelled, None without telemetry."""
+        if self.measured_energy_j is None:
+            return None
+        return guarded_ratio(self.measured_energy_j - self.energy_j,
+                             self.energy_j, on_zero=0.0)

@@ -39,7 +39,11 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.tune.cache", "repro_torch.tune.timing",
                  "repro_torch.tune.tuner", "repro_torch.obs.trace",
                  "repro_torch.obs.log", "repro_torch.obs.drift",
-                 "repro_torch.data.arrivals"):
+                 "repro_torch.data.arrivals", "repro_torch.runtime.fault",
+                 "repro_torch.runtime.checkpoint",
+                 "repro_torch.runtime.faults",
+                 "repro_torch.runtime.journal", "repro_torch.serving.slo",
+                 "repro_torch.serving.recovery"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"

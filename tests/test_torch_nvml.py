@@ -81,6 +81,8 @@ class FakeNvml:
         self.power_mw = 250125
         self.power_rc = 0
         self.energy = 10_000
+        self.energy_rc = 0
+        self.energy_step = 7
         self.lock_rc = 0
         self.reset_rc = 0
         self.sm = 1410
@@ -101,7 +103,9 @@ class FakeNvml:
             return 0
 
         def energy(h, out):
-            self.energy += 7
+            if self.energy_rc:
+                return self.energy_rc
+            self.energy += self.energy_step
             out.contents.value = self.energy
             return 0
 
@@ -227,6 +231,33 @@ def test_failed_power_read_is_nan(fake, handle, rc):
     assert math.isnan(r.power_w) and not r.ok
     with pytest.raises(nvml.NvmlError, match=f"fake error {rc}"):
         nvml.power_w(handle)
+
+
+def test_energy_sampler_prices_the_marked_window(fake, handle):
+    clock = (k * 0.25 for k in range(100))
+    sampler = nvml.NvmlEnergySampler({1: handle}, clock=lambda: next(clock))
+    assert isinstance(sampler, PowerSampler)
+    assert math.isnan(sampler.sample(1, 3.0).power_w)      # no open window
+    sampler.mark(1)                # counter 10007 -> steps to 10014 at 0.25
+    r = sampler.sample(1, 4.0, token=2)   # 10021 -> steps to 10028 at 0.75
+    assert (r.device_index, r.t) == (1, 4.0)
+    assert sampler.last[1] == (0.5, 0.014)
+    assert r.power_w == pytest.approx(0.014 / 0.5)
+    assert math.isnan(sampler.sample(1, 5.0).power_w)      # window closed
+    sampler.mark(1)
+    fake.energy_rc = 2
+    assert math.isnan(sampler.sample(1, 6.0).power_w)      # failed read
+    assert sampler.last[1] == (0.5, 0.014)
+
+
+def test_energy_sampler_waits_for_the_counter_to_step(fake, handle):
+    clock = (k * 0.25 for k in range(100))
+    sampler = nvml.NvmlEnergySampler({0: handle}, clock=lambda: next(clock),
+                                     tick_timeout_s=0.6)
+    fake.energy_step = 0           # a counter that never moves
+    sampler.mark(0)
+    assert 0 not in sampler._open  # no step within 0.6 s: no window
+    assert math.isnan(sampler.sample(0, 1.0).power_w)
 
 
 def test_counter_clocks_and_grid(fake, handle):

@@ -3,7 +3,8 @@
 Parity (on ``TESLA_V100``, a record both packages have): the simulated
 sampler's readings are bit-identical for a seed, with drift and with each
 sensor-fault kind injected (each side gets its own fresh reference
-``FaultPlan``); the watchdog's labels and health, the governor's clock
+``FaultPlan``, and again with the port's side driven by the port's own
+``repro_torch.runtime.faults.FaultPlan``); the watchdog's labels and health, the governor's clock
 sequence, the fleet telemetry and a ``SiteBudgetScheduler`` run shaped
 like the reference benchmark's power site (8 devices, priorities 1-4,
 the sweep optimum of n = 4096 as fallback) are identical, tick for tick
@@ -38,6 +39,7 @@ from repro.power import sampler as ref_sampler
 from repro.runtime.faults import (SENSOR_DROPOUT, SENSOR_KINDS, SENSOR_SPIKE,
                                   SENSOR_STALE, FaultEvent, FaultPlan)
 import repro_torch.power as port_power
+import repro_torch.runtime.faults as port_faults
 from repro_torch.core import H100_SXM, TESLA_V100, FFTCase, PowerModel
 from repro_torch.core import fft_workload, sweep
 from repro_torch.power import (DROPOUT, FRESH, HEALTHY, SPIKE, STALE, SUSPECT,
@@ -100,11 +102,15 @@ def test_sampler_readings_are_bit_identical(seed, drift_w, noise_frac):
             == _drive_sampler(ref_power, REF_V100, **kw))
 
 
-def _storm(kind):
-    events = [FaultEvent(kind, batch_id=k, worker=k % 3)
+def _storm(kind, faults=None):
+    """A storm of ``kind`` on the reference's fault plane, or on
+    ``faults`` (the port's ``runtime.faults``)."""
+    event = FaultEvent if faults is None else faults.FaultEvent
+    plan = FaultPlan if faults is None else faults.FaultPlan
+    events = [event(kind, batch_id=k, worker=k % 3)
               for k in (0, 3, 4, 5, 11, 12, 20)]
-    events.append(FaultEvent(kind))                 # any sample
-    return FaultPlan(events=events)
+    events.append(event(kind))                      # any sample
+    return plan(events=events)
 
 
 @pytest.mark.parametrize("kind", SENSOR_KINDS)
@@ -128,6 +134,34 @@ def test_sampler_mixed_faults_are_bit_identical():
                                  FaultEvent(SENSOR_SPIKE, worker=2)])
     assert (_drive_sampler(port_power, TESLA_V100, plan=plan(), seed=1)
             == _drive_sampler(ref_power, REF_V100, plan=plan(), seed=1))
+
+
+@pytest.mark.parametrize("kind", SENSOR_KINDS)
+def test_sampler_faults_from_the_ports_plan_are_bit_identical(kind):
+    ref_plan, port_plan = _storm(kind), _storm(kind, port_faults)
+    want = _drive_sampler(ref_power, REF_V100, plan=ref_plan, seed=3,
+                          drift_w=2.0)
+    got = _drive_sampler(port_power, TESLA_V100, plan=port_plan, seed=3,
+                         drift_w=2.0)
+    assert got == want
+    assert port_plan.fired_count(kind) == ref_plan.fired_count(kind) > 0
+    assert port_plan.pending() == ref_plan.pending()
+    assert [(e.kind, e.batch_id, e.worker) for e in port_plan.fired] == \
+        [(e.kind, e.batch_id, e.worker) for e in ref_plan.fired]
+
+
+def test_sampler_mixed_faults_from_a_generated_port_plan():
+    """FaultPlan.generate draws the same sensor events in both packages,
+    and they corrupt the same readings."""
+    kw = dict(n_batches=40, sensor_dropout_rate=0.1, sensor_spike_rate=0.1,
+              sensor_stale_rate=0.1)
+    ref_plan = FaultPlan.generate(9, **kw)
+    port_plan = port_faults.FaultPlan.generate(9, **kw)
+    assert (_drive_sampler(port_power, TESLA_V100, plan=port_plan, seed=1)
+            == _drive_sampler(ref_power, REF_V100, plan=ref_plan, seed=1))
+    assert all(port_plan.fired_count(k) == ref_plan.fired_count(k)
+               for k in SENSOR_KINDS)
+    assert sum(port_plan.fired_count(k) for k in SENSOR_KINDS) > 3
 
 
 def _readings(seed, n=120):
@@ -225,6 +259,25 @@ def test_fleet_telemetry_is_identical(kind):
             == [len(r) for r in ref_tel.rings.values()])
 
 
+@pytest.mark.parametrize("kind", SENSOR_KINDS)
+def test_fleet_telemetry_from_the_ports_plan_is_identical(kind):
+    port_tel = FleetTelemetry.for_serving(
+        TESLA_V100, seed=4, fault_plan=_storm(kind, port_faults),
+        drift_w=1.0)
+    ref_tel = ref_power.FleetTelemetry.for_serving(
+        REF_V100, seed=4, fault_plan=_storm(kind), drift_w=1.0)
+    for k in range(30):
+        kw = dict(token=k, f_mhz=1000.0 + 5.0 * k, u_core=0.8, u_mem=0.6)
+        got = port_tel.read(k % 3, 1e-6 * k, **kw)
+        want = ref_tel.read(k % 3, 1e-6 * k, **kw)
+        assert (_bits(got.reading), got.label, got.health) == (
+            _bits(want.reading), want.label, want.health)
+    assert port_tel.summary() == ref_tel.summary()
+    assert port_tel.summary()["labels"].get(
+        {SENSOR_DROPOUT: DROPOUT, SENSOR_SPIKE: SPIKE,
+         SENSOR_STALE: STALE}[kind], 0) > 0
+
+
 def _site(pkg, dev, fallback, *, fault_plan=None, site_cap_w=1400.0,
           hard_cap_w=1500.0, n_devices=8, seed=0):
     """The reference benchmark's power site on ``dev``: 8 governed devices,
@@ -282,6 +335,22 @@ def test_site_sensor_storm_is_identical(kind):
     ref_site.run(30, dt=0.1)
     _same_run(port_site, ref_site)
     assert port_plan.fired_count(kind) == ref_plan.fired_count(kind)
+
+
+@pytest.mark.parametrize("kind", SENSOR_KINDS)
+def test_site_sensor_storm_from_the_ports_plan_is_identical(kind):
+    fb = _v100_fallbacks()
+    port_plan = port_faults.FaultPlan(events=[
+        port_faults.FaultEvent(kind, batch_id=k, worker=0)
+        for k in range(10, 14)])
+    ref_plan = FaultPlan(events=[FaultEvent(kind, batch_id=k, worker=0)
+                                 for k in range(10, 14)])
+    port_site = _site(port_power, TESLA_V100, fb, fault_plan=port_plan)
+    ref_site = _site(ref_power, REF_V100, fb, fault_plan=ref_plan)
+    port_site.run(30, dt=0.1)
+    ref_site.run(30, dt=0.1)
+    _same_run(port_site, ref_site)
+    assert port_plan.fired_count(kind) == ref_plan.fired_count(kind) > 0
 
 
 def test_site_emergency_is_identical():
