@@ -141,7 +141,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      no lost or duplicated receipt, the journal exactly-once, every
      replayed receipt equal to the live one; the journal's records/s and
      the time to recover;
- 12. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 12. the distributed FFT on meshes of slots of the card
+     (``repro_torch.fft.distributed``; counts set to 0 just before each
+     run, read just after): the pencil C2C and R2C at the ``fft_bench``
+     config's widths (4096 x 8192 = 2**25 points, batch 8: the config's 64
+     cut to the paper's 2 GB batch) on D = 1 and D = 4 slots of cuda:0,
+     within PLAN_RTOL of ``torch.fft``, each shard launching
+     ``fft_c2c_axis1`` and ``fft_c2c``, the mesh's byte counter equal to
+     what the collectives move (and, for C2C, to the reference's
+     ``pencil_collective_bytes``), timed beside the 1-D plan at 2**25 and
+     ``torch.fft``, with its device time by kernel and in copies and the
+     collectives timed alone; ``batch_parallel_fft`` on 4 slots against
+     the unsharded plan (C2C 1024 on 244141 rows, R2C 16384 on 30517,
+     ``fft2`` (16, 4096, 4096), ``rfft2`` (16, 4096, 8192)); and
+     ``FFTService(mesh=...)`` on 4 slots serving phase 6's 16 C2C (4096,
+     4096) requests and its (2, 2**22) one, in turns with the unsharded
+     service: the same receipts' rungs, clocks and modelled energy,
+     results within PLAN_RTOL of ``torch.fft``;
+ 13. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -169,6 +186,7 @@ sys.path.insert(0, os.path.join(ROOT,
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import CONFIG as FFT_BENCH  # noqa: E402
 from repro_torch.core import (H100_SXM, TESLA_V100, FFTCase,  # noqa: E402
                               energy_from_trace, energy_per_transform,
                               fft_flops, fft_workload, sweep)
@@ -178,6 +196,11 @@ from repro_torch.fft import multidim  # noqa: E402
 from repro_torch.fft import pipeline as demo  # noqa: E402
 from repro_torch.fft.convolve import (device_filter_spectra,  # noqa: E402
                                       select_nfft)
+from repro_torch.fft.distributed import (assemble_rfft_pencil,  # noqa: E402
+                                         batch_parallel_fft, make_mesh,
+                                         pencil_collective_bytes,
+                                         pencil_exchange_bytes, pencil_fft,
+                                         shard, untranspose_ref)
 from repro_torch.fft.plan import (fft_mul, plan_for_length,  # noqa: E402
                                   plan_with_config, pow2_fft)
 from repro_torch.fft.plan_nd import plan_nd  # noqa: E402
@@ -449,6 +472,31 @@ TUNE_ENERGY_KEYS = 3
 #: Times phase 10 tunes each key again, into fresh caches, to show how
 #: often the tuner's choice repeats.
 TUNE_REPEATS = 5
+#: Phase 12, the distributed FFT: the pencil at the fft_bench config's
+#: widths (n1 x n2 = 4096 x 8192, 2**25 points) on meshes of D slots of
+#: cuda:0.  The config's pencil_batch (64) is 17 GB a complex64 copy, and
+#: the pencil holds about four copies at D = 4: cut to the paper's 2 GB
+#: batch (Sec. 4), 8 transforms.
+PENCIL_N1 = FFT_BENCH.pencil_n1
+PENCIL_N2 = FFT_BENCH.pencil_n2
+PENCIL_BATCH = 8
+PENCIL_MESHES = (1, 4)
+#: Slots of cuda:0 on the data axis of the batch-parallel and serving runs.
+MESH_SLOTS = 4
+#: Profiled runs of each pencil; its breakdown is the most complete one.
+PROFILE_TRIES = 3
+#: Batch-parallel runs at phase 4's 2 GB batches: (label, shape, kind, each
+#: shard's launches).  C2C has one row more than phase 4's, so that the
+#: padding runs; R2C's 30517 rows are ragged over 4; the rank-3 batches
+#: run the N-D plan graph.
+BATCH_PARALLEL = (
+    ("c2c 1024", (FFTCase(1024).n_fft + 1, 1024), "c2c", {"fft_c2c": 1}),
+    ("r2c 16384", (FFTCase(16384, transform="r2c").n_fft, 16384), "r2c",
+     {"fft_r2c": 1}),
+    ("fft2 (16, 4096, 4096)", (16, 4096, 4096), "c2c", {"fft_c2c_t": 2}),
+    ("rfft2 (16, 4096, 8192)", (16, 4096, 8192), "r2c",
+     {"fft_r2c_t": 1, "fft_c2c_t": 1}),
+)
 
 
 def reset_launches() -> None:
@@ -522,9 +570,10 @@ def bound(nbytes: float, flops: float, adds: float = 0.0
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_breakdown(fn) -> dict[str, float]:
+def device_breakdown(fn, copies: bool = False) -> dict[str, float]:
     """Device time [ms] of one profiled run of ``fn``, by kernel: the
-    port's kernels by name, every other (torch) kernel summed.
+    port's kernels by name, every other (torch) kernel summed — with
+    ``copies``, the copy kernels and device-to-device copies apart.
 
     Late in a long run the profiler can lose the kernels that start in the
     first milliseconds of a session (a fresh process records them), so a
@@ -541,8 +590,10 @@ def device_breakdown(fn) -> dict[str, float]:
         if (ev.device_type != torch.autograd.DeviceType.CUDA
                 or "spin_kernel" in ev.name):
             continue
-        name = next((k for k in KERNELS if _symbol(k) in ev.name),
-                    "torch (other kernels)")
+        name = next((k for k in KERNELS if _symbol(k) in ev.name), None)
+        if name is None:
+            name = ("copies" if copies and "copy" in ev.name.lower()
+                    else "torch (other kernels)")
         out[name] = out.get(name, 0.0) + ev.device_time / 1e3
     return out
 
@@ -3498,6 +3549,264 @@ def phase11_robust(gen: torch.Generator) -> dict[str, int]:
     return launches
 
 
+def _collectives_ms(mesh, kind: str, gen: torch.Generator) -> float:
+    """Device time [ms] of the pencil's collectives alone on ``mesh``, on
+    shards of the pencil's shapes: the two all_to_alls (median of 10 runs
+    each), and for R2C the split's two ppermutes."""
+    d = mesh.size
+    n2 = PENCIL_N2 // 2 if kind == "r2c" else PENCIL_N2
+    s = [randn(gen, PENCIL_BATCH, PENCIL_N1 // d, n2) for _ in range(d)]
+    t = mesh.all_to_all(s, -1, -2)
+    ms = (median_ms(lambda: mesh.all_to_all(s, -1, -2))
+          + median_ms(lambda: mesh.all_to_all(t, -2, -1)))
+    del t
+    if kind == "r2c":
+        rev = [(q, d - 1 - q) for q in range(d)]
+        roll = [(q, (q + 1) % d) for q in range(d)]
+        ms += (median_ms(lambda: mesh.ppermute(s, rev))
+               + median_ms(lambda: mesh.ppermute(
+                   [v[..., -1:, :] for v in s], roll)))
+    del s
+    mesh.reset_collective_bytes()
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _pencil(gen: torch.Generator, kind: str, card: str) -> dict[str, int]:
+    """The pencil of one kind on D = 1 and D = 4 slots of cuda:0 beside
+    the 1-D plan at 2**25 and torch.fft; returns its launches."""
+    n1, n2, b = PENCIL_N1, PENCIL_N2, PENCIL_BATCH
+    n = n1 * n2
+    device = torch.device("cuda", 0)
+    if kind == "c2c":
+        x = randn(gen, b, n1, n2)
+        lib, natural = torch.fft.fft, untranspose_ref
+        nbytes = 16 * x.numel()
+    else:
+        x = torch.randn(b, n1, n2, device=device, generator=gen)
+        lib, natural = torch.fft.rfft, assemble_rfft_pencil
+        nbytes = 4 * x.numel() + 8 * b * (n // 2 + 1)
+    flat = x.reshape(b, n)
+    ref = lib(flat)
+    plan = plan_for_length(n, kind)
+    _, rel = rel_err(plan(flat), ref)
+    check(rel <= PLAN_RTOL[plan.algorithm],
+          f"phase 12: the 1-D {kind} plan at 2**25 rel err {rel:.3e}")
+    plan_ms = median_ms(lambda: plan(flat))
+    lib_ms = median_ms(lambda: lib(flat))
+    torch.cuda.empty_cache()
+    print(f"phase 12: {kind} 2**25 x {b}: 1-D plan ({plan.algorithm}) "
+          f"{plan_ms:.4f} ms, torch.fft {lib_ms:.4f} ms, function bytes "
+          f"{nbytes} ({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM rate) "
+          f"| {card}")
+    launches = {name: 0 for name in launch_counts()}
+    first_ms = None
+    for d in PENCIL_MESHES:
+        mesh = make_mesh((d,), ("model",), devices=[device] * d)
+        xs = shard(x, mesh, "model", 1)
+        reset_launches()
+        mesh.reset_collective_bytes()
+        y = pencil_fft(xs, mesh, n1=n1, n2=n2, kind=kind)
+        torch.cuda.synchronize()
+        run = {k: v for k, v in launch_counts().items() if v}
+        moved = mesh.collective_bytes
+        check(run == {"fft_c2c_axis1": d, "fft_c2c": d},
+              f"phase 12: pencil {kind} D={d} launched {run}")
+        for k, v in run.items():
+            launches[k] += v
+        got = natural(y.gather(), n1, n2)
+        del y
+        check(bool(torch.isfinite(torch.view_as_real(got)).all()),
+              f"phase 12: pencil {kind} D={d}: bad output")
+        abs_err, rel = rel_err(got, ref)
+        del got
+        torch.cuda.empty_cache()
+        check(rel <= PLAN_RTOL["four-step"],
+              f"phase 12: pencil {kind} D={d} vs torch.fft rel {rel:.3e}")
+        exchange = pencil_exchange_bytes(b, n1, n2, d, kind=kind)
+        model = pencil_collective_bytes(b, n1, n2, d, kind=kind)
+        check(moved == exchange,
+              f"phase 12: pencil {kind} D={d} moved {moved} bytes a shard, "
+              f"its collectives move {exchange}")
+        check(kind == "r2c" or moved == model,
+              f"phase 12: pencil {kind} D={d} moved {moved} bytes a shard, "
+              f"the reference's model says {model}")
+
+        def run_pencil():
+            return pencil_fft(xs, mesh, n1=n1, n2=n2, kind=kind)
+        ms = median_ms(run_pencil)
+        first_ms = first_ms or ms
+        # The most complete of PROFILE_TRIES captures: late in this long
+        # run a capture can miss a window's first kernels (a fresh
+        # process records them all).
+        split = max((device_breakdown(run_pencil, copies=True)
+                     for _ in range(PROFILE_TRIES)),
+                    key=lambda t: sum(t.values()))
+        busy = sum(split.values())
+        coll = _collectives_ms(mesh, kind, gen) if d > 1 else 0.0
+        print(f"phase 12: pencil {kind} D={d} ({b}, {n1}, {n2}) on {d} "
+              f"slots of {device}: {ms:.4f} ms (median of 10), "
+              f"{ms / plan_ms:.3f}x the 1-D plan, {ms / lib_ms:.3f}x "
+              f"torch.fft, {ms / first_ms:.3f}x D=1; launches {run}; "
+              f"max_abs_err {abs_err:.3e} rel {rel:.3e}; collective bytes "
+              f"a shard {moved:.1f} (the collectives' own count "
+              f"{exchange:.1f}; the reference's pencil_collective_bytes "
+              f"{model:.1f}); collectives alone {coll:.4f} ms | {card}")
+        print(f"  pencil {kind} D={d} device time (ms, the most complete "
+              f"of {PROFILE_TRIES} profiled runs): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+              + f"; busy {busy:.4f} of {ms:.4f} ms (idle share "
+              f"{max(0.0, 1 - busy / ms):.3f})")
+        del xs, mesh
+        torch.cuda.empty_cache()
+    del x, flat, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _batch_parallel(gen: torch.Generator, card: str) -> dict[str, int]:
+    """batch_parallel_fft on MESH_SLOTS slots of cuda:0 against the
+    unsharded plan; returns its launches."""
+    device = torch.device("cuda", 0)
+    mesh = make_mesh((MESH_SLOTS,), ("data",),
+                     devices=[device] * MESH_SLOTS)
+    launches = {name: 0 for name in launch_counts()}
+    for label, shape, kind, per_shard in BATCH_PARALLEL:
+        dims = tuple(range(1, len(shape)))
+        if kind == "c2c":
+            x = randn(gen, *shape)
+            ref = torch.fft.fftn(x, dim=dims)
+        else:
+            x = torch.randn(*shape, device=device, generator=gen)
+            ref = torch.fft.rfftn(x, dim=dims)
+        plan = (plan_nd(shape[1:], kind) if len(shape) > 2
+                else plan_for_length(shape[-1], kind))
+        reset_launches()
+        y = batch_parallel_fft(x, mesh, kind=kind)
+        torch.cuda.synchronize()
+        run = {k: v for k, v in launch_counts().items() if v}
+        want = {k: v * MESH_SLOTS for k, v in per_shard.items()}
+        check(run == want, f"phase 12: batch-parallel {label} launched "
+              f"{run}, expected {want}")
+        for k, v in run.items():
+            launches[k] += v
+        check(tuple(y.shape) == tuple(ref.shape),
+              f"phase 12: batch-parallel {label} shape {tuple(y.shape)}")
+        abs_err, rel = rel_err(y, ref)
+        del y
+        _, rel_plain = rel_err(plan(x), ref)
+        del ref
+        torch.cuda.empty_cache()
+        check(rel <= PLAN_RTOL["stockham"] and rel_plain
+              <= PLAN_RTOL["stockham"], f"phase 12: batch-parallel {label}"
+              f" rel {rel:.3e}, unsharded {rel_plain:.3e}")
+        sharded_ms = median_ms(lambda: batch_parallel_fft(x, mesh, kind=kind))
+        plain_ms = median_ms(lambda: plan(x))
+        print(f"phase 12: batch-parallel {label} {tuple(shape)} on "
+              f"{MESH_SLOTS} slots of {device}: {sharded_ms:.4f} ms against "
+              f"the unsharded plan's {plain_ms:.4f} ms "
+              f"({sharded_ms / plain_ms:.3f}x); launches {run}; "
+              f"max_abs_err {abs_err:.3e} rel {rel:.3e} (unsharded "
+              f"{rel_plain:.3e}) | {card}")
+        del x
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _sharded_service(card: str) -> dict[str, int]:
+    """Phase 6's 16 C2C (4096, 4096) requests and its (2, 2**22) one,
+    served by FFTService(mesh=<MESH_SLOTS slots of cuda:0>) and by the
+    unsharded service on cuda:0; returns the sharded run's launches."""
+    device = torch.device("cuda", 0)
+    xc, x1 = SERVE_DATA["xc"], SERVE_DATA["x1"]
+    ref_c2c = torch.fft.fft(torch.from_numpy(xc).to(device))
+    ref_1d = torch.fft.fft(torch.from_numpy(x1).to(device))
+    mesh = make_mesh((MESH_SLOTS,), ("data",),
+                     devices=[device] * MESH_SLOTS)
+
+    def serve(svc: FFTService) -> tuple[list, float, float]:
+        reqs = [svc.submit(np.roll(xc, i, axis=0))
+                for i in range(SERVE_REQUESTS)]
+        reqs.append(svc.submit(x1))
+        t0 = time.perf_counter()
+        receipts = svc.drain()
+        wall = time.perf_counter() - t0
+        check(len(receipts) == len(reqs)
+              and all(r.request is q for r, q in zip(receipts, reqs)),
+              f"phase 12: {len(receipts)} receipts for {len(reqs)} requests")
+        worst = 0.0
+        for i, r in enumerate(receipts):
+            ref = torch.roll(ref_c2c, i, 0) if i < SERVE_REQUESTS else ref_1d
+            _, rel = rel_err(r.result, ref)
+            del ref
+            check(r.status == "served" and rel <= PLAN_RTOL["stockham"],
+                  f"phase 12: request {i} {r.status}, rel {rel:.3e}")
+            worst = max(worst, rel)
+        return receipts, wall, worst
+
+    # In turns (unsharded, sharded, sharded, unsharded): the drains are
+    # host-bound, and the host's copies vary run to run.
+    runs = []
+    launches = None
+    for label in ("unsharded", "sharded", "sharded", "unsharded"):
+        if label == "sharded":
+            svc = FFTService(TESLA_V100, mesh=mesh)
+        else:
+            svc = FFTService(TESLA_V100, devices=[device])
+        if label == "sharded" and launches is None:
+            reset_launches()
+            runs.append((label, *serve(svc)))
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        else:
+            runs.append((label, *serve(svc)))
+        del svc
+    run = {k: v for k, v in launches.items() if v}
+    check(run.get("fft_c2c", 0) > 0 and run.get("fft_c2c_axis1", 0) > 0,
+          f"phase 12: the sharded service launched {run}")
+    same = ("batch_id", "rung", "clock_mhz", "modelled_time_s", "energy_j",
+            "boost_energy_j")
+    first = runs[0][1]
+    for label, rs, _, _ in runs[1:]:
+        for i, (a, b) in enumerate(zip(rs, first)):
+            check(all(getattr(a, f) == getattr(b, f) for f in same),
+                  f"phase 12: request {i}: {label} "
+                  f"{[getattr(a, f) for f in same]} != unsharded "
+                  f"{[getattr(b, f) for f in same]}")
+    for label, rs, w, err in runs:
+        service = {r.batch_id: r.service_latency for r in rs}
+        print(f"phase 12: service {label}: {len(rs)} requests in "
+              f"{len(service)} batches, drain {w * 1e3:.1f} ms, service "
+              f"(stack, copy, execute) "
+              + ", ".join(f"{v * 1e3:.1f}" for v in service.values())
+              + f" ms; V100 model {sum(r.energy_j for r in rs):.6e} J; "
+              f"max rel err {err:.3e} | {card}")
+    print(f"phase 12: service launches (first sharded run) {run}; rungs "
+          f"{sorted({r.rung for r in first})}, clocks "
+          f"{sorted({r.clock_mhz for r in first})} MHz, equal in every run")
+    del ref_c2c, ref_1d, runs, first
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase12_distributed(gen: torch.Generator) -> dict[str, int]:
+    """The distributed FFT on slots of the card: the pencil, the
+    batch-parallel FFT and the sharded service; returns their launches."""
+    t0 = time.perf_counter()
+    card = _card()
+    launches = {name: 0 for name in launch_counts()}
+    for part in (lambda: _pencil(gen, "c2c", card),
+                 lambda: _pencil(gen, "r2c", card),
+                 lambda: _batch_parallel(gen, card),
+                 lambda: _sharded_service(card)):
+        for kernel, count in part().items():
+            launches[kernel] += count
+    print(f"phase 12: launches "
+          f"{ {k: v for k, v in launches.items() if v} }; wall time "
+          f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3515,7 +3824,8 @@ def main() -> int:
     phase3_host_gap(gen)
     launches = phase4_main_path(gen)
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
-                  phase9_energy, phase10_tune, phase11_robust):
+                  phase9_energy, phase10_tune, phase11_robust,
+                  phase12_distributed):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

@@ -9,6 +9,8 @@
   multidim     fft2 / rfft2 / fftn / rfftn over the plan graph
   convolve     batched overlap-save segmented FFT convolution (filter
                banks as fused multiply epilogues, cached filter spectra)
+  distributed  batch-parallel and pencil/four-step FFTs over a
+               single-controller device mesh
   pipeline     the paper's Sec. 5.3 demonstration pipeline (plain torch
                around the planned FFT) and its per-stage cost model
 
@@ -31,6 +33,13 @@ _EXPORTS = {
     "overlap_save_conv": "convolve", "select_nfft": "convolve",
     "bluestein_fft": "bluestein",
     "pulsar_pipeline": "pipeline",
+    "Mesh": "distributed", "ShardedTensor": "distributed",
+    "make_mesh": "distributed", "shard": "distributed",
+    "pad_rows": "distributed", "batch_parallel_fft": "distributed",
+    "pencil_fft": "distributed", "untranspose_ref": "distributed",
+    "assemble_rfft_pencil": "distributed",
+    "pencil_collective_bytes": "distributed",
+    "pencil_exchange_bytes": "distributed",
 }
 
 __all__ = sorted(_EXPORTS)

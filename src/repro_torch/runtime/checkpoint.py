@@ -18,6 +18,13 @@ fields), so a checkpoint written by either package restores in the other.
 Restore rebuilds the structure of ``tree_like``: a tensor leaf comes back
 on ``like.device`` at ``like.dtype``, a numpy leaf at ``like.dtype``, any
 other leaf as a CPU tensor.
+
+Elastic restore: a sharded leaf (``repro_torch.fft.distributed.
+ShardedTensor``) is saved as its gathered array, so the manifest stays
+mesh-agnostic, and restored onto the mesh, axis and dim of the ``like``
+leaf — a checkpoint saved on one mesh restores onto the shrunk mesh of
+``runtime.elastic.elastic_remesh_plan`` (the reference's
+``device_put(arr, like.sharding)``).
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.fft.distributed import ShardedTensor, shard
 
 
 def _is_namedtuple(node) -> bool:
@@ -80,12 +89,17 @@ def _rebuild(like, leaves: dict[str, Any], path: tuple = ()):
 
 
 def _to_host(leaf) -> np.ndarray:
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
 def _restore_leaf(arr: np.ndarray, like):
+    if isinstance(like, ShardedTensor):
+        return shard(torch.from_numpy(arr).to(like.dtype), like.mesh,
+                     like.axis, like.dim)
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
     if isinstance(like, np.ndarray):

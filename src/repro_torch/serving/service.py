@@ -48,11 +48,16 @@ propagates through drain(), which re-queues the unserved requests.  With a ``jou
 transition is logged write-ahead, and :meth:`FFTService.recover` rebuilds
 a crashed service from it (``serving.recovery``).
 
+With a ``mesh`` (``repro_torch.fft.distributed.make_mesh``, a ``data``
+axis) the service has one worker on the mesh's first device, and every
+plain-FFT batch of more than one row below rung 2 is split over the
+mesh's ``data`` axis (``batch_parallel_fft`` with the entry's plan), each
+shard running the plan's kernels on its own device; rung 2 never shards.
+
 The timer is called at the same points and in the same order as the
 reference's, so one shared fake timer gives both services the same
-readings.  The reference's ``mesh`` (sharded batches) arrives with the
-distributed slice; its power-of-two row padding (``bucket_batches``) is
-left out, since eager torch has no compiled shapes to reuse.
+readings.  The reference's power-of-two row padding (``bucket_batches``)
+is left out, since eager torch has no compiled shapes to reuse.
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ from repro_torch.core.energy import guarded_ratio
 from repro_torch.core.hardware import TESLA_V100, DeviceSpec
 from repro_torch.core.power_model import PowerModel
 from repro_torch.core.scheduler import ClockController
+from repro_torch.fft.distributed import Mesh, batch_parallel_fft
 from repro_torch.fft.plan import kernels_disabled
 from repro_torch.obs.drift import DriftDetector
 from repro_torch.obs.ledger import LaunchLedger
@@ -162,8 +168,10 @@ class FFTService:
     ``devices`` defaults to every CUDA device and raises when there is
     none; pass ``[torch.device("cpu")] * n`` to serve on the CPU
     explicitly (the kernels' plain versions).  Worker slots may repeat a
-    device (``[cuda:0] * 4``).  ``coalesce_requests=False`` disables
-    batching (every request executes alone).
+    device (``[cuda:0] * 4``).  ``mesh`` (optional) shards plain-FFT
+    batches over the mesh's ``data`` axis instead of placing them whole.
+    ``coalesce_requests=False`` disables batching (every request executes
+    alone).
     """
 
     def __init__(
@@ -173,6 +181,7 @@ class FFTService:
         batch_bytes: float | None = None,
         time_budget: float | None = 0.10,
         devices: Sequence[Any] | None = None,
+        mesh: Mesh | None = None,
         coalesce_requests: bool = True,
         keep_results: bool = True,
         max_retained_receipts: int | None = None,
@@ -201,6 +210,7 @@ class FFTService:
         self.batch_bytes = (batch_bytes if batch_bytes is not None
                             else min(2e9, device_spec.memory_bytes / 8))
         self.time_budget = time_budget
+        self.mesh = mesh
         self.coalesce_requests = coalesce_requests
         self.keep_results = keep_results
         # Receipts pin request payloads and outputs; past the cap the
@@ -219,7 +229,9 @@ class FFTService:
             device_spec, timer=timer,
             max_events=(None if max_retained_receipts is None
                         else 2 * max_retained_receipts))
-        self.dispatcher = Dispatcher(devices)
+        # With a mesh the whole mesh executes each batch, so one worker.
+        self.dispatcher = Dispatcher(
+            [mesh.devices[0]] if mesh is not None else devices)
         self._pending: list[FFTRequest] = []
         self._receipts: dict[int, RequestReceipt] = {}
         self._next_batch_id = 0
@@ -622,7 +634,12 @@ class FFTService:
                 x = self._stack(batch, device)
                 with self._span("execute"), \
                         self.ledger.capture(key=batch.key):
-                    if (rung >= RUNG_PURE_TORCH
+                    if (self.mesh is not None
+                            and batch.key.kind == KIND_FFT
+                            and x.shape[0] > 1 and rung < RUNG_PURE_TORCH):
+                        y = batch_parallel_fft(x, self.mesh,
+                                               fft_fn=entry.plan)
+                    elif (rung >= RUNG_PURE_TORCH
                             and batch.key.kind == KIND_FFT
                             and device.type == "cpu"):
                         # The pure-torch engine on CPU slots only: a batch
@@ -632,11 +649,13 @@ class FFTService:
                             y = entry.fn(x)
                     else:
                         y = entry.fn(x)
-                    if device.type == "cuda":
-                        # The launches return before the card is done:
-                        # without the sync, service_latency would time
-                        # only the launch.
-                        torch.cuda.synchronize(device)
+                    # The launches return before the card is done:
+                    # without the sync, service_latency would time only
+                    # the launch.  A sharded batch ran on every device.
+                    for dev in (self.mesh.unique_devices()
+                                if self.mesh is not None else (device,)):
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
         t_done = self._timer()
         self._account(batch, worker, entry, point, y, t_start, t_done,
                       rung=rung, reason="; ".join(reasons) or None)

@@ -616,3 +616,29 @@ def test_pulsar_search_on_the_card(gen):
     for name in ("dm", "template", "bin"):
         assert torch.equal(getattr(got.candidates, name).cpu(),
                            getattr(want.candidates, name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("c2c", "r2c"))
+def test_pencil_on_four_slots_of_the_card(gen, kind):
+    """The pencil on 4 slots of cuda:0: each shard launches fft_c2c_axis1
+    and fft_c2c, the result matches torch.fft."""
+    from repro_torch.fft.distributed import (assemble_rfft_pencil,
+                                             make_mesh, pencil_fft,
+                                             untranspose_ref)
+    mesh = make_mesh((4,), ("model",), devices=[torch.device("cuda", 0)] * 4)
+    n1, n2 = 64, 128
+    if kind == "c2c":
+        x = _rand(gen, 2, n1, n2)
+        want = torch.fft.fft(x.reshape(2, -1))
+    else:
+        x = torch.randn(2, n1, n2, device="cuda", generator=gen)
+        want = torch.fft.rfft(x.reshape(2, -1))
+    K.reset_launches()
+    y = pencil_fft(x, mesh, n1=n1, n2=n2, kind=kind).gather()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "fft_c2c_axis1": 4, "fft_c2c": 4}
+    got = (untranspose_ref(y, n1, n2) if kind == "c2c"
+           else assemble_rfft_pencil(y, n1, n2))
+    assert _rel(got, want) <= 2e-5

@@ -43,7 +43,10 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.runtime.checkpoint",
                  "repro_torch.runtime.faults",
                  "repro_torch.runtime.journal", "repro_torch.serving.slo",
-                 "repro_torch.serving.recovery"):
+                 "repro_torch.serving.recovery",
+                 "repro_torch.fft.distributed",
+                 "repro_torch.runtime.elastic", "repro_torch.configs",
+                 "repro_torch.configs.fft_bench"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
