@@ -158,7 +158,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      4096) requests and its (2, 2**22) one, in turns with the unsharded
      service: the same receipts' rungs, clocks and modelled energy,
      results within PLAN_RTOL of ``torch.fft``;
- 13. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 13. the model zoo on the card (``repro_torch.models``,
+     ``repro_torch.launch.serve``; no kernel of the port lies on this
+     path, and its launch counts, set to 0 just before and read just
+     after, stay 0): qwen2-0.5b served through ``serve.main`` at full
+     width and depth in bf16 (batch 8, prompt 512, gen 32,
+     ``--dvfs-report``), with prefill and decode times, tokens/s, the
+     device idle share and device operations of each, decode's weight
+     and KV bytes a step against 3.35 TB/s, prefill's FLOP/s against the
+     bf16 peak, J/token of each from the energy counter (phase 9's
+     runs), the DVFS model's regime and optimal clock beside them, and
+     bf16 against float32 on the same weights; every one of the ten
+     architectures at full width in bf16 (depths cut as ZOO_DEPTH says):
+     prefill (2, 256) and 4 decode steps, finite, each cache tree equal
+     to ``cache_shapes``; decode = forward for five of them, in float32
+     and bf16; each family in float32 on the card and on the CPU with
+     the same carried weights;
+ 14. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -186,6 +202,7 @@ sys.path.insert(0, os.path.join(ROOT,
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import ARCHS as ZOO_ARCHS  # noqa: E402
 from repro_torch.configs import CONFIG as FFT_BENCH  # noqa: E402
 from repro_torch.core import (H100_SXM, TESLA_V100, FFTCase,  # noqa: E402
                               energy_from_trace, energy_per_transform,
@@ -219,6 +236,12 @@ from repro_torch.kernels.harmonic_sum.ops import K as H  # noqa: E402
 from repro_torch.kernels.spectrum import power_spectrum_stats_kernel  # noqa: E402
 from repro_torch.kernels.spectrum import spectrum_kernel as S  # noqa: E402
 from repro_torch.kernels.fft.ref import fft_ref, irfft_ref, rfft_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import (build_model,  # noqa: E402
+                                params_from_reference,
+                                params_to_reference)
+from repro_torch.models.api import language_model  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.obs.ledger import LaunchLedger  # noqa: E402
 from repro_torch.obs.metrics import latency_summary  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
@@ -497,6 +520,44 @@ BATCH_PARALLEL = (
     ("rfft2 (16, 4096, 8192)", (16, 4096, 8192), "r2c",
      {"fft_r2c_t": 1, "fft_c2c_t": 1}),
 )
+#: Phase 13, the model zoo on the card (no kernel of the port on its
+#: path).  The served cell: (arch, batch, prompt length, tokens generated),
+#: bf16 at full width and depth, through ``repro_torch.launch.serve``.
+ZOO_SERVE = ("qwen2-0.5b", 8, 512, 32)
+#: NVIDIA's published dense bf16 tensor-core rate of the H100 SXM.
+BF16_FLOPS = 989e12
+#: Every architecture at full width, bf16: prefill ZOO_BATCH x ZOO_PROMPT,
+#: then ZOO_DECODE_STEPS decode steps.  Depth: None is the config's; the
+#: others are cut (dbrx at 2 layers holds about 15 GB of bf16 weights):
+#: deepseek 1 dense + 2 MoE layers, gemma3 one 5:1 group of 6.
+ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE_STEPS = 2, 256, 4
+ZOO_DEPTH = {"qwen2-0.5b": None, "codeqwen1.5-7b": 2, "qwen1.5-4b": 2,
+             "gemma3-12b": 6, "musicgen-medium": None, "dbrx-132b": 2,
+             "deepseek-v2-lite-16b": 3, "mamba2-370m": None,
+             "pixtral-12b": 2, "zamba2-1.2b": None}
+#: Decode = forward: prefill ZOO_DEC_SEQ - 1 tokens, grow the cache by one
+#: slot, decode the last token, and hold it against ``forward`` at that
+#: position, in float32 (TF32 off) within the reference test's 2e-2 of
+#: max |logit| (tests/test_models_smoke.py), and in bf16 within the larger
+#: of 2e-2 and bf16 forward's own distance from float32 forward on the same
+#: weights there: the deep SSMs' bf16 arithmetic amplifies rounding (their
+#: bf16 forward lies 0.17-0.22 of max |logit| from their float32 forward
+#: on the card), so two bf16 paths cannot agree within 2e-2.  deepseek
+#: runs at a capacity factor that drops no token: under capacity
+#: ``forward`` may drop the last token's (token, expert) pairs, which a
+#: one-token decode group keeps (its config's factor is printed beside).
+ZOO_CONSISTENCY = ("qwen2-0.5b", "mamba2-370m", "zamba2-1.2b",
+                   "deepseek-v2-lite-16b", "gemma3-12b")
+ZOO_DEC_SEQ = 64
+ZOO_DEC_RTOL = 2e-2
+#: Card = CPU: each family at full width and its smallest valid layout
+#: (layers; zamba2's 6 are one site), float32 with TF32 off, batch 1,
+#: prompt 32, the same carried weights on cuda:0 and on the CPU.
+ZOO_CPU = {"qwen2-0.5b": 2, "gemma3-12b": 6, "musicgen-medium": 2,
+           "pixtral-12b": 2, "deepseek-v2-lite-16b": 2, "mamba2-370m": 2,
+           "zamba2-1.2b": 6}
+ZOO_CPU_PROMPT = 32
+ZOO_CPU_RTOL = 1e-4
 
 
 def reset_launches() -> None:
@@ -2594,8 +2655,14 @@ def _energy_run(handle, plan, x: torch.Tensor) -> dict:
         for _ in range(warm):
             plan(x)
         start.record()
-        for _ in range(runs):
+        # At least ``runs``, and on until ENERGY_RUN_S of host time: a run
+        # the host paces (a model's decode step) can take less than ``est``
+        # once warm, and then its device span follows the host's.
+        t_runs, done = time.perf_counter(), 0
+        while done < runs or time.perf_counter() - t_runs < ENERGY_RUN_S:
             plan(x)
+            done += 1
+        runs = done
         stop.record()
         stop.synchronize()
         t_end = time.perf_counter()
@@ -3807,6 +3874,351 @@ def phase12_distributed(gen: torch.Generator) -> dict[str, int]:
     return launches
 
 
+def _zoo_cfg(name: str, n_layers: int | None = None, dtype: str = "bfloat16"):
+    """``name``'s full-width config at ``n_layers`` (None: its own)."""
+    cfg = ZOO_ARCHS[name]
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                               dtype=dtype)
+
+
+def _zoo_input(cfg, batch: int, seq: int, gen: torch.Generator
+               ) -> torch.Tensor:
+    if cfg.input_mode == "embeds":
+        return torch.randn((batch, seq, cfg.d_model), device="cuda",
+                           generator=gen)
+    return torch.randint(0, cfg.vocab, (batch, seq), device="cuda",
+                         generator=gen)
+
+
+def _zoo_next(cfg, logits: torch.Tensor, gen: torch.Generator
+              ) -> torch.Tensor:
+    """The next decode input: the greedy token, or for an embeds-input
+    model (its vision frontend is a stub) a fresh embedding."""
+    if cfg.input_mode == "embeds":
+        return _zoo_input(cfg, logits.shape[0], 1, gen)
+    return logits[:, -1, :].argmax(-1)[:, None]
+
+
+def _specs(tree) -> object:
+    """(shape, dtype) of each leaf: tensors or ``cache_shapes`` specs."""
+    return tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _prefill_flops(cfg, params, batch: int, seq: int) -> float:
+    """FLOPs of one dense-transformer prefill: 2 per multiply-add of every
+    layer weight a token, the chunked attention's full S x S scores and
+    PV products (it computes the masked half too), and the last
+    position's unembed."""
+    layer_params = sum(t.numel() for t in tree_leaves(params["layers"]))
+    hd = cfg.resolved_head_dim
+    attn = 4.0 * batch * seq * seq * cfg.n_heads * hd * cfg.n_layers
+    return (2.0 * batch * seq * layer_params + attn
+            + 2.0 * batch * cfg.d_model * cfg.vocab)
+
+
+def _zoo_serve(card: str, gen: torch.Generator) -> None:
+    """qwen2-0.5b served through ``launch.serve`` at full width and depth:
+    prefill and decode times, idle share, bytes and FLOP/s against the
+    card's peaks, J/token from the energy counter, the DVFS report."""
+    name, batch, prompt_len, n_gen = ZOO_SERVE
+    argv = ["--arch", name, "--batch", str(batch), "--prompt-len",
+            str(prompt_len), "--gen", str(n_gen), "--dvfs-report"]
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    wall = time.perf_counter() - t0
+    check(out.shape == (batch, n_gen), f"phase 13: served {out.shape}")
+    check(bool(((out >= 0) & (out < ZOO_ARCHS[name].vocab)).all()),
+          "phase 13: served tokens out of the vocabulary")
+    print(f"phase 13: serve {' '.join(argv)}: {out.shape} tokens in "
+          f"{wall:.3f} s (init and first calls included) on {card}")
+    # The same weights and prompt as main's (its seeds), timed by phase.
+    cfg = ZOO_ARCHS[name]
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    prompt = serve.seeded_prompt(cfg, batch, prompt_len, "cuda")
+    t0 = time.perf_counter()
+    again = serve.generate(model, params, prompt, n_gen)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(np.array_equal(again.cpu().numpy(), out),
+          "phase 13: generate() and serve.main() served other tokens")
+    logits, cache = model.prefill(params, prompt)
+    cache = serve.grow_cache(model, cache, batch, prompt_len, n_gen)
+    tok = logits[:, -1, :].argmax(-1)[:, None]
+    pre_ms = median_ms(lambda: model.prefill(params, prompt), reps=5)
+    dec_ms = median_ms(lambda: model.decode(params, cache, tok), reps=10)
+
+    def chain():
+        c, t = cache, tok
+        for _ in range(n_gen - 1):
+            lg, c = model.decode(params, c, t)
+            t = lg[:, -1, :].argmax(-1)[:, None]
+    chain_ms = median_ms(chain, reps=3) / (n_gen - 1)
+    pre_split = device_breakdown(lambda: model.prefill(params, prompt))
+    dec_split = device_breakdown(lambda: model.decode(params, cache, tok))
+    pre_busy = sum(pre_split.values())
+    dec_busy = sum(dec_split.values())
+    weights = _nbytes(params.tree())
+    kv = _nbytes(cache)
+    dec_bytes = weights + kv
+    flops = _prefill_flops(cfg, params, batch, prompt_len)
+    print(f"phase 13: {name} bf16 prefill ({batch}, {prompt_len}): "
+          f"{pre_ms:.4f} ms, {batch * prompt_len / pre_ms * 1e3:.1f} "
+          f"tokens/s; {flops:.4e} FLOP, {flops / pre_ms / 1e9:.2f} TFLOP/s "
+          f"= {flops / pre_ms * 1e3 / BF16_FLOPS:.4f} of the bf16 peak "
+          f"(bound {flops / BF16_FLOPS * 1e3:.4f} ms); device busy "
+          f"{pre_busy:.4f} ms (idle share "
+          f"{max(0.0, 1 - pre_busy / pre_ms):.3f}), "
+          f"{_device_ops(lambda: model.prefill(params, prompt))} device "
+          f"operations")
+    print(f"phase 13: {name} bf16 decode step (batch {batch}, cache "
+          f"{prompt_len + n_gen}): {dec_ms:.4f} ms one step, "
+          f"{chain_ms:.4f} ms a step over {n_gen - 1} chained steps, "
+          f"{batch / chain_ms * 1e3:.1f} tokens/s; reads weights {weights} B "
+          f"+ KV cache {kv} B = {dec_bytes / dec_ms / 1e9:.2f} GB/s = "
+          f"{dec_bytes / dec_ms * 1e3 / HBM_BYTES_PER_S:.4f} of 3.35 TB/s "
+          f"(bound {dec_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); device busy "
+          f"{dec_busy:.4f} ms of {dec_ms:.4f} (idle share "
+          f"{max(0.0, 1 - dec_busy / dec_ms):.3f}), "
+          f"{_device_ops(lambda: model.decode(params, cache, tok))} device "
+          f"operations")
+    print(f"phase 13: {name} generate() {batch} x {n_gen} tokens after a "
+          f"{prompt_len}-token prompt: {gen_s * 1e3:.3f} ms wall")
+    handle = nvml.device_handle(torch.cuda.current_device())
+    energy = {}
+    for phase, fn, arg, tokens in (
+            ("prefill", lambda p: model.prefill(params, p), prompt,
+             batch * prompt_len),
+            ("decode", lambda t: model.decode(params, cache, t), tok,
+             batch)):
+        row = _energy_run(handle, fn, arg)
+        energy[phase] = row
+        print(f"phase 13: {name} {phase} energy: {row['runs']} runs back "
+              f"to back, {row['ms']:.4f} ms each ({row['device_s']:.3f} s), "
+              f"counter {row['counter_w']:.2f} W, "
+              f"{row['counter_j'] / (row['runs'] * tokens):.4e} J/token; "
+              f"trace {row['trace_w']:.2f} W; SM clock "
+              f"{row['sm_mhz']:.0f} MHz ({row['sm_range'][0]}.."
+              f"{row['sm_range'][1]})")
+    phases, rep = serve.dvfs_report(name, batch, prompt_len, n_gen)
+    for prof, res in phases:
+        row = energy[prof.name]
+        print(f"phase 13: {name} {prof.name} DVFS model (H100 SXM, bf16 "
+              f"peak): regime {prof.regime(serve.H100_SXM_BF16)!r}, optimal "
+              f"{res.optimal.f:.0f} MHz, power cut "
+              f"{res.power_reduction:.4f}, slowdown {res.slowdown:.4f}, "
+              f"modelled {res.boost.time * 1e3:.4f} ms at boost | measured "
+              f"{row['ms']:.4f} ms at {row['sm_mhz']:.0f} MHz, "
+              f"{row['counter_w']:.2f} W")
+    print(f"phase 13: DVFS model serve pipeline I_ef {rep.i_ef:.4f}, "
+          f"slowdown {rep.slowdown:.4f}")
+    _zoo_bf16_vs_f32(name, model, params, gen)
+
+
+def _zoo_bf16_vs_f32(name: str, model, params, gen: torch.Generator) -> None:
+    """The same weights in bf16 and in float32 (TF32 off): the greedy
+    tokens' agreement and the largest logit gap over a forward."""
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    p32 = language_model(tree_map(lambda t: t.float(), params.tree()), cfg32)
+    inp = _zoo_input(model.cfg, ZOO_BATCH, ZOO_PROMPT, gen)
+    with _no_tf32():
+        l16, _ = model.forward(params, inp)
+        l32, _ = build_model(cfg32).forward(p32, inp)
+    check(bool(torch.isfinite(l16).all() and torch.isfinite(l32).all()),
+          "phase 13: bf16 or f32 logits not finite")
+    agree = (l16.argmax(-1) == l32.argmax(-1)).float().mean().item()
+    gap = (l16 - l32).abs().max().item()
+    print(f"phase 13: {name} bf16 against f32 (full depth, "
+          f"({ZOO_BATCH}, {ZOO_PROMPT}) tokens): greedy tokens agree at "
+          f"{agree:.4f} of positions; largest logit gap {gap:.4f} "
+          f"({gap / l32.abs().max().item():.4e} of max |logit| "
+          f"{l32.abs().max().item():.4f})")
+    del p32, l16, l32
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Float32 matmuls and convolutions at full float32 precision."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32,
+           torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old[0]
+        torch.backends.cudnn.allow_tf32 = old[1]
+        torch.set_float32_matmul_precision(old[2])
+
+
+def _no_drop(cfg):
+    """``cfg`` with a MoE capacity factor at which no expert overflows."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=2.0 * cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def _decode_vs_forward(model, params, inp: torch.Tensor
+                       ) -> tuple[float, torch.Tensor]:
+    """max |decode - forward| at the last position of ``inp`` over max
+    |forward| there, and forward's logits there."""
+    full, _ = model.forward(params, inp)
+    _, cache = model.prefill(params, inp[:, :-1])
+    cache = serve.grow_cache(model, cache, 1, inp.shape[1] - 1, 1)
+    dec, _ = model.decode(params, cache, inp[:, -1:])
+    want = full[0, -1]
+    return ((dec[0, 0] - want).abs().max() / want.abs().max()).item(), want
+
+
+def _consistency(name: str, model, params, gen: torch.Generator) -> str:
+    """Decode = forward at position ZOO_DEC_SEQ - 1 in bf16, and in float32
+    (TF32 off) on the same weights, beside bf16 forward against float32
+    forward there."""
+    cfg = _no_drop(model.cfg)
+    inp = _zoo_input(cfg, 1, ZOO_DEC_SEQ, gen)
+    err16, fwd16 = _decode_vs_forward(build_model(cfg), params, inp)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = language_model(tree_map(lambda t: t.float(), params.tree()), cfg32)
+    with _no_tf32():
+        err32, fwd32 = _decode_vs_forward(build_model(cfg32), p32, inp)
+    del p32
+    torch.cuda.empty_cache()
+    gap = ((fwd16 - fwd32).abs().max() / fwd32.abs().max()).item()
+    check(err32 <= ZOO_DEC_RTOL, f"phase 13: {name} float32 decode vs "
+          f"forward {err32:.4e} of max |logit| > {ZOO_DEC_RTOL}")
+    bound16 = max(ZOO_DEC_RTOL, gap)
+    check(err16 <= bound16, f"phase 13: {name} bf16 decode vs forward "
+          f"{err16:.4e} of max |logit| > {bound16:.4e}")
+    line = (f"; decode = forward at position {ZOO_DEC_SEQ - 1}: bf16 "
+            f"{err16:.4e} (held to {bound16:.4e}), float32 {err32:.4e} "
+            f"(held to {ZOO_DEC_RTOL}) of max |logit|; bf16 forward against "
+            f"float32 {gap:.4e}")
+    if model.cfg.moe is not None:
+        err, _ = _decode_vs_forward(model, params, inp)
+        line += (f" at no drop; at the config's capacity factor, bf16 "
+                 f"{err:.4e}")
+    return line
+
+
+def _device_ops(fn) -> int:
+    """Device operations (kernels, copies, sets) of one run of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type == torch.autograd.DeviceType.CUDA
+               for ev in prof.events())
+
+
+def _zoo_arch(name: str, gen: torch.Generator) -> None:
+    """One architecture at full width, bf16: prefill, ZOO_DECODE_STEPS
+    decode steps, the cache trees against ``cache_shapes``; decode =
+    forward for the ZOO_CONSISTENCY ones."""
+    cfg = _zoo_cfg(name, ZOO_DEPTH[name])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = _nbytes(params.tree())
+    inp = _zoo_input(cfg, ZOO_BATCH, ZOO_PROMPT, gen)
+    logits, cache = model.prefill(params, inp)
+    check(tuple(logits.shape) == (ZOO_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"phase 13: {name} prefill logits {tuple(logits.shape)} not finite")
+    check(_specs(cache) == _specs(model.cache_shapes(ZOO_BATCH, ZOO_PROMPT)),
+          f"phase 13: {name} prefill cache != cache_shapes")
+    total = ZOO_PROMPT + ZOO_DECODE_STEPS
+    cache = serve.grow_cache(model, cache, ZOO_BATCH, ZOO_PROMPT,
+                             ZOO_DECODE_STEPS)
+    want = _specs(model.cache_shapes(ZOO_BATCH, total))
+    check(_specs(cache) == want, f"phase 13: {name} grown cache != "
+          f"cache_shapes({ZOO_BATCH}, {total})")
+    pre_ms = median_ms(lambda: model.prefill(params, inp), reps=3)
+    tok = _zoo_next(cfg, logits, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_DECODE_STEPS):
+        logits, cache = model.decode(params, cache, tok)
+        check(tuple(logits.shape) == (ZOO_BATCH, 1, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"phase 13: {name} decode logits not finite")
+        check(_specs(cache) == want,
+              f"phase 13: {name} decode cache != cache_shapes")
+        tok = _zoo_next(cfg, logits, gen)
+    torch.cuda.synchronize()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / ZOO_DECODE_STEPS
+    depth = ("full depth" if ZOO_DEPTH[name] is None
+             else f"cut to {cfg.n_layers} of "
+                  f"{ZOO_ARCHS[name].n_layers} layers")
+    line = (f"phase 13: {name} bf16 at full width, {depth}: weights "
+            f"{weights / 1e9:.3f} GB (init {init_s:.2f} s); prefill "
+            f"({ZOO_BATCH}, {ZOO_PROMPT}) {pre_ms:.4f} ms; "
+            f"{ZOO_DECODE_STEPS} decode steps {dec_ms:.4f} ms a step "
+            f"(host clock); caches equal cache_shapes")
+    if name in ZOO_CONSISTENCY:
+        line += _consistency(name, model, params, gen)
+    print(line)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+
+def _zoo_card_vs_cpu(name: str, n_layers: int, gen: torch.Generator
+                     ) -> None:
+    """The same float32 weights (drawn on the card, carried to the CPU
+    through ``models.convert``) on cuda:0 and on the CPU, TF32 off."""
+    cfg = _zoo_cfg(name, n_layers, "float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    cpu = params_from_reference(params_to_reference(params), cfg, "cpu")
+    inp = _zoo_input(cfg, 1, ZOO_CPU_PROMPT, gen)
+    with _no_tf32():
+        on_card, _ = model.forward(params, inp)
+    t0 = time.perf_counter()
+    on_cpu, _ = model.forward(cpu, inp.cpu())
+    cpu_s = time.perf_counter() - t0
+    abs_err, rel = rel_err(on_card.cpu(), on_cpu)
+    check(rel <= ZOO_CPU_RTOL, f"phase 13: {name} card vs CPU {rel:.3e}")
+    print(f"phase 13: {name} float32 {cfg.n_layers} layers, card = CPU: "
+          f"logits (1, {ZOO_CPU_PROMPT}, {cfg.vocab}) max |diff| "
+          f"{abs_err:.3e} = {rel:.3e} of max |logit| (CPU forward "
+          f"{cpu_s:.2f} s)")
+    del params, cpu, on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def phase13_zoo(gen: torch.Generator) -> dict[str, int]:
+    """The model zoo on the card: qwen2-0.5b served through
+    ``launch.serve``; the ten architectures at full width; decode =
+    forward; card = CPU; bf16 against f32.  No kernel of the port lies on
+    this path: its launch counts, set to 0 just before and read just
+    after, stay 0."""
+    t0 = time.perf_counter()
+    card = _card()
+    reset_launches()
+    with torch.inference_mode():
+        _zoo_serve(card, gen)
+        for name in ZOO_DEPTH:
+            _zoo_arch(name, gen)
+        for name, n_layers in ZOO_CPU.items():
+            _zoo_card_vs_cpu(name, n_layers, gen)
+    torch.cuda.synchronize()
+    run = launch_counts()
+    print(f"phase 13: launches of the port's kernels "
+          f"{ {k: v for k, v in run.items() if v} }; wall time "
+          f"{time.perf_counter() - t0:.2f} s")
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -3825,7 +4237,7 @@ def main() -> int:
     launches = phase4_main_path(gen)
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
                   phase9_energy, phase10_tune, phase11_robust,
-                  phase12_distributed):
+                  phase12_distributed, phase13_zoo):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

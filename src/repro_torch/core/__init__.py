@@ -7,7 +7,8 @@ Layers:
   perf_model   t(f) with the paper's three regimes (Fig. 6)
   energy       Eqs. (3)-(7): energy, GFLOPS/W, I_ef, sampled-trace energy
   workloads    the FFT plan model (1-D and N-D), the overlap-save /
-               FDAS model and the four-stage pulsar-search model
+               FDAS model, the four-stage pulsar-search model and the
+               roofline profile of a model step
   dvfs         optimal & mean-optimal frequency search (Table 3)
   scheduler    per-stage clock plans (DVFSScheduler) and the runtime
                clock lock around dispatches (Sec. 5.3)
@@ -36,6 +37,7 @@ from repro_torch.core.workloads import (ConvCase, FFTCase, PulsarCase,
                                         fdas_workload, fft_workload,
                                         merge_profiles, paper_lengths,
                                         pulsar_search_total_profile,
-                                        pulsar_search_workload)
+                                        pulsar_search_workload,
+                                        roofline_workload)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

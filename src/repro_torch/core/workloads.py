@@ -545,6 +545,40 @@ def pulsar_search_total_profile(case: PulsarCase,
     return merge_profiles(case.name, pulsar_search_workload(case, device))
 
 
+def roofline_workload(
+    name: str,
+    device: DeviceSpec,
+    *,
+    hlo_flops: float,
+    hbm_bytes: float,
+    collective_bytes: float = 0.0,
+    useful_flops: float | None = None,
+    issue_efficiency: float | None = None,
+) -> WorkloadProfile:
+    """Profile a model step for the DVFS planner from its FLOPs and bytes
+    (the reference's name ``hlo_flops`` kept: there, a compiled XLA
+    step's).
+
+    ``issue_efficiency`` defaults to the device's calibrated value; steps
+    dominated by large matmuls run much closer to peak than a butterfly
+    kernel, so callers may pass a higher value.
+    """
+    eff = device.issue_efficiency if issue_efficiency is None else issue_efficiency
+    t_coll = (
+        collective_bytes / device.link_bandwidth
+        if device.link_bandwidth and collective_bytes else 0.0
+    )
+    return WorkloadProfile(
+        name=name,
+        t_mem=hbm_bytes / device.hbm_bandwidth,
+        t_issue=hlo_flops / (device.peak_flops * eff),
+        t_cache=0.0,
+        t_compute=hlo_flops / device.peak_flops,
+        t_coll=t_coll,
+        flops=useful_flops if useful_flops is not None else hlo_flops,
+    )
+
+
 # The FFT-length sweep the paper covers (powers of two 2^5..2^22 plus a few
 # radix-7+/Bluestein lengths for completeness).
 def paper_lengths() -> list[int]:

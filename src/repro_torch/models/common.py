@@ -1,0 +1,190 @@
+"""Shared model components: norms, RoPE, init, loss, and the parameter
+tree (the counterpart of ``repro.models.common``).
+
+The reference's sharding vocabulary (``spec_*``, ``stack_specs``,
+``activation_sharding``, ``constrain_acts``, ``PERF_OPTS``) is not here:
+it comes with the dry-run.  ``constrain_acts`` is the identity where no
+sharding is installed, so the forward paths simply drop it.
+
+Parameters live in a :class:`ParamTree`, an ``nn.Module`` that mirrors the
+reference's parameter pytree: a dict becomes a ``ParamTree``, a list an
+``nn.ModuleList``, an array an ``nn.Parameter`` (``requires_grad=False``:
+this slice serves; training comes later).  So ``state_dict()`` keys are
+the reference tree's paths joined by ``.`` (``layers.attn.w_q``,
+``dense_layers.0.mlp.w_gate``), and the forward code indexes a
+``ParamTree`` and a plain nested dict of tensors alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+def dtype_of(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of a cache leaf (``jax.ShapeDtypeStruct``'s place
+    in ``cache_shapes``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+class ParamTree(nn.Module):
+    """A nested parameter dict as a module; ``tree[key]`` gives a
+    parameter, a ``ParamTree`` or an ``nn.ModuleList`` of them."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            elif isinstance(value, (list, tuple)):
+                self.add_module(key, nn.ModuleList(
+                    ParamTree(v) for v in value))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def keys(self) -> list[str]:
+        return [*self._parameters, *self._modules]
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+    def tree(self) -> dict:
+        """The nested dict (lists for ``ModuleList``s) of the parameter
+        tensors: the reference's pytree structure, e.g. for
+        ``runtime.checkpoint``."""
+        return tree_map(lambda t: t, self)
+
+
+def _is_tree(node) -> bool:
+    return isinstance(node, (dict, ParamTree))
+
+
+def tree_map(fn: Callable, *trees) -> Any:
+    """``fn`` over the leaves of nested dicts / ``ParamTree``s and lists /
+    ``ModuleList``s of the same structure; dicts come back as dicts."""
+    first = trees[0]
+    if _is_tree(first):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first.keys()}
+    if isinstance(first, (list, tuple, nn.ModuleList)):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree, in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def unstack(tree, n: int) -> list[dict]:
+    """The ``n`` slices along the leading (stacked-layer) axis of every
+    leaf, as ``n`` nested dicts of views (``jax.lax.scan``'s per-step
+    ``xs``): one ``unbind`` a leaf."""
+    if _is_tree(tree):
+        parts = {k: unstack(tree[k], n) for k in tree.keys()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def stack(trees: list) -> Any:
+    """Stack a list of same-structure trees along a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope(q: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding; q: (..., S, H, D), positions: (..., S)."""
+    d = q.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=q.device) / half)
+    ang = positions[..., :, None, None].float() * freqs  # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    q1, q2 = q[..., :half], q[..., half:]
+    out = torch.cat([q1 * cos - q2 * sin, q2 * cos + q1 * sin], dim=-1)
+    return out.to(q.dtype)
+
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None
+               ) -> torch.Tensor:
+    """A normal draw from ``gen`` (on the generator's device), scaled by
+    ``scale`` or fan_in ** -0.5.  The port cannot reproduce JAX's random
+    numbers: parity goes through ``models.convert``."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    s = scale if scale is not None else fan_in ** -0.5
+    return (torch.randn(shape, generator=gen, device=gen.device) * s
+            ).to(dtype)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a: (..., K), b: (K, N)) with a float32 result: the
+    reference's ``preferred_element_type=jnp.float32``.
+
+    Float32 operands multiply as they are.  On the card, bf16 operands
+    stay bf16 and cuBLAS writes a float32 result (``out_dtype``), which
+    keeps the reference's f32 output without an f32 copy of the weight
+    (at full width the unembed weight is up to 262144 x 3840).  Elsewhere
+    both operands are cast up, which is exact for the products."""
+    if a.dtype == b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        flat = a.reshape(-1, a.shape[-1])
+        return torch.mm(flat, b, out_dtype=torch.float32).reshape(
+            *a.shape[:-1], b.shape[-1])
+    return a.float() @ b.float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V) f32-accumulated."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    return (logz - gold).mean()
+
+
+def chunked_cross_entropy(unembed_fn: Callable, hidden: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 512
+                          ) -> torch.Tensor:
+    """CE without materialising the full (B, S, V) logits: the unembed
+    and softmax run per sequence chunk, so the transient is (B, chunk, V).
+    (The reference rematerialises each chunk under ``jax.checkpoint``;
+    the gradient path comes with the training slice.)"""
+    b, s = labels.shape
+    c = min(chunk, s)
+    while s % c:
+        c //= 2
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, s, c):
+        logits = unembed_fn(hidden[:, start:start + c]).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        lc = labels[:, start:start + c]
+        gold = torch.take_along_dim(logits, lc[..., None], dim=-1)[..., 0]
+        total = total + (logz - gold).sum()
+    return total / (b * s)

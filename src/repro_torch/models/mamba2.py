@@ -1,0 +1,253 @@
+"""Mamba2 — SSD (state-space duality) backbone [arXiv:2405.21060] (the
+counterpart of ``repro.models.mamba2``).
+
+Chunked SSD forward: the sequence splits into chunks of Q tokens; within
+a chunk the output is a masked quadratic form (the attention-like dual),
+across chunks a linear recurrence carries (H, P, N) states.  Decode is a
+single O(1) state update.
+
+Shapes: inner = expand * d_model = H * P heads; B/C share one state group
+(ngroups = 1, the published 370M config).
+
+Precision: the reference computes the SSD einsums in float32 (float32
+scores of its operands, float32 decays and states); the port casts their
+operands to float32, exact for bf16 values.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import (TensorSpec, dense_init, dtype_of,
+                                       matmul_f32, rms_norm, stack, tree_map,
+                                       unstack)
+
+
+def _dims(cfg: ArchConfig):
+    s = cfg.ssm
+    inner = s.expand * cfg.d_model
+    n_heads = inner // s.head_dim
+    return inner, n_heads, s.head_dim, s.state_dim
+
+
+def init_mamba_block(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
+    inner, h, _, n = _dims(cfg)
+    conv_dim = inner + 2 * n
+    dev = gen.device
+    return {
+        "ln": torch.zeros(cfg.d_model, dtype=dtype, device=dev),
+        "in_proj": dense_init(gen, (cfg.d_model, 2 * inner + 2 * n + h),
+                              dtype),
+        "conv_w": dense_init(gen, (cfg.ssm.conv_width, conv_dim), dtype,
+                             scale=0.5),
+        "conv_b": torch.zeros(conv_dim, dtype=dtype, device=dev),
+        "A_log": torch.zeros(h, dtype=torch.float32, device=dev),
+        "D": torch.ones(h, dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros(h, dtype=torch.float32, device=dev),
+        "gate_norm": torch.zeros(inner, dtype=dtype, device=dev),
+        "out_proj": dense_init(gen, (inner, cfg.d_model), dtype),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds (width is small & static)."""
+    width = w.shape[0]
+    s = xbc.shape[1]
+    out = xbc * w[-1]
+    for i in range(1, width):
+        shifted = F.pad(xbc, (0, 0, i, 0))[:, :s, :]
+        out = out + shifted * w[width - 1 - i]
+    return F.silu(out + b)
+
+
+def _segsum(dacum: torch.Tensor) -> torch.Tensor:
+    """L[l, s] = exp(dacum[l] - dacum[s]) masked to l >= s; (..., Q).
+
+    As in the reference, ``exp`` runs before the mask, so masked entries
+    may be inf; ``torch.where`` drops them here (the training slice must
+    keep them out of the gradient)."""
+    q = dacum.shape[-1]
+    diff = dacum[..., :, None] - dacum[..., None, :]
+    mask = torch.tril(torch.ones(q, q, dtype=torch.bool, device=dacum.device))
+    return torch.where(mask, torch.exp(diff), 0.0)
+
+
+def _ssd_chunked(xs, dt, bmat, cmat, a_log, chunk: int):
+    """Chunked SSD scan.
+
+    xs: (B, S, H, P)  dt: (B, S, H)  bmat/cmat: (B, S, N)
+    Returns y (B, S, H, P) and the final state (B, H, P, N), float32.
+    """
+    b, s, h, p = xs.shape
+    n = bmat.shape[-1]
+    q = min(chunk, s)
+    while s % q:
+        q //= 2
+    nc = s // q
+    a = -torch.exp(a_log)                                 # (H,)
+    da = dt * a                                           # (B, S, H)
+
+    xs_c = xs.reshape(b, nc, q, h, p)
+    dt_c = dt.reshape(b, nc, q, h)
+    da_c = da.reshape(b, nc, q, h)
+    b_c = bmat.reshape(b, nc, q, n).float()
+    c_c = cmat.reshape(b, nc, q, n).float()
+
+    dacum = torch.cumsum(da_c, dim=2)                     # (B, C, Q, H)
+    xdt = (xs_c * dt_c[..., None]).float()                # (B, C, Q, H, P)
+
+    # ---- intra-chunk (quadratic dual) --------------------------------
+    lmat = _segsum(dacum.movedim(-1, -2))                 # (B, C, H, Q, Q)
+    scores = torch.einsum("bcln,bcsn->bcls", c_c, b_c)
+    y_diag = torch.einsum("bcls,bchls,bcshp->bclhp", scores, lmat, xdt)
+
+    # ---- chunk states + inter-chunk recurrence ------------------------
+    decay_out = torch.exp(dacum[:, :, -1:, :] - dacum)    # (B, C, Q, H)
+    states = torch.einsum("bcsn,bcsh,bcshp->bchpn", b_c, decay_out, xdt)
+    chunk_decay = torch.exp(dacum[:, :, -1, :])           # (B, C, H)
+
+    carry = torch.zeros((b, h, p, n), dtype=torch.float32, device=xs.device)
+    prev = []
+    for c in range(nc):                                   # emit PRE-state
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                # (B, C, H, P, N)
+
+    decay_in = torch.exp(dacum)                           # (B, C, Q, H)
+    y_off = torch.einsum("bcln,bchpn,bclh->bclhp", c_c, prev_states,
+                         decay_in)
+
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y.to(xs.dtype), carry
+
+
+def _split_proj(proj, cfg: ArchConfig):
+    inner, h, _, n = _dims(cfg)
+    return (proj[..., :inner], proj[..., inner:inner + inner + 2 * n],
+            proj[..., -h:])
+
+
+def mamba_block(params, x, cfg: ArchConfig, *, return_state: bool = False):
+    """x: (B, S, d) -> (B, S, d) [+ (conv_tail, state) when prefilling]."""
+    inner, h, p_dim, n = _dims(cfg)
+    res = x
+    xn = rms_norm(x, params["ln"], cfg.norm_eps)
+    proj = xn @ params["in_proj"]
+    z, pre_conv, dt_raw = _split_proj(proj, cfg)
+    xbc = _causal_conv(pre_conv, params["conv_w"], params["conv_b"])
+    xs = xbc[..., :inner].reshape(*xbc.shape[:2], h, p_dim)
+    bmat = xbc[..., inner:inner + n]
+    cmat = xbc[..., inner + n:]
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    y, state = _ssd_chunked(xs, dt, bmat, cmat, params["A_log"],
+                            cfg.ssm.chunk)
+    y = y + (params["D"][:, None] * xs.float()).to(y.dtype)
+    y = y.reshape(*y.shape[:2], inner)
+    y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
+    out = res + y @ params["out_proj"]
+    if return_state:
+        w = cfg.ssm.conv_width
+        return out, (pre_conv[:, -(w - 1):, :], state)
+    return out
+
+
+def mamba_decode(params, x, cache, cfg: ArchConfig):
+    """One-token state update.  cache = {"conv": (B, W-1, CD), "state":
+    (B, H, P, N)}; returns the new cache (the input is left as it is)."""
+    inner, h, p_dim, n = _dims(cfg)
+    res = x
+    xn = rms_norm(x, params["ln"], cfg.norm_eps)
+    proj = xn @ params["in_proj"]                         # (B, 1, ...)
+    z, xbc_new, dt_raw = _split_proj(proj, cfg)
+    # conv over [cached, new]
+    window = torch.cat([cache["conv"], xbc_new], dim=1)   # (B, W, CD)
+    xbc = F.silu(torch.einsum("bwc,wc->bc", window, params["conv_w"])
+                 + params["conv_b"])[:, None, :]
+    xs = xbc[..., :inner].reshape(-1, 1, h, p_dim)
+    bmat = xbc[..., inner:inner + n]
+    cmat = xbc[..., inner + n:]
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    a = -torch.exp(params["A_log"])
+    da = torch.exp(dt[:, 0, :] * a)                       # (B, H)
+    state = cache["state"] * da[..., None, None] + torch.einsum(
+        "bn,bhp->bhpn", bmat[:, 0].float(),
+        (xs[:, 0] * dt[:, 0, :, None]).float())
+    y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].float(), state)
+    y = y + params["D"][:, None] * xs[:, 0].float()
+    y = y.reshape(-1, 1, inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
+    out = res + y @ params["out_proj"]
+    return out, {"conv": window[:, 1:, :], "state": state}
+
+
+def mamba_cache_shapes(cfg: ArchConfig, batch: int) -> dict:
+    inner, h, p_dim, n = _dims(cfg)
+    conv_dim = inner + 2 * n
+    w = cfg.ssm.conv_width
+    return {
+        "conv": TensorSpec((batch, w - 1, conv_dim), dtype_of(cfg)),
+        "state": TensorSpec((batch, h, p_dim, n), torch.float32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Full LM
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    dtype = dtype_of(cfg)
+    return {
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype, scale=1.0),
+        "layers": stack([init_mamba_block(gen, cfg, dtype)
+                         for _ in range(cfg.n_layers)]),
+        "final_norm": torch.zeros(cfg.d_model, dtype=dtype,
+                                  device=gen.device),
+        "lm_head": dense_init(gen, (cfg.d_model, cfg.vocab), dtype),
+    }
+
+
+def forward_hidden(params, tokens, cfg: ArchConfig):
+    x = params["embed"][tokens]
+    for lp in unstack(params["layers"], cfg.n_layers):
+        x = mamba_block(lp, x, cfg)
+    return (rms_norm(x, params["final_norm"], cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def unembed(params, h, cfg: ArchConfig):
+    return matmul_f32(h, params["lm_head"])
+
+
+def forward(params, tokens, cfg: ArchConfig):
+    h, aux = forward_hidden(params, tokens, cfg)
+    return unembed(params, h, cfg), aux
+
+
+def prefill_step(params, tokens, cfg: ArchConfig):
+    """Forward that also returns the (conv tail, SSM state) caches."""
+    x = params["embed"][tokens]
+    caches = []
+    for lp in unstack(params["layers"], cfg.n_layers):
+        x, (conv_tail, state) = mamba_block(lp, x, cfg, return_state=True)
+        caches.append({"conv": conv_tail, "state": state})
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params, h[:, -1:, :], cfg), {"layers": stack(caches)}
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    per = mamba_cache_shapes(cfg, batch)
+    return {"layers": tree_map(
+        lambda s: TensorSpec((cfg.n_layers, *s.shape), s.dtype), per)}
+
+
+def decode_step(params, cache, token, cfg: ArchConfig):
+    x = params["embed"][token]
+    new = []
+    for lp, lc in zip(unstack(params["layers"], cfg.n_layers),
+                      unstack(cache["layers"], cfg.n_layers)):
+        x, c2 = mamba_decode(lp, x, lc, cfg)
+        new.append(c2)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params, h, cfg), {"layers": stack(new)}

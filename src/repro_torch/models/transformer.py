@@ -1,0 +1,333 @@
+"""Config-driven decoder-only transformer LM (the counterpart of
+``repro.models.transformer``).
+
+Covers the dense (qwen2/codeqwen/qwen1.5), sliding-window (gemma3),
+audio-token (musicgen), VLM-backbone (pixtral) and MoE (dbrx,
+deepseek-v2-lite with MLA) architectures from one implementation, in the
+reference's parameter layout:
+  * homogeneous layers are stacked (leading L axis); ``jax.lax.scan``
+    over them becomes a Python loop over the stacked axis;
+  * gemma3's 5:1 local:global pattern stacks layers as (groups, 6, ...),
+    the 6-layer pattern unrolled within a group;
+  * deepseek's first dense layer is kept outside the MoE stack.
+Remat (``jax.checkpoint``) comes with the training slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.common import (TensorSpec, dense_init, dtype_of,
+                                       matmul_f32, rms_norm, rope, stack,
+                                       tree_map, unstack)
+from repro_torch.models.mla import (init_mla, mla_attention, mla_cache_shape,
+                                    mla_decode)
+from repro_torch.models.moe import init_moe, moe_block
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+
+def _init_attn(gen, cfg: ArchConfig, dtype) -> dict:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    p = {
+        "w_q": dense_init(gen, (d, cfg.n_heads * hd), dtype),
+        "w_k": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype),
+        "w_v": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype),
+        "w_o": dense_init(gen, (cfg.n_heads * hd, d), dtype),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("b_q", cfg.n_heads), ("b_k", cfg.n_kv_heads),
+                            ("b_v", cfg.n_kv_heads)):
+            p[name] = torch.zeros(width * hd, dtype=dtype, device=gen.device)
+    return p
+
+
+def _init_mlp(gen, d: int, ff: int, dtype) -> dict:
+    return {
+        "w_gate": dense_init(gen, (d, ff), dtype),
+        "w_up": dense_init(gen, (d, ff), dtype),
+        "w_down": dense_init(gen, (ff, d), dtype),
+    }
+
+
+def _init_layer(gen, cfg: ArchConfig, dtype, *, moe_layer: bool,
+                dense_ff: int | None = None) -> dict:
+    zeros = torch.zeros(cfg.d_model, dtype=dtype, device=gen.device)
+    p: dict = {"ln_attn": zeros, "ln_mlp": zeros.clone()}
+    p["attn"] = (init_mla(gen, cfg, dtype) if cfg.mla is not None
+                 else _init_attn(gen, cfg, dtype))
+    if moe_layer:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe, dtype)
+    else:
+        p["mlp"] = _init_mlp(gen, cfg.d_model, dense_ff or cfg.d_ff, dtype)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """The parameter tree, drawn from ``gen`` on its device."""
+    dtype = dtype_of(cfg)
+    params: dict = {
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype, scale=1.0),
+        "final_norm": torch.zeros(cfg.d_model, dtype=dtype,
+                                  device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
+    n_scan = cfg.n_layers - cfg.n_dense_layers
+    moe_layer = cfg.moe is not None
+    layers = stack([_init_layer(gen, cfg, dtype, moe_layer=moe_layer)
+                    for _ in range(n_scan)])
+    if cfg.local_per_global:
+        group = cfg.local_per_global + 1
+        assert n_scan % group == 0, (n_scan, group)
+        layers = tree_map(
+            lambda x: x.reshape(n_scan // group, group, *x.shape[1:]), layers)
+    params["layers"] = layers
+    if cfg.n_dense_layers:
+        params["dense_layers"] = [
+            _init_layer(gen, cfg, dtype, moe_layer=False,
+                        dense_ff=cfg.dense_d_ff)
+            for _ in range(cfg.n_dense_layers)]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _mlp(m, y):
+    return (F.silu(y @ m["w_gate"]) * (y @ m["w_up"])) @ m["w_down"]
+
+
+def _attn_forward(p, x, positions, cfg: ArchConfig, *, window,
+                  with_cache: bool = False):
+    if cfg.mla is not None:
+        return mla_attention(p, x, positions, cfg, with_cache=with_cache)
+    b, s, d = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p["w_q"]
+    k = x @ p["w_k"]
+    v = x @ p["w_v"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    q = rope(q.reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    out = attention(q, k, v, window=window)
+    out = out.reshape(b, s, cfg.n_heads * hd) @ p["w_o"]
+    if with_cache:
+        return out, {"k": k, "v": v}
+    return out
+
+
+def _layer_forward(p, x, positions, cfg: ArchConfig, *, window,
+                   moe_layer: bool, with_cache: bool = False):
+    a = _attn_forward(p["attn"], rms_norm(x, p["ln_attn"], cfg.norm_eps),
+                      positions, cfg, window=window, with_cache=with_cache)
+    kv = None
+    if with_cache:
+        a, kv = a
+    h = x + a
+    y = rms_norm(h, p["ln_mlp"], cfg.norm_eps)
+    if moe_layer:
+        f, aux = moe_block(p["moe"], y, cfg.moe)
+    else:
+        f = _mlp(p["mlp"], y)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return h + f, aux, kv
+
+
+def _stacked(params, cfg: ArchConfig):
+    """(layer params, window) of the stacked layers, in order; gemma3's
+    (groups, 6, ...) stack as group-major order with its 5:1 windows."""
+    layers = params["layers"]
+    if cfg.local_per_global:
+        group = cfg.local_per_global + 1
+        n_groups = (cfg.n_layers - cfg.n_dense_layers) // group
+        out = []
+        for gp in unstack(layers, n_groups):
+            for i, sub in enumerate(unstack(gp, group)):
+                win = cfg.sliding_window if i < cfg.local_per_global else None
+                out.append((sub, win))
+        return out
+    n_scan = cfg.n_layers - cfg.n_dense_layers
+    return [(lp, cfg.sliding_window or None) for lp in unstack(layers, n_scan)]
+
+
+def _stack_cache(caches: list, cfg: ArchConfig):
+    """Per-layer caches in :func:`_stacked` order -> the reference's stacked
+    (L, ...) or (groups, 6, ...) tree."""
+    out = stack(caches)
+    if cfg.local_per_global:
+        group = cfg.local_per_global + 1
+        out = tree_map(lambda x: x.reshape(-1, group, *x.shape[1:]), out)
+    return out
+
+
+def _flat_cache(cache, cfg: ArchConfig):
+    """The stacked cache viewed as (L, ...) per leaf."""
+    if cfg.local_per_global:
+        return tree_map(lambda x: x.flatten(0, 1), cache)
+    return cache
+
+
+def embed_input(params, inp, cfg: ArchConfig):
+    if cfg.input_mode == "embeds":
+        return inp.to(dtype_of(cfg))
+    return params["embed"][inp]
+
+
+def unembed(params, h, cfg: ArchConfig):
+    if cfg.tie_embeddings:
+        return matmul_f32(h, params["embed"].t())
+    return matmul_f32(h, params["lm_head"])
+
+
+def _positions(x):
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+def _run(params, inp, cfg: ArchConfig, *, with_cache: bool):
+    """Embedded input through every layer: (hidden before the final norm,
+    aux, per-layer caches of the stack, dense-layer caches)."""
+    x = embed_input(params, inp, cfg)
+    positions = _positions(x)
+    moe_layer = cfg.moe is not None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    dense_caches = []
+    for p in params.get("dense_layers", []):
+        x, _, kv = _layer_forward(p, x, positions, cfg, window=None,
+                                  moe_layer=False, with_cache=with_cache)
+        dense_caches.append(kv)
+    caches = []
+    for lp, win in _stacked(params, cfg):
+        x, a, kv = _layer_forward(lp, x, positions, cfg, window=win,
+                                  moe_layer=moe_layer, with_cache=with_cache)
+        aux_total = aux_total + a
+        caches.append(kv)
+    return x, aux_total, caches, dense_caches
+
+
+def forward_hidden(params, inp, cfg: ArchConfig):
+    """(B, S) tokens or (B, S, d) embeds -> final hidden states, aux."""
+    x, aux, _, _ = _run(params, inp, cfg, with_cache=False)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward(params, inp, cfg: ArchConfig):
+    """Full-sequence forward: (B, S) tokens or (B, S, d) embeds -> logits."""
+    h, aux = forward_hidden(params, inp, cfg)
+    return unembed(params, h, cfg), aux
+
+
+def prefill_step(params, inp, cfg: ArchConfig):
+    """Forward that also materialises the KV cache (serving prefill)."""
+    x, _, caches, dense_caches = _run(params, inp, cfg, with_cache=True)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params, h[:, -1:, :], cfg)
+    out = {"layers": _stack_cache(caches, cfg)}
+    if cfg.n_dense_layers:
+        out["dense_layers"] = dense_caches
+    return logits, out
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode path
+# ---------------------------------------------------------------------------
+
+def cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    """:class:`TensorSpec` tree of the decode cache (stacked over layers)."""
+    dtype = dtype_of(cfg)
+    n_scan = cfg.n_layers - cfg.n_dense_layers
+    if cfg.mla is not None:
+        per = mla_cache_shape(cfg, batch, seq, dtype)
+    else:
+        hd = cfg.resolved_head_dim
+        kv = TensorSpec((batch, seq, cfg.n_kv_heads, hd), dtype)
+        per = {"k": kv, "v": kv}
+
+    def stk(s: TensorSpec) -> TensorSpec:
+        if cfg.local_per_global:
+            group = cfg.local_per_global + 1
+            return TensorSpec((n_scan // group, group, *s.shape), s.dtype)
+        return TensorSpec((n_scan, *s.shape), s.dtype)
+    out = {"layers": tree_map(stk, per)}
+    if cfg.n_dense_layers:
+        out["dense_layers"] = [dict(per) for _ in range(cfg.n_dense_layers)]
+    return out
+
+
+def _attn_decode(p, x, cache, cfg: ArchConfig, *, window, out=None):
+    """x: (B, 1, d); cache k/v: (B, S, KV, hd).  Writes the new key and
+    value at slot S - 1, at position S - 1, into ``out`` (buffers holding
+    a copy of the cache) or a fresh copy."""
+    if cfg.mla is not None:
+        return mla_decode(p, x, cache, cfg, out=out)
+    b = x.shape[0]
+    sk = cache["k"].shape[1]
+    hd = cfg.resolved_head_dim
+    positions = torch.full((b, 1), sk - 1, dtype=torch.int32,
+                           device=x.device)
+    q = x @ p["w_q"]
+    k = x @ p["w_k"]
+    v = x @ p["w_v"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    q = rope(q.reshape(b, 1, cfg.n_heads, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(b, 1, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, 1, cfg.n_kv_heads, hd)
+    if out is None:
+        out = {"k": cache["k"].clone(), "v": cache["v"].clone()}
+    kc, vc = out["k"], out["v"]
+    kc[:, sk - 1:sk] = k
+    vc[:, sk - 1:sk] = v
+    o = decode_attention(q, kc, vc, window=window)
+    return o.reshape(b, 1, cfg.n_heads * hd) @ p["w_o"], {"k": kc, "v": vc}
+
+
+def _layer_decode(p, x, cache, cfg: ArchConfig, *, window, moe_layer,
+                  out=None):
+    a, cache = _attn_decode(p["attn"], rms_norm(x, p["ln_attn"],
+                                                cfg.norm_eps),
+                            cache, cfg, window=window, out=out)
+    h = x + a
+    y = rms_norm(h, p["ln_mlp"], cfg.norm_eps)
+    if moe_layer:
+        f, _ = moe_block(p["moe"], y, cfg.moe)
+    else:
+        f = _mlp(p["mlp"], y)
+    return h + f, cache
+
+
+def decode_step(params, cache, token, cfg: ArchConfig):
+    """One decode step: token (B, 1) (or (B, 1, d) embeds) -> logits, cache.
+
+    The input cache is left as it is: the stacked cache is copied once a
+    leaf, and each layer writes its new slot into its view of the copy."""
+    x = embed_input(params, token, cfg)
+    moe_layer = cfg.moe is not None
+    new_dense = []
+    for p, c in zip(params.get("dense_layers", []),
+                    cache.get("dense_layers", [])):
+        x, c2 = _layer_decode(p, x, c, cfg, window=None, moe_layer=False)
+        new_dense.append(c2)
+
+    new_cache = tree_map(lambda t: t.clone(), cache["layers"])
+    layers = _stacked(params, cfg)
+    flat = _flat_cache(new_cache, cfg)
+    for (lp, win), lc in zip(layers, unstack(flat, len(layers))):
+        x, _ = _layer_decode(lp, x, lc, cfg, window=win, moe_layer=moe_layer,
+                             out=lc)
+
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params, h, cfg)
+    out_cache = {"layers": new_cache}
+    if cfg.n_dense_layers:
+        out_cache["dense_layers"] = new_dense
+    return logits, out_cache

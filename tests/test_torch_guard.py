@@ -46,7 +46,23 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.serving.recovery",
                  "repro_torch.fft.distributed",
                  "repro_torch.runtime.elastic", "repro_torch.configs",
-                 "repro_torch.configs.fft_bench"):
+                 "repro_torch.configs.fft_bench", "repro_torch.configs.base",
+                 "repro_torch.configs.qwen2_0_5b",
+                 "repro_torch.configs.codeqwen1_5_7b",
+                 "repro_torch.configs.qwen1_5_4b",
+                 "repro_torch.configs.gemma3_12b",
+                 "repro_torch.configs.musicgen_medium",
+                 "repro_torch.configs.dbrx_132b",
+                 "repro_torch.configs.deepseek_v2_lite_16b",
+                 "repro_torch.configs.mamba2_370m",
+                 "repro_torch.configs.pixtral_12b",
+                 "repro_torch.configs.zamba2_1_2b", "repro_torch.models",
+                 "repro_torch.models.common", "repro_torch.models.attention",
+                 "repro_torch.models.mla", "repro_torch.models.moe",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.mamba2", "repro_torch.models.zamba2",
+                 "repro_torch.models.api", "repro_torch.models.convert",
+                 "repro_torch.launch", "repro_torch.launch.serve"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
