@@ -174,7 +174,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      to ``cache_shapes``; decode = forward for five of them, in float32
      and bf16; each family in float32 on the card and on the CPU with
      the same carried weights;
- 14. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 14. training on the card (``repro_torch.train``, ``repro_torch.optim``,
+     ``repro_torch.launch.train``; no kernel of the port lies on this
+     path, and its launch counts, set to 0 just before and read just
+     after, stay 0): qwen2-0.5b trained through ``launch.train.main`` at
+     full width and depth in bf16 (batch 8, seq 128, 30 steps, lr 1e-2,
+     a checkpoint every 10 steps, ``--dvfs-report``), its loss falling and
+     every loss and grad norm finite, with the step time (the driver's
+     synchronised walls; chained), tokens/s, the idle share and device
+     operations of one profiled step, peak memory, FLOP/s
+     (``FlopCounterMode``) against the bf16 peak, J/step from the energy
+     counter and the time to save a checkpoint; ``FaultTolerantDriver``
+     with injected failures on the card (each step once, replayed losses
+     equal to an uninterrupted run's); mamba2-370m at full width in bf16,
+     three steps with finite gradients and the largest masked ``_segsum``
+     difference (whether the reference would overflow there); reduced
+     qwen2 (3 steps), dbrx and mamba2 (1 step) in float32, card = CPU;
+     ``microbatches=2`` against 1 on the card;
+ 15. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -237,6 +254,7 @@ from repro_torch.kernels.spectrum import power_spectrum_stats_kernel  # noqa: E4
 from repro_torch.kernels.spectrum import spectrum_kernel as S  # noqa: E402
 from repro_torch.kernels.fft.ref import fft_ref, irfft_ref, rfft_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import (build_model,  # noqa: E402
                                 params_from_reference,
                                 params_to_reference)
@@ -247,6 +265,12 @@ from repro_torch.obs.metrics import latency_summary  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.power import FleetTelemetry, nvml  # noqa: E402
 from repro_torch.power.nvml import NvmlEnergySampler  # noqa: E402
+from repro_torch.models import mamba2 as mamba2_impl  # noqa: E402
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.runtime.fault import FaultTolerantDriver  # noqa: E402
+from repro_torch.data.synthetic import SyntheticTokens  # noqa: E402
+from repro_torch.train.step import (init_train_state,  # noqa: E402
+                                    make_train_step, map_state)
 from repro_torch.runtime.faults import (CRASH_PROCESS,  # noqa: E402
                                         FAIL_CLOCK_LOCK, FAIL_PLAN_BUILD,
                                         FAULT_KINDS, KILL_DEVICE,
@@ -558,6 +582,32 @@ ZOO_CPU = {"qwen2-0.5b": 2, "gemma3-12b": 6, "musicgen-medium": 2,
            "zamba2-1.2b": 6}
 ZOO_CPU_PROMPT = 32
 ZOO_CPU_RTOL = 1e-4
+#: Phase 14, training on the card (no kernel of the port on its path):
+#: qwen2-0.5b at full width and depth in bf16 through
+#: ``repro_torch.launch.train`` (the cosine schedule's warm-up is 100
+#: steps, so the lr runs from 0 at step 0 to 2.9e-3 at step 29).
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "128",
+              "--steps", "30", "--lr", "1e-2", "--ckpt-every", "10"]
+#: Steps timed back to back, and the steps each mean of the loss check
+#: takes at either end of the run.
+TRAIN_CHAINED = 20
+TRAIN_ENDS = 5
+#: The restart check: a reduced qwen2 (float32) for TRAIN_RESTART_STEPS,
+#: failing at the steps given, checkpointed every 5, against an
+#: uninterrupted run; replayed losses within the reference test's 1e-4.
+TRAIN_RESTART_STEPS = 20
+TRAIN_FAIL_AT = {7: 0, 13: 1}
+TRAIN_RESTART_RTOL = 1e-4
+#: mamba2-370m at full width in bf16: TRAIN_SSM_STEPS steps on (batch,
+#: seq) batches long enough for two of its 256-token chunks.
+TRAIN_SSM = (4, 512)
+TRAIN_SSM_STEPS = 3
+#: Card = CPU in float32 (TF32 off): steps of each reduced model, held
+#: within TRAIN_CPU_RTOL of the largest |value|; ``microbatches=2`` against
+#: 1 on the card within the reference test's tolerance.
+TRAIN_CPU = {"qwen2-0.5b": 3, "dbrx-132b": 1, "mamba2-370m": 1}
+TRAIN_CPU_RTOL = 1e-5
+TRAIN_MB_RTOL, TRAIN_MB_ATOL = 2e-2, 2e-3
 
 
 def reset_launches() -> None:
@@ -4219,6 +4269,298 @@ def phase13_zoo(gen: torch.Generator) -> dict[str, int]:
     return run
 
 
+def _train_batches(cfg, batch: int, seq: int, n: int, device="cuda"
+                   ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``launch.train``'s batches 0..n-1 (``SyntheticTokens``, seed 0)."""
+    ds = SyntheticTokens(cfg.vocab, seq, batch)
+    out = []
+    for i in range(n):
+        b = torch.from_numpy(ds.batch(i)).to(device=device, dtype=torch.long)
+        out.append((b[:, :-1], b[:, 1:]))
+    return out
+
+
+def _train_full(card: str) -> None:
+    """qwen2-0.5b trained through ``launch.train.main`` at full width and
+    depth in bf16: the loss falls, every loss and grad norm is finite; the
+    step's time (the driver's wall, synchronised each step; chained),
+    tokens/s, idle share and device operations of one profiled step, peak
+    memory, FLOP/s against the bf16 peak, J/step from the energy counter
+    and the time to save a checkpoint."""
+    ckpt_dir = tempfile.mkdtemp(prefix="phase14-")
+    try:
+        log: list = []
+        t0 = time.perf_counter()
+        state = train_launch.main(TRAIN_ARGS + ["--ckpt-dir", ckpt_dir,
+                                                "--dvfs-report"], log=log)
+        wall = time.perf_counter() - t0
+        losses = [float(m["loss"]) for m in log]
+        norms = [float(m["grad_norm"]) for m in log]
+        lrs = [float(m["lr"]) for m in log]
+        check(len(log) == 30 and all(map(math.isfinite, losses + norms)),
+              f"phase 14: losses {losses} grad norms {norms}")
+        first = statistics.fmean(losses[:TRAIN_ENDS])
+        last = statistics.fmean(losses[-TRAIN_ENDS:])
+        check(last < first, f"phase 14: the loss did not fall: mean of the "
+              f"first {TRAIN_ENDS} {first:.4f}, of the last {last:.4f}")
+        check(lrs[0] == 0.0 and abs(lrs[-1] - 2.9e-3) < 1e-9,
+              f"phase 14: lr {lrs[0]} at step 0, {lrs[-1]} at step 29")
+        steps_ms = [m["wall"] * 1e3 for m in log]
+        print(f"phase 14: train {' '.join(TRAIN_ARGS)} on {card}: 30 steps "
+              f"in {wall:.3f} s (init, first steps and 4 checkpoints "
+              f"included); loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean "
+              f"of the first {TRAIN_ENDS} {first:.4f}, of the last "
+              f"{last:.4f}); grad norm {norms[0]:.4f} -> {norms[-1]:.4f}; "
+              f"lr {lrs[0]:.2e} -> {lrs[-1]:.2e}")
+        print(f"phase 14: losses {[round(x, 4) for x in losses]}")
+        print(f"phase 14: step walls (ms, synchronised) "
+              f"{[round(x, 3) for x in steps_ms]}")
+
+        cfg = ZOO_ARCHS["qwen2-0.5b"]
+        model = build_model(cfg)
+        batch, seq = 8, 128
+        step = make_train_step(model, peak_lr=1e-2)
+        batches = _train_batches(cfg, batch, seq, TRAIN_CHAINED)
+        x, y = batches[0]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        chained = state
+        for bx, by in batches:
+            chained, metrics = step(chained, bx, by)
+        stop.record()
+        stop.synchronize()
+        chain_ms = start.elapsed_time(stop) / TRAIN_CHAINED
+        host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_CHAINED
+        check(math.isfinite(float(metrics["loss"])),
+              "phase 14: chained steps gave a non-finite loss")
+        del chained, metrics
+        med = statistics.median(steps_ms[-TRAIN_CHAINED:])
+        tokens = batch * seq
+        split = device_breakdown(lambda: step(state, x, y))
+        busy = sum(split.values())
+        ops = _device_ops(lambda: step(state, x, y))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(state, x, y)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        state_b = train_launch.state_bytes(state)
+        flops = train_launch.step_flops(step, state, x, y)
+        print(f"phase 14: qwen2-0.5b bf16 train step (batch {batch}, seq "
+              f"{seq}, {tokens} tokens): {med:.4f} ms median of the last "
+              f"{TRAIN_CHAINED} driver walls, {chain_ms:.4f} ms a step over "
+              f"{TRAIN_CHAINED} chained steps (host {host_ms:.4f} ms), "
+              f"{tokens / chain_ms * 1e3:.1f} tokens/s; device busy "
+              f"{busy:.4f} ms of one profiled step (idle share "
+              f"{max(0.0, 1 - busy / chain_ms):.3f} of the chained step), "
+              f"{ops} device operations")
+        print(f"phase 14: qwen2-0.5b train step memory: state {state_b} B "
+              f"({state_b / 1e9:.3f} GB), allocated before a step "
+              f"{before / 1e9:.3f} GB, peak {peak / 1e9:.3f} GB "
+              f"(max_memory_allocated)")
+        print(f"phase 14: qwen2-0.5b train step {flops:.4e} FLOP "
+              f"(FlopCounterMode), {flops / chain_ms / 1e9:.2f} TFLOP/s = "
+              f"{flops / chain_ms * 1e3 / BF16_FLOPS:.4f} of the bf16 peak "
+              f"(bound {flops / BF16_FLOPS * 1e3:.4f} ms); state read and "
+              f"written once {2 * state_b / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"at 3.35 TB/s")
+        handle = nvml.device_handle(torch.cuda.current_device())
+        row = _energy_run(handle, lambda inp: step(state, inp, y), x)
+        print(f"phase 14: qwen2-0.5b train step energy: {row['runs']} steps "
+              f"back to back, {row['ms']:.4f} ms each ({row['device_s']:.3f}"
+              f" s), counter {row['counter_w']:.2f} W, "
+              f"{row['counter_j'] / row['runs']:.4f} J/step, "
+              f"{row['counter_j'] / (row['runs'] * tokens):.4e} J/token; "
+              f"trace {row['trace_w']:.2f} W; SM clock {row['sm_mhz']:.0f} "
+              f"MHz ({row['sm_range'][0]}..{row['sm_range'][1]})")
+        save_dir = os.path.join(ckpt_dir, "timed")
+        t0 = time.perf_counter()
+        CheckpointManager(save_dir).save(30, state)
+        save_s = time.perf_counter() - t0
+        n_files = len(os.listdir(os.path.join(save_dir, "step_00000030")))
+        print(f"phase 14: checkpoint save of the train state: {save_s:.3f} "
+              f"s for {state_b / 1e9:.3f} GB in {n_files} files "
+              f"({state_b / save_s / 1e9:.3f} GB/s)")
+        del state
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _train_restart() -> None:
+    """``FaultTolerantDriver`` on the card with injected failures (reduced
+    qwen2, float32): each step appears once, and the replayed losses
+    equal the uninterrupted run's."""
+    cfg = ZOO_ARCHS["qwen2-0.5b"].reduced()
+    model = build_model(cfg)
+    step = make_train_step(model)
+    batches = _train_batches(cfg, 4, 16, TRAIN_RESTART_STEPS)
+    logs = []
+    with tempfile.TemporaryDirectory(prefix="phase14-") as tmp:
+        for label, fail_at in (("failing", dict(TRAIN_FAIL_AT)),
+                               ("uninterrupted", None)):
+            state = init_train_state(
+                model, torch.Generator(device="cuda").manual_seed(SEED))
+            driver = FaultTolerantDriver(
+                step, state, lambda i: batches[i],
+                CheckpointManager(os.path.join(tmp, label)), ckpt_every=5,
+                fail_at=fail_at)
+            final, log, restarts = driver.run(TRAIN_RESTART_STEPS)
+            logs.append((log, restarts, int(final.step)))
+    (log1, restarts, final_step), (log2, _, _) = logs
+    check([m["step"] for m in log1] == list(range(TRAIN_RESTART_STEPS))
+          and restarts == len(TRAIN_FAIL_AT)
+          and final_step == TRAIN_RESTART_STEPS,
+          f"phase 14: restart steps {[m['step'] for m in log1]}, "
+          f"{restarts} restarts, final step {final_step}")
+    l1 = np.array([float(m["loss"]) for m in log1])
+    l2 = np.array([float(m["loss"]) for m in log2])
+    rel = float(np.abs(l1 - l2).max() / np.abs(l2).max())
+    check(rel <= TRAIN_RESTART_RTOL, f"phase 14: replayed losses differ "
+          f"from the uninterrupted run's by {rel:.3e}")
+    print(f"phase 14: restart on the card (reduced qwen2, failures at "
+          f"steps {sorted(TRAIN_FAIL_AT)}): {restarts} restarts, every step "
+          f"once; replayed losses against the uninterrupted run's: max "
+          f"|diff| {np.abs(l1 - l2).max():.3e} ({int((l1 == l2).sum())} of "
+          f"{len(l1)} equal bits)")
+
+
+def _train_ssm() -> None:
+    """mamba2-370m at full width in bf16: TRAIN_SSM_STEPS steps with
+    finite losses and gradients (a NaN or inf gradient anywhere makes the
+    global norm non-finite); the largest masked difference ``_segsum``
+    sees in the first step says whether the reference, which runs ``exp``
+    before the mask, would overflow there (above log(float32 max) ~ 88.7)
+    and give NaN gradients."""
+    cfg = ZOO_ARCHS["mamba2-370m"]
+    model = build_model(cfg)
+    state = init_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(SEED))
+    step = make_train_step(model)
+    batch, seq = TRAIN_SSM
+    batches = _train_batches(cfg, batch, seq, TRAIN_SSM_STEPS)
+    seen: list[float] = []
+    segsum = mamba2_impl._segsum
+
+    def spy(dacum):
+        diff = dacum[..., :, None] - dacum[..., None, :]
+        q = dacum.shape[-1]
+        upper = torch.ones(q, q, dtype=torch.bool, device=dacum.device).triu(1)
+        seen.append(float(diff.detach().masked_select(upper).max()))
+        return segsum(dacum)
+
+    rows = []
+    for i, (x, y) in enumerate(batches):
+        mamba2_impl._segsum = spy if i == 0 else segsum
+        try:
+            state, metrics = step(state, x, y)
+        finally:
+            mamba2_impl._segsum = segsum
+        rows.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    check(all(math.isfinite(v) for row in rows for v in row),
+          f"phase 14: mamba2-370m (loss, grad norm) {rows}")
+    top = max(seen)
+    limit = math.log(torch.finfo(torch.float32).max)
+    print(f"phase 14: mamba2-370m bf16 at full width, batch {batch}, seq "
+          f"{seq} (chunk {cfg.ssm.chunk}): {TRAIN_SSM_STEPS} steps, (loss, "
+          f"grad norm) {[(round(a, 4), round(b, 4)) for a, b in rows]}, "
+          f"every gradient finite; the largest masked _segsum difference "
+          f"in step 0 is {top:.4f} (exp overflows float32 above {limit:.4f}:"
+          f" the reference's gradient {'would be NaN' if top > limit else 'stays finite'}"
+          f" here)")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _train_card_vs_cpu() -> None:
+    """Reduced float32 models trained on the card (TF32 off) and on the
+    CPU from one initial state on the same batches: loss, grad norm,
+    parameters and moments within TRAIN_CPU_RTOL; then ``microbatches=2``
+    against 1 on the card."""
+    for name, n_steps in TRAIN_CPU.items():
+        cfg = ZOO_ARCHS[name].reduced()
+        model = build_model(cfg)
+        cpu = init_train_state(model, torch.Generator().manual_seed(SEED),
+                               "cpu")
+        card = map_state(lambda t: tree_map(lambda a: a.to("cuda"), t), cpu)
+        step = make_train_step(model)
+        batches = _train_batches(cfg, 2, 16, n_steps, "cpu")
+        worst = 0.0
+        with _no_tf32():
+            for x, y in batches:
+                card, mc = step(card, x.cuda(), y.cuda())
+                cpu, mh = step(cpu, x, y)
+                for key in ("loss", "grad_norm"):
+                    worst = max(worst, rel_err(mc[key].cpu()[None],
+                                               mh[key][None])[1])
+        # Parameters against the tree's largest |value|: Adam scales each
+        # element's step to about lr whatever its gradient, so where the
+        # gradient is 0 in exact arithmetic (a key bias: softmax ignores a
+        # shift common to every key) rounding noise alone sets the sign of
+        # a step the size of lr, on each device its own.
+        trees = {}
+        for part in ("params", "m", "v"):
+            got, want = ((st.params if part == "params"
+                          else getattr(st.opt, part)) for st in (card, cpu))
+            top = max(b.abs().max().item() for b in tree_leaves(want))
+            diff = max((a.cpu() - b).abs().max().item()
+                       for a, b in zip(tree_leaves(got), tree_leaves(want)))
+            trees[part] = diff / top
+        check(max(worst, *trees.values()) <= TRAIN_CPU_RTOL,
+              f"phase 14: {name} card vs CPU: metrics {worst:.3e}, trees "
+              f"{trees}")
+        print(f"phase 14: {name} reduced float32, train steps {n_steps}, "
+              f"card = CPU: loss and grad norm each step within "
+              f"{worst:.3e}; parameters, m and v within "
+              f"{trees['params']:.3e}, {trees['m']:.3e}, {trees['v']:.3e} "
+              f"of each tree's largest |value|")
+    cfg = ZOO_ARCHS["qwen2-0.5b"].reduced()
+    model = build_model(cfg)
+    start = init_train_state(model,
+                             torch.Generator(device="cuda").manual_seed(SEED))
+    (x, y), = _train_batches(cfg, 4, 16, 1)
+    with _no_tf32():
+        one, m1 = make_train_step(model)(start, x, y)
+        two, m2 = make_train_step(model, microbatches=2)(start, x, y)
+    worst = max(float((a - b).abs().max() - TRAIN_MB_ATOL
+                      - TRAIN_MB_RTOL * b.abs().max())
+                for a, b in zip(tree_leaves(two.opt.m), tree_leaves(one.opt.m)))
+    loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / float(m1["loss"])
+    check(worst <= 0 and loss_rel <= 1e-3, f"phase 14: microbatches=2 vs 1:"
+          f" loss {loss_rel:.3e}, moments over tolerance by {worst:.3e}")
+    print(f"phase 14: microbatches=2 against 1 on the card (reduced qwen2, "
+          f"batch 4): loss rel {loss_rel:.3e}, first moments within "
+          f"rtol={TRAIN_MB_RTOL}, atol={TRAIN_MB_ATOL}")
+
+
+def phase14_train(gen: torch.Generator) -> dict[str, int]:
+    """Training on the card: qwen2-0.5b through ``launch.train`` at full
+    width and depth in bf16; restart with injected failures; mamba2-370m
+    at full width; card = CPU.  No kernel of the port lies on this path:
+    its launch counts, set to 0 just before and read just after, stay 0.
+    (``gen`` is unused: every draw here comes from a seeded generator of
+    its own, as ``launch.train`` draws.)"""
+    t0 = time.perf_counter()
+    card = _card()
+    reset_launches()
+    _train_full(card)
+    _train_restart()
+    _train_ssm()
+    _train_card_vs_cpu()
+    torch.cuda.synchronize()
+    run = launch_counts()
+    check(not any(run.values()), f"phase 14: the port's kernels launched "
+          f"{run}")
+    print(f"phase 14: launches of the port's kernels "
+          f"{ {k: v for k, v in run.items() if v} }; wall time "
+          f"{time.perf_counter() - t0:.2f} s")
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -4237,7 +4579,7 @@ def main() -> int:
     launches = phase4_main_path(gen)
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
                   phase9_energy, phase10_tune, phase11_robust,
-                  phase12_distributed, phase13_zoo):
+                  phase12_distributed, phase13_zoo, phase14_train):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

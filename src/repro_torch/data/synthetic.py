@@ -1,7 +1,13 @@
-"""Deterministic synthetic pulsar filterbanks (a numpy copy of the
-filterbank half of ``repro.data.synthetic``).
+"""Deterministic synthetic data: token streams and pulsar filterbanks (a
+numpy copy of ``repro.data.synthetic``).
 
-The radio-astronomy front half of the real-time pipeline the paper's
+Token stream — a seeded, stateless batch generator: batch ``i`` is a pure
+function of (seed, i, host), so any host can regenerate any shard and a
+restart from a checkpoint needs no data-loader state.  The "text" is a
+mixture of Zipf-distributed unigrams and short repeated motifs, enough
+signal for loss-goes-down checks.
+
+Filterbank — the radio-astronomy front half of the real-time pipeline the paper's
 Sec. 5 targets: (nchan, ntime) dynamic spectra whose injected pulsars
 arrive with the cold-plasma dispersion delay
 
@@ -10,8 +16,7 @@ arrive with the cold-plasma dispersion delay
 rounded to integer samples.  Injection uses exactly the rounded delays a
 :class:`repro_torch.search.pipeline.DispersionPlan` trial computes, so a
 pulsar injected at a trial DM dedisperses back into perfect channel
-alignment.  The output is bit-identical to the reference's for a seed.
-The token streams of the reference module arrive with the model zoo.
+alignment.  Every output is bit-identical to the reference's for a seed.
 """
 from __future__ import annotations
 
@@ -21,6 +26,31 @@ import numpy as np
 
 #: Cold-plasma dispersion constant, s * MHz^2 * (pc cm^-3)^-1.
 K_DM = 4.148808e3
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticTokens:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+    def batch(self, index: int, *, host_id: int = 0, n_hosts: int = 1
+              ) -> np.ndarray:
+        """Host-sharded batch ``index`` -> (global_batch/n_hosts, seq+1)."""
+        per_host = self.global_batch // n_hosts
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, index, host_id]))
+        # Zipf unigrams clipped to vocab
+        base = rng.zipf(1.3, size=(per_host, self.seq_len + 1))
+        toks = np.minimum(base - 1, self.vocab - 1).astype(np.int32)
+        # motif: every sequence repeats a short pattern (learnable signal)
+        motif_len = 8
+        motif = rng.integers(0, self.vocab, size=(per_host, motif_len))
+        reps = (self.seq_len + 1 + motif_len - 1) // motif_len
+        tiled = np.tile(motif, (1, reps))[:, : self.seq_len + 1]
+        mask = rng.random((per_host, self.seq_len + 1)) < 0.5
+        return np.where(mask, tiled, toks).astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +150,13 @@ def synthetic_filterbank(
         x += p.amp * np.cos(2 * np.pi * (p.k0 * s + 0.5 * p.z * s * s)
                             + p.phase)
     return x.astype(np.float32)
+
+
+def synthetic_batches(vocab: int, seq_len: int, global_batch: int,
+                      n_steps: int, *, seed: int = 0, host_id: int = 0,
+                      n_hosts: int = 1):
+    """Generator of (inputs, labels) numpy pairs."""
+    ds = SyntheticTokens(vocab, seq_len, global_batch, seed)
+    for i in range(n_steps):
+        b = ds.batch(i, host_id=host_id, n_hosts=n_hosts)
+        yield b[:, :-1], b[:, 1:]

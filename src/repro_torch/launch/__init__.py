@@ -1,3 +1,3 @@
-"""Launch package (the counterpart of ``repro.launch``): the serve
-driver.  The reference's train driver, production mesh and dry-run come
-with later slices."""
+"""Launch package (the counterpart of ``repro.launch``): the serve and
+train drivers.  The reference's production mesh and dry-run come with a
+later slice."""

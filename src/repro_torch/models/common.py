@@ -9,7 +9,8 @@ sharding is installed, so the forward paths simply drop it.
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` that mirrors the
 reference's parameter pytree: a dict becomes a ``ParamTree``, a list an
 ``nn.ModuleList``, an array an ``nn.Parameter`` (``requires_grad=False``:
-this slice serves; training comes later).  So ``state_dict()`` keys are
+serving records no graph; ``repro_torch.train.step`` makes its own
+gradient leaves from the nested dict).  So ``state_dict()`` keys are
 the reference tree's paths joined by ``.`` (``layers.attn.w_q``,
 ``dense_layers.0.mlp.w_gate``), and the forward code indexes a
 ``ParamTree`` and a plain nested dict of tensors alike.
@@ -21,6 +22,8 @@ from typing import Any, Callable
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -142,6 +145,41 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None
             ).to(dtype)
 
 
+def remat(fn: Callable, *args):
+    """``fn(*args)``, rematerialised in backward: the reference's
+    ``jax.checkpoint(policy=nothing_saveable)``.  Where autograd records
+    (``torch.is_grad_enabled()``), ``fn`` runs under
+    ``torch.utils.checkpoint``, which keeps none of its activations and
+    runs it again when backward needs them; elsewhere (serving under
+    ``inference_mode``) it is a plain call.  The values are the same bits
+    either way."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+class _MatmulBf16F32(torch.autograd.Function):
+    """(M, K) @ (K, N) of bf16 operands with a float32 result (cuBLAS's
+    ``out_dtype``), whose backward ``torch.mm`` lacks: the float32
+    cotangent is rounded to bf16 and each gradient is a bf16 product with
+    float32 accumulation (the reference forms it in float32 and rounds
+    once)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b.t() if ctx.needs_input_grad[0] else None
+        gb = a.t() @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (a: (..., K), b: (K, N)) with a float32 result: the
     reference's ``preferred_element_type=jnp.float32``.
@@ -155,7 +193,7 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a @ b
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         flat = a.reshape(-1, a.shape[-1])
-        return torch.mm(flat, b, out_dtype=torch.float32).reshape(
+        return _MatmulBf16F32.apply(flat, b).reshape(
             *a.shape[:-1], b.shape[-1])
     return a.float() @ b.float()
 
@@ -173,18 +211,25 @@ def chunked_cross_entropy(unembed_fn: Callable, hidden: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int = 512
                           ) -> torch.Tensor:
     """CE without materialising the full (B, S, V) logits: the unembed
-    and softmax run per sequence chunk, so the transient is (B, chunk, V).
-    (The reference rematerialises each chunk under ``jax.checkpoint``;
-    the gradient path comes with the training slice.)"""
+    and softmax run per sequence chunk, each rematerialised in backward
+    (:func:`remat`, as the reference's ``jax.checkpoint``), so the
+    transient is one (B, chunk, V) chunk."""
     b, s = labels.shape
     c = min(chunk, s)
     while s % c:
         c //= 2
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for start in range(0, s, c):
-        logits = unembed_fn(hidden[:, start:start + c]).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        lc = labels[:, start:start + c]
-        gold = torch.take_along_dim(logits, lc[..., None], dim=-1)[..., 0]
-        total = total + (logz - gold).sum()
+        total = total + remat(_chunk_ce, unembed_fn,
+                              hidden[:, start:start + c],
+                              labels[:, start:start + c])
     return total / (b * s)
+
+
+def _chunk_ce(unembed_fn: Callable, h: torch.Tensor, labels: torch.Tensor
+              ) -> torch.Tensor:
+    """Summed token cross-entropy of one chunk."""
+    logits = unembed_fn(h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    return (logz - gold).sum()

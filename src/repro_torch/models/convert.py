@@ -37,16 +37,22 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def tensors_from_reference(tree, device=None):
+    """A reference pytree of arrays (nested dicts and lists) as the same
+    tree of tensors on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _to_tensor(a, device), tree)
+
+
 def params_from_reference(tree, cfg: ArchConfig, device=None
                           ) -> LanguageModel:
     """The reference's parameter pytree as the port's family module on
     ``device`` (the card unless the caller asks for the CPU)."""
-    device = resolve_device(device)
-    return language_model(tree_map(lambda a: _to_tensor(a, device), tree),
-                          cfg)
+    return language_model(tensors_from_reference(tree, device), cfg)
 
 
-def params_to_reference(params) -> dict:
-    """A family module (or nested dict of tensors) as the reference's
-    pytree of numpy arrays."""
+def params_to_reference(params):
+    """A family module (or any nested dict and list of tensors) as the
+    reference's pytree of numpy arrays."""
     return tree_map(_to_numpy, params)

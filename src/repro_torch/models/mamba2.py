@@ -20,8 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (TensorSpec, dense_init, dtype_of,
-                                       matmul_f32, rms_norm, stack, tree_map,
-                                       unstack)
+                                       matmul_f32, remat, rms_norm, stack,
+                                       tree_map, unstack)
 
 
 def _dims(cfg: ArchConfig):
@@ -65,13 +65,15 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 def _segsum(dacum: torch.Tensor) -> torch.Tensor:
     """L[l, s] = exp(dacum[l] - dacum[s]) masked to l >= s; (..., Q).
 
-    As in the reference, ``exp`` runs before the mask, so masked entries
-    may be inf; ``torch.where`` drops them here (the training slice must
-    keep them out of the gradient)."""
+    The difference is masked to -inf before the ``exp``, so a masked entry
+    is exactly 0 and its gradient 0.  The reference masks after the
+    ``exp``: where a chunk's decay exceeds about 88 in log, a masked entry
+    is inf there and its gradient 0 * inf = NaN.  The forward values are
+    the same bits either way."""
     q = dacum.shape[-1]
     diff = dacum[..., :, None] - dacum[..., None, :]
     mask = torch.tril(torch.ones(q, q, dtype=torch.bool, device=dacum.device))
-    return torch.where(mask, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(mask, diff, -torch.inf))
 
 
 def _ssd_chunked(xs, dt, bmat, cmat, a_log, chunk: int):
@@ -209,9 +211,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 def forward_hidden(params, tokens, cfg: ArchConfig):
+    """Final hidden states; each layer rematerialised in backward."""
     x = params["embed"][tokens]
     for lp in unstack(params["layers"], cfg.n_layers):
-        x = mamba_block(lp, x, cfg)
+        x = remat(mamba_block, lp, x, cfg)
     return (rms_norm(x, params["final_norm"], cfg.norm_eps),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

@@ -10,7 +10,9 @@ reference's parameter layout:
   * gemma3's 5:1 local:global pattern stacks layers as (groups, 6, ...),
     the 6-layer pattern unrolled within a group;
   * deepseek's first dense layer is kept outside the MoE stack.
-Remat (``jax.checkpoint``) comes with the training slice.
+Where autograd records, each stacked layer (gemma3: each 5:1 group) is
+rematerialised in backward, as the reference's ``jax.checkpoint`` scan
+bodies are; the dense layers are not, as in the reference.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import (TensorSpec, dense_init, dtype_of,
-                                       matmul_f32, rms_norm, rope, stack,
-                                       tree_map, unstack)
+                                       matmul_f32, remat, rms_norm, rope,
+                                       stack, tree_map, unstack)
 from repro_torch.models.mla import (init_mla, mla_attention, mla_cache_shape,
                                     mla_decode)
 from repro_torch.models.moe import init_moe, moe_block
@@ -206,11 +208,25 @@ def _run(params, inp, cfg: ArchConfig, *, with_cache: bool):
                                   moe_layer=False, with_cache=with_cache)
         dense_caches.append(kv)
     caches = []
-    for lp, win in _stacked(params, cfg):
-        x, a, kv = _layer_forward(lp, x, positions, cfg, window=win,
-                                  moe_layer=moe_layer, with_cache=with_cache)
-        aux_total = aux_total + a
-        caches.append(kv)
+    stacked = _stacked(params, cfg)
+    if with_cache:
+        for lp, win in stacked:
+            x, a, kv = _layer_forward(lp, x, positions, cfg, window=win,
+                                      moe_layer=moe_layer, with_cache=True)
+            aux_total = aux_total + a
+            caches.append(kv)
+        return x, aux_total, caches, dense_caches
+
+    def body(layers, h, aux):
+        for lp, win in layers:
+            h, a, _ = _layer_forward(lp, h, positions, cfg, window=win,
+                                     moe_layer=moe_layer)
+            aux = aux + a
+        return h, aux
+
+    group = cfg.local_per_global + 1 if cfg.local_per_global else 1
+    for i in range(0, len(stacked), group):
+        x, aux_total = remat(body, stacked[i:i + group], x, aux_total)
     return x, aux_total, caches, dense_caches
 
 

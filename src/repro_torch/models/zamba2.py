@@ -9,7 +9,9 @@ embedding).
 Layout: n_layers = head + n_sites * every (38 = 2 + 6 * 6).  The head
 layers run first; then each site runs ``every`` mamba layers and the
 shared block.  Each site keeps its own KV cache, stacked as
-(n_sites, B, S, KV, hd).
+(n_sites, B, S, KV, hd).  Where autograd records, each site (its mamba
+layers and the shared block) is rematerialised in backward, as the
+reference's ``jax.checkpoint`` scan body is; the head layers are not.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import (TensorSpec, dense_init, dtype_of,
-                                       matmul_f32, rms_norm, rope, stack,
-                                       tree_map, unstack)
+                                       matmul_f32, remat, rms_norm, rope,
+                                       stack, tree_map, unstack)
 from repro_torch.models.mamba2 import (init_mamba_block, mamba_block,
                                        mamba_cache_shapes, mamba_decode)
 
@@ -108,18 +110,23 @@ def _run(params, tokens, cfg: ArchConfig, *, with_cache: bool):
         caches.append({"conv": conv_tail, "state": state})
         return h
 
+    def site(blocks, proj, h, mcs):
+        for blk in blocks:
+            h = block(blk, h, mcs)
+        q, k, v = _qkv(sp, h, emb0, positions, cfg)
+        return _shared_out(sp, proj, h, attention(q, k, v), cfg), k, v
+
     for blk in params["head_layers"]:
         x = block(blk, x, head_caches)
     for blocks, proj in _sites(params, cfg):
+        if not with_cache:
+            x = remat(site, blocks, proj, x, None)[0]
+            continue
         mcs: list = []
-        for blk in blocks:
-            x = block(blk, x, mcs)
-        q, k, v = _qkv(sp, x, emb0, positions, cfg)
-        x = _shared_out(sp, proj, x, attention(q, k, v), cfg)
-        if with_cache:
-            site_mc.append(stack(mcs))
-            ks.append(k)
-            vs.append(v)
+        x, k, v = site(blocks, proj, x, mcs)
+        site_mc.append(stack(mcs))
+        ks.append(k)
+        vs.append(v)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache = None
     if with_cache:

@@ -8,7 +8,15 @@ Tolerances: logits and caches within 1e-4 of the reference's largest
 ``test_torch_models_*.py`` subclass :class:`ArchParity` with a
 module-scoped ``arch`` fixture (:func:`load_arch`) over their
 architectures, so that ``--dist loadfile`` spreads them over the
-workers."""
+workers.
+
+Training (``test_torch_train_*.py``, :class:`TrainParity`): the loss
+within 1e-5 of the reference's, each gradient leaf within 1e-4 of its
+largest |value| (``jax.value_and_grad`` of the reference's loss), the
+moments after one step within 1e-4, the parameters after two steps
+within the reference's own ``rtol=2e-2, atol=2e-3``
+(``tests/test_runtime.py``); the reference's run is made once an
+architecture in a process (:attr:`Arch.ref_train`)."""
 import dataclasses
 import functools
 import os
@@ -16,24 +24,37 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import ARCHS as REF_ARCHS
 from repro.models import build_model as ref_build
+from repro.models.common import chunked_cross_entropy as ref_chunked_ce
+from repro.optim.adamw import adamw_init as ref_adamw_init
 from repro.runtime.checkpoint import CheckpointManager as RefCheckpoints
+from repro.train.step import TrainState as RefTrainState
+from repro.train.step import make_train_step as ref_make_train_step
 from repro_torch.configs import ARCHS
 from repro_torch.launch.serve import grow_cache
 from repro_torch.models import (build_model, params_from_reference,
                                 params_to_reference)
 from repro_torch.models.api import family_module
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.runtime.checkpoint import (CheckpointManager,
                                             _flatten_with_paths)
+from repro_torch.train.step import (loss_fn, make_train_step,
+                                    state_from_reference, state_to_reference)
 
 BATCH, SEQ = 2, 32
 #: Decode = forward: prefill DEC_SEQ - 1 tokens, decode the last one.
 DEC_SEQ = 16
 RTOL = 1e-4
 AUX_ATOL = 1e-5
+#: Training: batch, sequence, the train step's aux weight, tolerances.
+TRAIN_BATCH, TRAIN_SEQ = 2, 16
+AUX_WEIGHT = 0.01
+LOSS_RTOL = 1e-5
+STEP_RTOL, STEP_ATOL = 2e-2, 2e-3
 
 
 class Arch:
@@ -57,6 +78,59 @@ class Arch:
                 (batch, seq, self.cfg.d_model)).astype(np.float32)
         return rng.integers(0, self.cfg.vocab, (batch, seq))
 
+    def train_batch(self, seed: int = 11, batch: int = TRAIN_BATCH):
+        """(inputs, labels) of one training batch."""
+        labels = np.random.default_rng(seed + 1).integers(
+            0, self.cfg.vocab, (batch, TRAIN_SEQ))
+        return self.inputs(seed, batch, TRAIN_SEQ), labels
+
+    def ref_state(self):
+        """The reference's initial train state on its parameters."""
+        return RefTrainState(params=self.ref_params,
+                             opt=ref_adamw_init(self.ref_params),
+                             step=jnp.zeros((), jnp.int32))
+
+    @functools.cached_property
+    def ref_train(self) -> dict:
+        """The reference's loss and gradients on :meth:`train_batch`, and
+        the states and metrics after one and two train steps."""
+        inp, labels = (jnp.asarray(a) for a in self.train_batch())
+
+        def ref_loss(params):
+            hidden, aux = self.ref.forward_hidden(params, inp)
+            ce = ref_chunked_ce(lambda h: self.ref.unembed(params, h),
+                                hidden, labels)
+            return ce + AUX_WEIGHT * aux
+
+        loss, grads = jax.jit(jax.value_and_grad(ref_loss))(self.ref_params)
+        step = jax.jit(ref_make_train_step(self.ref))
+        s1, m1 = step(self.ref_state(), inp, labels)
+        s2, m2 = step(s1, inp, labels)
+        return {"loss": loss, "grads": grads, "s1": s1, "m1": m1, "s2": s2,
+                "m2": m2}
+
+    def port_state(self):
+        """The reference's initial train state carried to the CPU."""
+        return state_from_reference(jax.tree.map(np.asarray,
+                                                 self.ref_state()), "cpu")
+
+    def port_batch(self, seed: int = 11, batch: int = TRAIN_BATCH):
+        return tuple(torch.from_numpy(a) for a in self.train_batch(seed,
+                                                                   batch))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one CPU thread for a module's tests: the reduced models'
+    ops are small, and the suite runs several workers on the cores, so
+    torch's own thread pool only makes their threads contend (on an
+    8-core CPU under six workers a 30-step training loop took 74.5 s,
+    against 0.85 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 @functools.cache
 def load_arch(name: str) -> Arch:
@@ -77,8 +151,9 @@ def ref_paths(tree) -> list[str]:
     """The reference pytree's leaf paths, joined by ``/``."""
     out = []
     for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        out.append("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                            for k in path))
+        out.append("/".join(
+            str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", k))))
+            for k in path))
     return out
 
 
@@ -224,3 +299,83 @@ class ArchParity:
         for a, b in zip(jax.tree.leaves(back),
                         jax.tree.leaves(arch.np_params)):
             np.testing.assert_array_equal(np.asarray(a), b)
+
+
+
+def flat(tree) -> list[np.ndarray]:
+    """A port tree's leaves (tensors or numpy arrays) as numpy arrays, in
+    the reference's flatten order."""
+    return [t.detach().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t) for _, t in _flatten_with_paths(tree)]
+
+
+def close_or_zero(got, want, rel: float = RTOL) -> None:
+    """:func:`close`, or both all zero (a leaf the loss does not reach)."""
+    if np.abs(np.asarray(want)).max() == 0:
+        np.testing.assert_array_equal(got, 0)
+    else:
+        close(got, want, rel)
+
+
+class TrainParity:
+    """The training checks, run for the ``arch`` fixture (an
+    :class:`Arch`)."""
+
+    def test_loss_and_gradients_match_the_reference(self, arch):
+        want = arch.ref_train
+        leaves = tree_map(lambda t: t.detach().requires_grad_(),
+                          arch.port_state().params)
+        loss = loss_fn(arch.model, leaves, *arch.port_batch(),
+                       aux_weight=AUX_WEIGHT)
+        params = tree_leaves(leaves)
+        grads = iter(torch.autograd.grad(loss, params, allow_unused=True))
+        grads = tree_map(lambda p: next(grads), leaves)
+        loss = loss.detach()
+        assert abs(float(loss) - float(want["loss"])) <= (
+            LOSS_RTOL * abs(float(want["loss"])))
+        got = flat(tree_map(lambda g: 0.0 if g is None else g, grads))
+        assert len(got) == len(jax.tree.leaves(want["grads"]))
+        for g, w in zip(got, jax.tree.leaves(want["grads"])):
+            close_or_zero(g, w)
+
+    def test_first_step_moments_match_and_params_stay(self, arch):
+        """At step 0 the schedule's lr is 0: the parameters are unchanged
+        and the moments hold the clipped gradient."""
+        want = arch.ref_train
+        state, metrics = make_train_step(arch.model)(arch.port_state(),
+                                                     *arch.port_batch())
+        assert int(state.step) == int(state.opt.step) == 1
+        assert float(metrics["lr"]) == 0.0
+        for a, b in zip(flat(state.params), jax.tree.leaves(arch.np_params)):
+            np.testing.assert_array_equal(a, b)
+        for moment in ("m", "v"):
+            for g, w in zip(flat(getattr(state.opt, moment)),
+                            jax.tree.leaves(getattr(want["s1"].opt,
+                                                    moment))):
+                close_or_zero(g, w)
+        close(metrics["grad_norm"], want["m1"]["grad_norm"])
+        close(metrics["loss"], want["m1"]["loss"], LOSS_RTOL)
+
+    def test_two_steps_match_the_reference(self, arch):
+        want = arch.ref_train
+        step = make_train_step(arch.model)
+        inp, labels = arch.port_batch()
+        state, _ = step(arch.port_state(), inp, labels)
+        state, metrics = step(state, inp, labels)
+        for key in ("loss", "grad_norm", "lr"):
+            close(metrics[key], want["m2"][key])
+        for got, ref in ((state.params, want["s2"].params),
+                         (state.opt.m, want["s2"].opt.m),
+                         (state.opt.v, want["s2"].opt.v)):
+            for a, b in zip(flat(got), jax.tree.leaves(ref)):
+                np.testing.assert_allclose(a, np.asarray(b),
+                                           rtol=STEP_RTOL, atol=STEP_ATOL)
+        assert int(state.step) == int(want["s2"].step) == 2
+
+    def test_state_round_trip_is_bit_identical(self, arch):
+        ref = jax.tree.map(np.asarray, arch.ref_train["s1"])
+        back = state_to_reference(state_from_reference(ref, "cpu"))
+        assert [p for p, _ in _flatten_with_paths(back)] == ref_paths(ref)
+        for a, b in zip(flat(back), jax.tree.leaves(ref)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)

@@ -1,5 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` imports JAX or the
-JAX reference package ``repro``."""
+"""The port stands alone: no module of ``repro_torch`` imports JAX, the
+JAX reference package ``repro`` or ``ml_dtypes`` (which the card's
+machine lacks; ``models.convert`` imports it inside the one function that
+hands bf16 arrays back to the reference)."""
 import ast
 import os
 import pkgutil
@@ -62,14 +64,19 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.models.transformer",
                  "repro_torch.models.mamba2", "repro_torch.models.zamba2",
                  "repro_torch.models.api", "repro_torch.models.convert",
-                 "repro_torch.launch", "repro_torch.launch.serve"):
+                 "repro_torch.launch", "repro_torch.launch.serve",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.schedule", "repro_torch.train",
+                 "repro_torch.train.step", "repro_torch.launch.train",
+                 "repro_torch.data"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'ml_dtypes'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -98,3 +105,11 @@ def test_no_source_file_names_jax_or_repro_in_an_import():
         for path in files for name in _imported_names(path)
         if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not offending, offending
+
+
+def test_only_the_reference_hand_back_names_ml_dtypes():
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
+             for f in fs if f.endswith(".py")]
+    naming = sorted(os.path.relpath(path, PKG) for path in files
+                    if "ml_dtypes" in _imported_names(path))
+    assert naming == [os.path.join("models", "convert.py")], naming
