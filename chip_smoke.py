@@ -191,7 +191,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      difference (whether the reference would overflow there); reduced
      qwen2 (3 steps), dbrx and mamba2 (1 step) in float32, card = CPU;
      ``microbatches=2`` against 1 on the card;
- 15. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 15. the dry run against the card (``repro_torch.launch.dryrun``,
+     ``launch.fft_dryrun``, ``analysis``): (a) on the host, qwen2-0.5b
+     ``train_4k`` and ``decode_32k`` and the ``fft_bench`` pencil on the
+     (32, 8) and (2, 32, 8) meta meshes, each artifact's FLOPs, bytes,
+     collectives by kind and axis, fits flag and time, its roofline row
+     and DVFS plan on the roofline's H100 record; (b) one data replica's
+     share of qwen2-0.5b ``train_4k`` on the (32, 8) mesh (8 x 4096
+     tokens) as a bf16 train step on the card: ``FlopCounterMode``'s count
+     on the card equal to the dry run's meta count, the step's median
+     time and the bf16 peak share of its model FLOPs, the card's peak
+     memory beside the dry run's argument bytes on a 1x1 mesh; (c) the
+     pencil on 8 ``model`` slots of the card at batch 8 (counts set to 0
+     just before, read just after): within PLAN_RTOL of ``torch.fft``,
+     each shard launching ``fft_c2c_axis1`` and ``fft_c2c``, the mesh's
+     collective bytes equal to the fft dry run's at the same batch;
+ 16. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -230,7 +245,8 @@ from repro_torch.fft import multidim  # noqa: E402
 from repro_torch.fft import pipeline as demo  # noqa: E402
 from repro_torch.fft.convolve import (device_filter_spectra,  # noqa: E402
                                       select_nfft)
-from repro_torch.fft.distributed import (assemble_rfft_pencil,  # noqa: E402
+from repro_torch.fft.distributed import (Mesh,  # noqa: E402
+                                         assemble_rfft_pencil,
                                          batch_parallel_fft, make_mesh,
                                          pencil_collective_bytes,
                                          pencil_exchange_bytes, pencil_fft,
@@ -253,6 +269,11 @@ from repro_torch.kernels.harmonic_sum.ops import K as H  # noqa: E402
 from repro_torch.kernels.spectrum import power_spectrum_stats_kernel  # noqa: E402
 from repro_torch.kernels.spectrum import spectrum_kernel as S  # noqa: E402
 from repro_torch.kernels.fft.ref import fft_ref, irfft_ref, rfft_ref  # noqa: E402
+from repro_torch.analysis.roofline import (dvfs_plan,  # noqa: E402
+                                           model_flops_for,
+                                           roofline_from_artifact)
+from repro_torch.configs import ShapeSpec  # noqa: E402
+from repro_torch.launch import dryrun, fft_dryrun  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import (build_model,  # noqa: E402
@@ -598,6 +619,16 @@ TRAIN_ENDS = 5
 TRAIN_RESTART_STEPS = 20
 TRAIN_FAIL_AT = {7: 0, 13: 1}
 TRAIN_RESTART_RTOL = 1e-4
+#: Phase 15, the dry run against the card: the cells run on the host (on
+#: both production meshes), the architecture whose step runs on the card
+#: at one data replica's share of ``train_4k``, the timed steps, and the
+#: pencil's model slots and batch.
+DRY_CELLS = ("train_4k", "decode_32k")
+DRY_ARCH = "qwen2-0.5b"
+DRY_STEPS = 3
+DRY_TOP = 6
+DRY_PENCIL_SLOTS = 8
+DRY_PENCIL_BATCH = 8
 #: mamba2-370m at full width in bf16: TRAIN_SSM_STEPS steps on (batch,
 #: seq) batches long enough for two of its 256-token chunks.
 TRAIN_SSM = (4, 512)
@@ -4561,6 +4592,188 @@ def phase14_train(gen: torch.Generator) -> dict[str, int]:
     return run
 
 
+def _dry_line(art: dict, path: str) -> None:
+    """An artifact's counts, roofline row and DVFS plan, printed."""
+    t = roofline_from_artifact(path)
+    plan = dvfs_plan(t)
+    mem = art["memory"]
+    print(f"phase 15: dry run {art['arch']} {art['shape']} {art['mesh']} "
+          f"({art['chips']} chips, step batch {art['step_batch']}): "
+          f"{art['flops_per_device']:.6e} FLOP, "
+          f"{art['hbm_bytes_per_device']:.6e} HBM bytes, "
+          f"{art['collective_bytes_per_device']:.6e} collective bytes a "
+          f"device {art['collective_breakdown']} by axis "
+          f"{art['collective_by_axis']}; args {mem['argument_bytes']} B, "
+          f"fits_80gb {mem['fits_80gb']}; counted in {art['lower_s']} s")
+    print(f"phase 15: roofline {t.row()}; dvfs on {t.device.name}: optimal "
+          f"{plan.optimal.f:.0f} MHz, power cut "
+          f"{100 * plan.power_reduction:.1f}%, slowdown "
+          f"{100 * plan.slowdown:.2f}%")
+
+
+def _dry_host(out: str) -> dict:
+    """(a): the dry run of DRY_ARCH's cells and of the pencil on both
+    production meshes, on the host."""
+    arts = {}
+    for shape in DRY_CELLS:
+        for mp in (False, True):
+            path = dryrun.run_one(DRY_ARCH, shape, mp, out)
+            with open(path) as f:
+                art = json.load(f)
+            arts[shape, mp] = art
+            _dry_line(art, path)
+            ratio = art["flops_per_device"] * art["chips"] / art["model_flops"]
+            check(art["memory"]["fits_80gb"] and (
+                art["kind"] != "train" or 0.9 <= ratio <= 6),
+                f"phase 15: {shape} {art['mesh']}: fits "
+                f"{art['memory']['fits_80gb']}, FLOPs / model FLOPs {ratio}")
+            check(not mp or art["kind"] != "train"
+                  or art["collective_by_axis"]["pod"] > 0,
+                  f"phase 15: {shape} {art['mesh']}: no pod-axis bytes")
+    for mp in (False, True):
+        art = fft_dryrun.lower_pencil(multi_pod=mp)
+        path = os.path.join(out, f"fft-pencil__{art['mesh']}.json")
+        with open(path, "w") as f:
+            json.dump(art, f)
+        _dry_line(art, path)
+    return arts
+
+
+def _dry_card(card: str, art: dict) -> None:
+    """(b): one data replica's share of DRY_ARCH's train_4k on the card,
+    in bf16, against the dry run's meta count."""
+    cfg = ZOO_ARCHS[DRY_ARCH]
+    batch, seq = art["step_batch"], dryrun.get_shape("train_4k").seq_len
+    one = Mesh([torch.device("meta")] * 1, (1, 1), ("data", "model"))
+    shape = ShapeSpec("train_4k", seq, batch, "train")
+    solo = dryrun.lower_cell(DRY_ARCH, shape, mesh=one)
+    check(solo["step_flops"] == art["step_flops"],
+          f"phase 15: the 1x1 meta count {solo['step_flops']} differs from "
+          f"the 32x8 one {art['step_flops']}")
+    model = build_model(cfg)
+    state = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(SEED))
+    (x, y), = _train_batches(cfg, batch, seq, 1)
+    step = make_train_step(model)
+    torch.cuda.synchronize()
+    flops = train_launch.step_flops(step, state, x, y)
+    check(flops == art["step_flops"],
+          f"phase 15: FlopCounterMode on the card counts {flops} FLOP, the "
+          f"dry run's meta step {art['step_flops']}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _, metrics = step(state, x, y)
+    loss = float(metrics["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss), f"phase 15: the step's loss is {loss}")
+    del metrics
+    ms = median_ms(lambda: step(state, x, y), reps=DRY_STEPS)
+    top, busy, wall = _top_ops(lambda: step(state, x, y))
+    useful = model_flops_for(cfg, shape)
+    print(f"phase 15: {DRY_ARCH} train_4k, one data replica's share of the "
+          f"32x8 mesh ({batch} x {seq} tokens) in bf16 on {card}: "
+          f"FlopCounterMode {flops:.6e} FLOP on the card = the dry run's "
+          f"meta count {art['step_flops']:.6e}; loss {loss:.4f}; "
+          f"{ms:.3f} ms a step (median of {DRY_STEPS}, CUDA events), "
+          f"counted FLOPs at {flops / ms / 1e9:.2f} TFLOP/s, model FLOPs "
+          f"(6ND) {useful:.6e} = {useful / ms * 1e3 / BF16_FLOPS:.4f} of "
+          f"the bf16 peak")
+    print(f"phase 15: {DRY_ARCH} train step device time (one profiled "
+          f"step, CUDA events around it): busy {busy:.3f} of {wall:.3f} ms "
+          f"(idle share {1 - busy / wall:.4f}, not clipped); the ops whose "
+          f"kernels take the most: "
+          + "; ".join(f"{name} {t:.3f} ms ({n} calls)"
+                      for name, t, n in top))
+    print(f"phase 15: {DRY_ARCH} train step memory on the card: allocated "
+          f"before {before} B, peak {peak} B (max_memory_allocated); the "
+          f"dry run's argument bytes on a 1x1 mesh "
+          f"{solo['memory']['argument_bytes']} B; peak / arguments "
+          f"{peak / solo['memory']['argument_bytes']:.4f}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _top_ops(fn, n: int = DRY_TOP) -> tuple[list, float, float]:
+    """The ``n`` aten ops whose kernels take the most device time in one
+    profiled run of ``fn`` ((op, ms, calls)), the device's busy ms in that
+    run (every CUDA kernel's time summed) and the run's own wall ms (CUDA
+    events around it), so that busy and wall describe one run."""
+    from torch.profiler import ProfilerActivity, profile
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    busy = sum(ev.device_time for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    ops = sorted((ev for ev in prof.key_averages()
+                  if ev.key.startswith("aten::")
+                  and ev.self_device_time_total > 0),
+                 key=lambda ev: -ev.self_device_time_total)[:n]
+    return ([(ev.key, ev.self_device_time_total / 1e3, ev.count)
+             for ev in ops], busy, start.elapsed_time(end))
+
+
+def _dry_pencil(card: str, gen: torch.Generator) -> dict[str, int]:
+    """(c): the pencil on DRY_PENCIL_SLOTS model slots of the card at
+    DRY_PENCIL_BATCH against torch.fft and the fft dry run's bytes;
+    returns its launches."""
+    n1, n2, b = PENCIL_N1, PENCIL_N2, DRY_PENCIL_BATCH
+    d = DRY_PENCIL_SLOTS
+    replicas = 32                            # the (32, 8) mesh's data axis
+    want = fft_dryrun.lower_pencil(multi_pod=False, batch=b * replicas)
+    mesh = make_mesh((d,), ("model",), devices=[torch.device("cuda", 0)] * d)
+    x = randn(gen, b, n1, n2)
+    xs = shard(x, mesh, "model", 1)
+    reset_launches()
+    mesh.reset_collective_bytes()
+    y = pencil_fft(xs, mesh, n1=n1, n2=n2)
+    torch.cuda.synchronize()
+    run = launch_counts()
+    moved = mesh.collective_bytes
+    check({k: v for k, v in run.items() if v}
+          == {"fft_c2c_axis1": d, "fft_c2c": d},
+          f"phase 15: the pencil launched {run}")
+    got = untranspose_ref(y.gather(), n1, n2)
+    del y, xs
+    ref = torch.fft.fft(x.reshape(b, n1 * n2))
+    abs_err, rel = rel_err(got, ref)
+    del got, ref, x
+    torch.cuda.empty_cache()
+    check(rel <= PLAN_RTOL["four-step"],
+          f"phase 15: the pencil vs torch.fft rel {rel:.3e}")
+    check(moved == want["collective_bytes_per_device"],
+          f"phase 15: the pencil moved {moved} bytes a shard, the fft dry "
+          f"run counts {want['collective_bytes_per_device']}")
+    print(f"phase 15: pencil c2c ({b}, {n1}, {n2}) on {d} model slots of "
+          f"cuda:0: launches { {k: v for k, v in run.items() if v} }; "
+          f"max_abs_err {abs_err:.3e} rel {rel:.3e}; collective bytes a "
+          f"shard {moved:.1f} = the fft dry run's at batch {b} a replica "
+          f"{want['collective_bytes_per_device']:.1f} | {card}")
+    return run
+
+
+def phase15_dryrun(gen: torch.Generator) -> dict[str, int]:
+    """The dry run against the card: (a) on the host, (b) the train
+    step's FLOPs and memory, (c) the pencil's bytes; returns (c)'s
+    launches."""
+    t0 = time.perf_counter()
+    card = _card()
+    out = tempfile.mkdtemp(prefix="phase15-")
+    try:
+        arts = _dry_host(out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    _dry_card(card, arts["train_4k", False])
+    run = _dry_pencil(card, gen)
+    print(f"phase 15: wall time {time.perf_counter() - t0:.2f} s")
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -4579,7 +4792,8 @@ def main() -> int:
     launches = phase4_main_path(gen)
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
                   phase9_energy, phase10_tune, phase11_robust,
-                  phase12_distributed, phase13_zoo, phase14_train):
+                  phase12_distributed, phase13_zoo, phase14_train,
+                  phase15_dryrun):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

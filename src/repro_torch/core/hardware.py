@@ -168,6 +168,14 @@ H100_SXM = DeviceSpec(
     idle_power=129.32,
 )
 
+#: The H100 SXM record with NVIDIA's published dense bf16 tensor-core rate
+#: (data sheet, SXM part: 989 TFLOP/s without sparsity) as its peak: a bf16
+#: model step runs on the tensor cores, while ``H100_SXM.peak_flops`` is
+#: the float32 rate outside them.  It is not in :data:`DEVICES`, so that
+#: ``H100_SXM`` prices everything else as it is.
+H100_SXM_BF16 = dataclasses.replace(H100_SXM, name="h100-sxm-bf16",
+                                    peak_flops=989e12)
+
 DEVICES: dict[str, DeviceSpec] = {
     d.name: d for d in (TESLA_V100, JETSON_NANO, TITAN_V, H100_SXM)
 }

@@ -277,7 +277,10 @@ def _four_step_twiddle_table(n1: int, n2: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _four_step_twiddle(n1: int, n2: int, device: torch.device
                        ) -> torch.Tensor:
-    """The inter-pass twiddle as a complex64 tensor, once per device."""
+    """The inter-pass twiddle as a complex64 tensor, once per device; on
+    ``meta`` (a dry run) its shape alone."""
+    if device.type == "meta":
+        return torch.empty((n2, n1), dtype=torch.complex64, device=device)
     return torch.from_numpy(_four_step_twiddle_table(n1, n2)).to(
         device=device, dtype=torch.complex64)
 

@@ -26,9 +26,12 @@ re/im planes — the counterpart of the reference's ``_mixed_radix_stages``.
 The C2C functions take contiguous complex64 tensors; the real ones take
 or return contiguous float32.  The input's device decides: a CPU tensor
 runs the plain version, a CUDA tensor launches the kernel and raises if
-the launch fails — there is no fallback between the two.  ``LAUNCHES``
-counts kernel launches (only launches; the plain versions never count),
-so a caller can show that work went through the kernels.
+the launch fails — there is no fallback between the two.  A ``meta``
+tensor (a dry run, ``launch.fft_dryrun``) gets an empty meta result of
+the kernel's output shape and dtype: the wrapper's shape function, which
+computes and launches nothing.  ``LAUNCHES`` counts kernel launches
+(only launches; the plain versions and meta calls never count), so a
+caller can show that work went through the kernels.
 
 Every FFT kernel but ``fft_c2c_mul`` runs the schedule in
 register-resident passes (``csrc/stockham_regs.cuh``) that the host plans
@@ -706,7 +709,7 @@ def _check(x: torch.Tensor, ndim: int, what: str) -> None:
     if x.dtype != torch.complex64 or x.ndim != ndim or not x.is_contiguous():
         raise ValueError(f"{what} takes a contiguous {ndim}-D complex64 "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: no kernel for device {x.device}")
 
 
@@ -825,7 +828,7 @@ def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
     if dev.type == "cpu":
         return fft_c2c_plain(x, inverse=inverse, radices=radices)
     y = torch.empty_like(x)
-    if b == 0:
+    if b == 0 or dev.type == "meta":         # meta: the shape alone
         return y
     plan = _plan("fft_c2c", n, b, tuple(radices), per_block, inverse, dev)
     lib = _library()
@@ -851,7 +854,7 @@ def fft_c2c_t(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
     if x.device.type == "cpu":
         return fft_c2c_t_plain(x, twiddle, inverse=inverse, radices=radices)
     y = torch.empty((b, c, r), dtype=x.dtype, device=x.device)
-    if b * r == 0:
+    if b * r == 0 or x.device.type == "meta":
         return y
     return _launch_strided("fft_c2c_t", x, y, c, r, twiddle, inverse,
                            radices, per_block, cluster)
@@ -873,7 +876,7 @@ def fft_c2c_axis1(x: torch.Tensor, twiddle: torch.Tensor | None = None, *,
         return fft_c2c_axis1_plain(x, twiddle, inverse=inverse,
                                    radices=radices)
     y = torch.empty_like(x)
-    if b * c == 0:
+    if b * c == 0 or x.device.type == "meta":
         return y
     return _launch_strided("fft_c2c_axis1", x, y, r, c, twiddle, inverse,
                            radices, per_block, cluster)
@@ -898,7 +901,7 @@ def fft_c2c_mul(x: torch.Tensor, bank: torch.Tensor, *,
         return fft_c2c_mul_plain(x, bank, inverse=inverse, radices=radices)
     t = bank.shape[0]
     y = torch.empty((b, t, n), dtype=x.dtype, device=x.device)
-    if b == 0:
+    if b == 0 or x.device.type == "meta":
         return y
     sched, dr, di, twr, twi = _schedule_args(n, radices, inverse, x.device)
     with torch.cuda.device(x.device):
@@ -921,7 +924,7 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
     if size not in (4, 8, 16):
         raise ValueError(f"transpose moves 4-, 8- or 16-byte elements, got "
                          f"{x.dtype}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"transpose: no kernel for device {x.device}")
     if x.device.type == "cpu":
         return transpose_plain(x)
@@ -929,7 +932,7 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"transpose: the input must be {size}-byte aligned")
     b, r, c = x.shape
     y = torch.empty((b, c, r), dtype=x.dtype, device=x.device)
-    if x.numel() == 0:
+    if x.numel() == 0 or x.device.type == "meta":
         return y
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -993,7 +996,7 @@ def _check_real(x: torch.Tensor, what: str, ndim: int = 2) -> None:
     if x.dtype != torch.float32 or x.ndim != ndim or not x.is_contiguous():
         raise ValueError(f"{what} takes a contiguous {ndim}-D float32 "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if x.device.type == "cuda" and x.data_ptr() % 8:
         # The kernel reads pairs of reals as one float2; a contiguous slice
@@ -1014,7 +1017,7 @@ def fft_r2c(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     if dev.type == "cpu":
         return fft_r2c_plain(x, radices=radices)
     y = torch.empty((b, m + 1), dtype=torch.complex64, device=dev)
-    if b == 0:
+    if b == 0 or dev.type == "meta":
         return y
     plan = _plan("fft_r2c", n, b, tuple(radices), per_block, False, dev)
     lib = _real_library()
@@ -1039,7 +1042,7 @@ def fft_r2c_t(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     if x.device.type == "cpu":
         return fft_r2c_t_plain(x, radices=radices)
     y = torch.empty((b, m + 1, r), dtype=torch.complex64, device=x.device)
-    if b * r == 0:
+    if b * r == 0 or x.device.type == "meta":
         return y
     args, _ = _pass_args(m, r, tuple(radices), per_block, False, x.device)
     launch = pass_launch(m, r, tuple(radices), per_block, split=True)
@@ -1070,7 +1073,7 @@ def fft_c2r(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
     if x.device.type == "cpu":
         return fft_c2r_plain(x, radices=radices)
     y = torch.empty((b, 2 * m), dtype=torch.float32, device=x.device)
-    if b == 0:
+    if b == 0 or x.device.type == "meta":
         return y
     args, _ = _pass_args(m, b, tuple(radices), per_block, True, x.device)
     lib = _real_library()

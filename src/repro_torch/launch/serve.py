@@ -26,28 +26,19 @@ priced on the H100 SXM record with its bf16 tensor-core peak.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core.dvfs import SweepResult, sweep
-from repro_torch.core.hardware import H100_SXM, DeviceSpec
+from repro_torch.core.hardware import H100_SXM_BF16, DeviceSpec
 from repro_torch.core.perf_model import WorkloadProfile
 from repro_torch.core.scheduler import (DVFSScheduler, PipelineReport,
                                         Stage)
 from repro_torch.core.workloads import roofline_workload
 from repro_torch.models.api import Model, build_model, resolve_device
 from repro_torch.models.common import tree_map
-
-#: The H100 SXM record with NVIDIA's published dense bf16 tensor-core rate
-#: (data sheet, SXM part: 989 TFLOP/s without sparsity) as its peak: a bf16
-#: model step runs on the tensor cores, while ``H100_SXM.peak_flops`` is
-#: the float32 rate outside them.  ``core.hardware.DEVICES`` keeps
-#: ``H100_SXM`` as it is.
-H100_SXM_BF16 = dataclasses.replace(H100_SXM, name="h100-sxm-bf16",
-                                    peak_flops=989e12)
 
 
 def _grow(a: torch.Tensor, short, long, gen: int) -> torch.Tensor:

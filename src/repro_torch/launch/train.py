@@ -18,8 +18,10 @@ read and written once) decides the energy-optimal clock of the H100 SXM
 record with its bf16 tensor-core peak, reported beside the training
 metrics.
 
-``--mesh`` takes only ``1x1``: the sharded train state needs the spec
-trees of the dry-run (ROADMAP.md queue 1 item 12c).
+``--mesh`` takes only ``1x1``: the port has no sharded executor yet.  The
+sharded train state's specs exist (``train.step.train_state_specs``,
+fixed for a mesh by ``launch.specs.fix_tree``; ``launch.dryrun`` prices
+them); running it on a mesh is ROADMAP.md queue 1 item 12d.
 """
 from __future__ import annotations
 
@@ -32,9 +34,9 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import get_arch
 from repro_torch.core.dvfs import sweep
+from repro_torch.core.hardware import H100_SXM_BF16
 from repro_torch.core.workloads import roofline_workload
 from repro_torch.data.synthetic import SyntheticTokens
-from repro_torch.launch.serve import H100_SXM_BF16
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.models.common import tree_leaves
 from repro_torch.runtime.checkpoint import CheckpointManager
@@ -79,8 +81,8 @@ def main(argv=None, *, state: TrainState | None = None,
                                          "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model mesh; only 1x1 until the dry-run "
-                         "(ROADMAP.md queue 1 item 12c)")
+                    help="data x model mesh; only 1x1 until a sharded "
+                         "executor (ROADMAP.md queue 1 item 12d)")
     ap.add_argument("--dvfs-report", action="store_true",
                     help="print the energy-optimal clock plan for the step")
     ap.add_argument("--device", default="cuda")
@@ -88,9 +90,9 @@ def main(argv=None, *, state: TrainState | None = None,
 
     if args.mesh != "1x1":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; a sharded "
-            "train state needs the spec trees of the dry-run (ROADMAP.md "
-            "queue 1 item 12c)")
+            f"--mesh {args.mesh}: the port trains on one device; running "
+            "the sharded train state (train_state_specs) on a mesh is "
+            "ROADMAP.md queue 1 item 12d")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:

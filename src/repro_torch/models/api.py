@@ -8,8 +8,11 @@ function takes ``params`` as the family's module (:class:`TransformerLM`,
 ``models.convert.params_from_reference`` return) or as a plain nested
 dict of tensors in the reference's layout.
 
-The reference's ``param_specs`` and ``cache_specs`` (PartitionSpec trees)
-come with the dry-run.
+``param_specs`` and ``cache_specs`` give the reference's PartitionSpec
+trees on the paths of the parameter tree (``state_dict()`` keys) and of
+``cache_shapes``; ``param_shapes`` the parameter tree's shapes and dtypes,
+nothing drawn (``jax.eval_shape(model.init, key)``'s place): the dry run
+(``launch.dryrun``) reads the three.
 """
 from __future__ import annotations
 
@@ -108,6 +111,9 @@ class Model:
     forward_hidden: Callable[..., Any]    # (params, inp) -> (hidden, aux)
     unembed: Callable[..., Any]           # (params, hidden) -> logits
     cache_shapes: Callable[..., Any]      # (batch, seq) -> TensorSpec tree
+    param_specs: Callable[[], Any]        # () -> PartitionSpec tree
+    cache_specs: Callable[[], Any]
+    param_shapes: Callable[[], Any]       # () -> TensorSpec tree
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -123,4 +129,7 @@ def build_model(cfg: ArchConfig) -> Model:
                                                               cfg),
         unembed=lambda params, h: mod.unembed(params, h, cfg),
         cache_shapes=lambda batch, seq: mod.cache_shapes(cfg, batch, seq),
+        param_specs=lambda: mod.param_specs(cfg),
+        cache_specs=lambda: mod.cache_specs(cfg),
+        param_shapes=lambda: mod.param_shapes(cfg),
     )

@@ -1,10 +1,15 @@
-"""Shared model components: norms, RoPE, init, loss, and the parameter
-tree (the counterpart of ``repro.models.common``).
+"""Shared model components: norms, RoPE, init, loss, the parameter tree
+and the sharding vocabulary (the counterpart of ``repro.models.common``).
 
-The reference's sharding vocabulary (``spec_*``, ``stack_specs``,
-``activation_sharding``, ``constrain_acts``, ``PERF_OPTS``) is not here:
-it comes with the dry-run.  ``constrain_acts`` is the identity where no
-sharding is installed, so the forward paths simply drop it.
+The sharding vocabulary (:class:`PartitionSpec`, ``spec_*``,
+:func:`stack_specs`) names, for each parameter and cache leaf, the mesh
+axes its dimensions split over; ``launch.specs`` fixes the names for a
+mesh and ``analysis.cost`` prices the collectives they imply.  The
+reference's ``activation_sharding``, ``constrain_acts`` and ``PERF_OPTS``
+only place values on devices for its SPMD partitioner: in one eager
+process they change no value, so the port has no such code paths
+(``launch.dryrun --opt`` records the options it applies to the spec
+trees).
 
 Parameters live in a :class:`ParamTree`, an ``nn.Module`` that mirrors the
 reference's parameter pytree: a dict becomes a ``ParamTree``, a list an
@@ -18,6 +23,7 @@ the reference tree's paths joined by ``.`` (``layers.attn.w_q``,
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Callable
 
 import torch
@@ -36,6 +42,29 @@ class TensorSpec:
 
     shape: tuple[int, ...]
     dtype: torch.dtype
+
+
+class PartitionSpec(tuple):
+    """The mesh axes each dimension of a leaf splits over: one entry a
+    dimension, ``None`` (not split), an axis name or a tuple of names;
+    missing trailing entries are ``None`` (``jax.sharding.PartitionSpec``'s
+    place; ``tuple(spec)`` compares with the reference's).  A leaf of the
+    trees :func:`tree_map` walks."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """Every mesh axis the spec names, in order."""
+        return tuple(a for e in self if e is not None
+                     for a in ((e,) if isinstance(e, str) else e))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
 
 
 class ParamTree(nn.Module):
@@ -81,11 +110,13 @@ def _is_tree(node) -> bool:
 
 def tree_map(fn: Callable, *trees) -> Any:
     """``fn`` over the leaves of nested dicts / ``ParamTree``s and lists /
-    ``ModuleList``s of the same structure; dicts come back as dicts."""
+    ``ModuleList``s of the same structure; dicts come back as dicts.  A
+    :class:`PartitionSpec` is a leaf."""
     first = trees[0]
     if _is_tree(first):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in first.keys()}
-    if isinstance(first, (list, tuple, nn.ModuleList)):
+    if (isinstance(first, (list, tuple, nn.ModuleList))
+            and not isinstance(first, PartitionSpec)):
         return [tree_map(fn, *xs) for xs in zip(*trees)]
     return fn(*trees)
 
@@ -95,6 +126,20 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_items(tree, path: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in :func:`tree_leaves`' order; a path joins the
+    dict keys and list indices by ``/``, as the reference's key paths."""
+    if _is_tree(tree):
+        keys = [(k, tree[k]) for k in tree.keys()]
+    elif (isinstance(tree, (list, tuple, nn.ModuleList))
+          and not isinstance(tree, PartitionSpec)):
+        keys = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(path, tree)]
+    return [item for k, v in keys
+            for item in tree_items(v, f"{path}/{k}" if path else k)]
 
 
 def unstack(tree, n: int) -> list[dict]:
@@ -134,11 +179,21 @@ def rope(q: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(q.dtype)
 
 
+#: The generator that ``init_params`` takes to build a parameter tree of
+#: ``meta`` tensors (shapes and dtypes, no data, nothing drawn): the
+#: families' ``param_shapes``, the counterpart of the reference's
+#: ``jax.eval_shape(model.init, key)``.
+SHAPES_ONLY = types.SimpleNamespace(device=torch.device("meta"))
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None
                ) -> torch.Tensor:
     """A normal draw from ``gen`` (on the generator's device), scaled by
-    ``scale`` or fan_in ** -0.5.  The port cannot reproduce JAX's random
-    numbers: parity goes through ``models.convert``."""
+    ``scale`` or fan_in ** -0.5; from :data:`SHAPES_ONLY`, an empty meta
+    tensor.  The port cannot reproduce JAX's random numbers: parity goes
+    through ``models.convert``."""
+    if gen is SHAPES_ONLY:
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else fan_in ** -0.5
     return (torch.randn(shape, generator=gen, device=gen.device) * s
@@ -187,11 +242,14 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Float32 operands multiply as they are.  On the card, bf16 operands
     stay bf16 and cuBLAS writes a float32 result (``out_dtype``), which
     keeps the reference's f32 output without an f32 copy of the weight
-    (at full width the unembed weight is up to 262144 x 3840).  Elsewhere
-    both operands are cast up, which is exact for the products."""
+    (at full width the unembed weight is up to 262144 x 3840); a dry run
+    on ``meta`` tensors takes the same branch, so that it counts the
+    card's operations and bytes.  Elsewhere both operands are cast up,
+    which is exact for the products."""
     if a.dtype == b.dtype == torch.float32:
         return a @ b
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    if (a.device.type in ("cuda", "meta")
+            and a.dtype == b.dtype == torch.bfloat16):
         flat = a.reshape(-1, a.shape[-1])
         return _MatmulBf16F32.apply(flat, b).reshape(
             *a.shape[:-1], b.shape[-1])
@@ -233,3 +291,42 @@ def _chunk_ce(unembed_fn: Callable, h: torch.Tensor, labels: torch.Tensor
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     return (logz - gold).sum()
+
+
+# ---------------------------------------------------------------------------
+# Sharding vocabulary.  Meshes use axes ("data", "model") and optionally a
+# leading "pod" axis that is pure DP (params replicated across pods).
+# Large 2-D weights are sharded over BOTH axes (TP on the feature axis,
+# FSDP/ZeRO-style on the other), as the reference's are.
+# ---------------------------------------------------------------------------
+
+REPLICATED = P()
+
+
+def spec_embed() -> PartitionSpec:      # (vocab, d): vocab over TP
+    return P("model", "data")
+
+
+def spec_in_proj() -> PartitionSpec:    # (d, features): features over TP
+    return P("data", "model")
+
+
+def spec_out_proj() -> PartitionSpec:   # (features, d)
+    return P("model", "data")
+
+
+def spec_expert_in() -> PartitionSpec:  # (E, d, ff): experts over TP (EP)
+    return P("model", None, "data")
+
+
+def spec_expert_out() -> PartitionSpec:  # (E, ff, d)
+    return P("model", "data", None)
+
+
+def spec_vector() -> PartitionSpec:     # norm scales, biases
+    return P()
+
+
+def stack_specs(tree, n: int = 1):
+    """``tree``'s specs with ``n`` leading unsharded (stacked-layer) axes."""
+    return tree_map(lambda s: P(*([None] * n), *s), tree)

@@ -19,8 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import (TensorSpec, dense_init, dtype_of,
-                                       matmul_f32, remat, rms_norm, stack,
+from repro_torch.models import common as cm
+from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec,
+                                       dense_init, dtype_of, matmul_f32,
+                                       remat, rms_norm, stack, stack_specs,
                                        tree_map, unstack)
 
 
@@ -47,6 +49,14 @@ def init_mamba_block(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
         "dt_bias": torch.zeros(h, dtype=torch.float32, device=dev),
         "gate_norm": torch.zeros(inner, dtype=dtype, device=dev),
         "out_proj": dense_init(gen, (inner, cfg.d_model), dtype),
+    }
+
+
+def mamba_block_specs(cfg: ArchConfig) -> dict:
+    return {
+        "ln": P(), "in_proj": cm.spec_in_proj(), "conv_w": P(None, "model"),
+        "conv_b": P("model"), "A_log": P(), "D": P(), "dt_bias": P(),
+        "gate_norm": P("model"), "out_proj": cm.spec_out_proj(),
     }
 
 
@@ -194,6 +204,11 @@ def mamba_cache_shapes(cfg: ArchConfig, batch: int) -> dict:
     }
 
 
+def mamba_cache_specs(cfg: ArchConfig) -> dict:
+    return {"conv": P("data", None, "model"),
+            "state": P("data", "model", None, None)}
+
+
 # ---------------------------------------------------------------------------
 # Full LM
 # ---------------------------------------------------------------------------
@@ -207,6 +222,21 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "final_norm": torch.zeros(cfg.d_model, dtype=dtype,
                                   device=gen.device),
         "lm_head": dense_init(gen, (cfg.d_model, cfg.vocab), dtype),
+    }
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """:class:`TensorSpec` tree of :func:`init_params`, nothing drawn."""
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype),
+                    init_params(SHAPES_ONLY, cfg))
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    return {
+        "embed": cm.spec_embed(),
+        "layers": stack_specs(mamba_block_specs(cfg)),
+        "final_norm": P(),
+        "lm_head": P("data", "model"),
     }
 
 
@@ -243,6 +273,10 @@ def cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
     per = mamba_cache_shapes(cfg, batch)
     return {"layers": tree_map(
         lambda s: TensorSpec((cfg.n_layers, *s.shape), s.dtype), per)}
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    return {"layers": stack_specs(mamba_cache_specs(cfg))}
 
 
 def decode_step(params, cache, token, cfg: ArchConfig):

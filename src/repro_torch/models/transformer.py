@@ -21,9 +21,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, decode_attention
-from repro_torch.models.common import (TensorSpec, dense_init, dtype_of,
-                                       matmul_f32, remat, rms_norm, rope,
-                                       stack, tree_map, unstack)
+from repro_torch.models import common as cm
+from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec,
+                                       dense_init, dtype_of, matmul_f32,
+                                       remat, rms_norm, rope, stack,
+                                       stack_specs, tree_map, unstack)
 from repro_torch.models.mla import (init_mla, mla_attention, mla_cache_shape,
                                     mla_decode)
 from repro_torch.models.moe import init_moe, moe_block
@@ -96,6 +98,55 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
                         dense_ff=cfg.dense_d_ff)
             for _ in range(cfg.n_dense_layers)]
     return params
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """:class:`TensorSpec` tree of :func:`init_params`, nothing drawn."""
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype),
+                    init_params(SHAPES_ONLY, cfg))
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """:class:`~repro_torch.models.common.PartitionSpec` tree matching
+    :func:`init_params` (the reference's specs, leaf for leaf)."""
+    if cfg.mla is not None:
+        attn_spec = {
+            "w_q": cm.spec_in_proj(), "w_dkv": cm.spec_in_proj(),
+            "w_krope": P("data", None), "w_uk": P(None, "model"),
+            "w_uv": P(None, "model"), "w_o": cm.spec_out_proj()}
+    else:
+        attn_spec = {
+            "w_q": cm.spec_in_proj(), "w_k": cm.spec_in_proj(),
+            "w_v": cm.spec_in_proj(), "w_o": cm.spec_out_proj()}
+        if cfg.qkv_bias:
+            attn_spec.update(b_q=P("model"), b_k=P("model"), b_v=P("model"))
+
+    def layer_spec(moe_layer: bool) -> dict:
+        p = {"ln_attn": P(), "ln_mlp": P(), "attn": attn_spec}
+        if moe_layer:
+            moe = {"router": P("data", None), "w_gate": cm.spec_expert_in(),
+                   "w_up": cm.spec_expert_in(),
+                   "w_down": cm.spec_expert_out()}
+            if cfg.moe.n_shared:
+                moe.update(shared_gate=cm.spec_in_proj(),
+                           shared_up=cm.spec_in_proj(),
+                           shared_down=cm.spec_out_proj())
+            p["moe"] = moe
+        else:
+            p["mlp"] = {"w_gate": cm.spec_in_proj(),
+                        "w_up": cm.spec_in_proj(),
+                        "w_down": cm.spec_out_proj()}
+        return p
+
+    specs: dict = {"embed": cm.spec_embed(), "final_norm": P()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P("data", "model")
+    specs["layers"] = stack_specs(layer_spec(cfg.moe is not None),
+                                  2 if cfg.local_per_global else 1)
+    if cfg.n_dense_layers:
+        specs["dense_layers"] = [layer_spec(False)
+                                 for _ in range(cfg.n_dense_layers)]
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +325,20 @@ def cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
             return TensorSpec((n_scan // group, group, *s.shape), s.dtype)
         return TensorSpec((n_scan, *s.shape), s.dtype)
     out = {"layers": tree_map(stk, per)}
+    if cfg.n_dense_layers:
+        out["dense_layers"] = [dict(per) for _ in range(cfg.n_dense_layers)]
+    return out
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    """Caches split over batch (data) and kv-heads (model)."""
+    if cfg.mla is not None:
+        per = {"c_kv": P("data", None, "model"),
+               "k_rope": P("data", None, None, None)}
+    else:
+        per = {"k": P("data", None, "model", None),
+               "v": P("data", None, "model", None)}
+    out = {"layers": stack_specs(per, 2 if cfg.local_per_global else 1)}
     if cfg.n_dense_layers:
         out["dense_layers"] = [dict(per) for _ in range(cfg.n_dense_layers)]
     return out

@@ -20,11 +20,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, decode_attention
-from repro_torch.models.common import (TensorSpec, dense_init, dtype_of,
-                                       matmul_f32, remat, rms_norm, rope,
-                                       stack, tree_map, unstack)
+from repro_torch.models import common as cm
+from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec,
+                                       dense_init, dtype_of, matmul_f32,
+                                       remat, rms_norm, rope, stack,
+                                       stack_specs, tree_map, unstack)
 from repro_torch.models.mamba2 import (init_mamba_block, mamba_block,
-                                       mamba_cache_shapes, mamba_decode)
+                                       mamba_block_specs, mamba_cache_shapes,
+                                       mamba_cache_specs, mamba_decode)
 
 
 def _site_layout(cfg: ArchConfig) -> tuple[int, int]:
@@ -62,6 +65,31 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "site_proj": dense_init(gen, (n_sites, d, d), dtype, scale=0.02),
         "final_norm": torch.zeros(d, dtype=dtype, device=dev),
         "lm_head": dense_init(gen, (d, cfg.vocab), dtype),
+    }
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """:class:`TensorSpec` tree of :func:`init_params`, nothing drawn."""
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype),
+                    init_params(SHAPES_ONLY, cfg))
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    head, _ = _site_layout(cfg)
+    block = mamba_block_specs(cfg)
+    return {
+        "embed": cm.spec_embed(),
+        "head_layers": [dict(block) for _ in range(head)],
+        "site_layers": stack_specs(block, 2),
+        "shared_attn": {
+            "ln": P(), "w_q": cm.spec_in_proj(), "w_k": cm.spec_in_proj(),
+            "w_v": cm.spec_in_proj(), "w_o": cm.spec_out_proj(),
+            "ln_mlp": P(), "w_gate": cm.spec_in_proj(),
+            "w_up": cm.spec_in_proj(), "w_down": cm.spec_out_proj(),
+        },
+        "site_proj": P(None, "data", "model"),
+        "final_norm": P(),
+        "lm_head": P("data", "model"),
     }
 
 
@@ -168,6 +196,14 @@ def cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> dict:
             per_mamba),
         "attn_k": kv, "attn_v": kv,
     }
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    head, _ = _site_layout(cfg)
+    per = mamba_cache_specs(cfg)
+    kv = P(None, "data", None, "model", None)
+    return {"head": [dict(per) for _ in range(head)],
+            "sites_mamba": stack_specs(per, 2), "attn_k": kv, "attn_v": kv}
 
 
 def decode_step(params, cache, token, cfg: ArchConfig):

@@ -17,7 +17,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import P, tree_leaves, tree_map
 from repro_torch.runtime.checkpoint import tree_dataclass
 
 
@@ -74,3 +74,8 @@ def adamw_update(params, grads, state: AdamWState, *,
     # ``out`` holds a (param, m, v) triple where ``params`` holds a leaf.
     pick = lambda i: tree_map(lambda _, triple: triple[i], params, out)
     return pick(0), AdamWState(step=step, m=pick(1), v=pick(2)), gnorm
+
+
+def optimizer_specs(param_specs) -> AdamWState:
+    """PartitionSpecs of the optimizer state (m and v mirror the params)."""
+    return AdamWState(step=P(), m=param_specs, v=param_specs)

@@ -1,5 +1,6 @@
-"""The training step (the counterpart of ``repro.train``;
-``train_state_specs`` comes with the dry-run)."""
-from repro_torch.train.step import TrainState, make_train_step
+"""The training step and its state's PartitionSpecs (the counterpart of
+``repro.train``)."""
+from repro_torch.train.step import (TrainState, make_train_step,
+                                    train_state_specs)
 
-__all__ = ["TrainState", "make_train_step"]
+__all__ = ["TrainState", "make_train_step", "train_state_specs"]

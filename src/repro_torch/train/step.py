@@ -14,8 +14,8 @@ functions take as they take a module, and each step makes its own
 gradient leaves (``detach().requires_grad_()``), so the parameters carry
 no graph between steps.  The layers and the cross-entropy chunks are
 rematerialised in backward (``models.common.remat``), as the reference's
-are under ``jax.checkpoint``.  ``train_state_specs`` comes with the
-dry-run.
+are under ``jax.checkpoint``.  :func:`train_state_specs` gives the
+state's PartitionSpecs, which the dry run (``launch.dryrun``) prices.
 """
 from __future__ import annotations
 
@@ -25,11 +25,12 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models.api import Model, resolve_device
-from repro_torch.models.common import (chunked_cross_entropy, tree_leaves,
-                                       tree_map)
+from repro_torch.models.common import (P, chunked_cross_entropy,
+                                       tree_leaves, tree_map)
 from repro_torch.models.convert import (params_to_reference,
                                         tensors_from_reference)
-from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
+                                     optimizer_specs)
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.runtime.checkpoint import tree_dataclass
 
@@ -50,6 +51,12 @@ def init_train_state(model: Model, gen: torch.Generator, device=None
     device = tree_leaves(params)[0].device
     return TrainState(params=params, opt=adamw_init(params),
                       step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def train_state_specs(model: Model) -> TrainState:
+    """The train state's PartitionSpecs: the moments mirror the params."""
+    ps = model.param_specs()
+    return TrainState(params=ps, opt=optimizer_specs(ps), step=P())
 
 
 def loss_fn(model: Model, params, inp, labels, *, aux_weight: float

@@ -68,7 +68,11 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.optim", "repro_torch.optim.adamw",
                  "repro_torch.optim.schedule", "repro_torch.train",
                  "repro_torch.train.step", "repro_torch.launch.train",
-                 "repro_torch.data"):
+                 "repro_torch.data", "repro_torch.launch.mesh",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.fft_dryrun", "repro_torch.analysis",
+                 "repro_torch.analysis.cost",
+                 "repro_torch.analysis.roofline"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"

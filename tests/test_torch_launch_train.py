@@ -93,7 +93,7 @@ def test_main_raises_without_a_card_unless_asked_for_the_cpu(tmp_path):
 
 
 def test_mesh_past_one_device_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="12c"):
+    with pytest.raises(NotImplementedError, match="12d"):
         train.main(ARGS + ["--mesh", "2x1", "--device", "cpu",
                            "--ckpt-dir", str(tmp_path)])
 
