@@ -206,7 +206,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      just before, read just after): within PLAN_RTOL of ``torch.fft``,
      each shard launching ``fft_c2c_axis1`` and ``fft_c2c``, the mesh's
      collective bytes equal to the fft dry run's at the same batch;
- 16. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 16. the sharded train step (``repro_torch.train.sharded``) on data meshes
+     of slots of the card: (a) qwen2-0.5b at full width and depth in bf16
+     through ``launch.train.main --mesh 4x1`` at phase 14's batch (8 x
+     128, 2 x 128 a replica): the step's median, idle share, device
+     operations, peak memory and J/step from the energy counter beside
+     phase 14's 1x1 numbers, and the mesh's ``--dvfs-report`` lines; (b)
+     qwen2-0.5b at full width in float32 (TF32 off), two steps of 8 x 128
+     on 4x1 against 1x1 from the same state: loss, grad norm, moments and
+     parameters within the CPU tests' tolerances, the largest differences
+     printed; (c) the mesh's collective record of one (a) step against
+     ``analysis.cost.collective_accounting`` with the executor's stated
+     departures (``train.sharded.accounted_record``);
+     (d) mamba2-370m at full width in float32, two steps of 2 x 256 on
+     2x1 against 1x1, the first-step moments printed; (b) and (d) also
+     run the first step in float64, D x 1 held against 1x1; (e) the
+     five examples (``examples/torch``) with
+     their default arguments on the card, ``train_lm``'s loss falling;
+     the launches of (e) counted (set to 0 just before each example, read
+     just after), (a)-(d) launching none.  On one card the collectives
+     are HBM-to-HBM copies;
+ 17. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -217,6 +237,7 @@ import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -292,6 +313,11 @@ from repro_torch.runtime.fault import FaultTolerantDriver  # noqa: E402
 from repro_torch.data.synthetic import SyntheticTokens  # noqa: E402
 from repro_torch.train.step import (init_train_state,  # noqa: E402
                                     make_train_step, map_state)
+from repro_torch.train.sharded import (accounted_record,  # noqa: E402
+                                       gather_state, make_sharded_train_step,
+                                       shard_state)
+from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models.common import tree_items  # noqa: E402
 from repro_torch.runtime.faults import (CRASH_PROCESS,  # noqa: E402
                                         FAIL_CLOCK_LOCK, FAIL_PLAN_BUILD,
                                         FAULT_KINDS, KILL_DEVICE,
@@ -639,6 +665,30 @@ TRAIN_SSM_STEPS = 3
 TRAIN_CPU = {"qwen2-0.5b": 3, "dbrx-132b": 1, "mamba2-370m": 1}
 TRAIN_CPU_RTOL = 1e-5
 TRAIN_MB_RTOL, TRAIN_MB_ATOL = 2e-2, 2e-3
+#: Phase 14's 1x1 numbers, which phase 16 prints beside its 4x1 ones.
+PHASE14: dict[str, float] = {}
+#: Phase 16, the sharded step on slots of the card: qwen2-0.5b bf16
+#: through ``launch.train`` on 4x1 at phase 14's batch (SHARD_STEPS
+#: driver steps, SHARD_CHAINED timed back to back); the float32 equality
+#: cases (part, arch, data slots, batch, seq, whether the first step's
+#: moments are held against the plain 1x1 step), two steps each, held
+#: within the CPU tests' tolerances (``tests/_model_parity.py``: the loss
+#: 1e-5 relative, the first step's moments and the grad norm 1e-4 of the
+#: largest |value|, the parameters and moments after two steps rtol 2e-2,
+#: atol 2e-3); the five examples of (e).  mamba2-370m's float32
+#: first-step moments against plain 1x1 are printed, and its first step
+#: is held in float64 instead (``_shard_equal``).
+SHARD_MESH = "4x1"
+SHARD_STEPS = 8
+SHARD_CHAINED = 5
+SHARD_ENERGY_STEPS = 4
+SHARD_EQUAL = (("b", "qwen2-0.5b", 4, 8, 128, True),
+               ("d", "mamba2-370m", 2, 2, 256, False))
+SHARD_LOSS_RTOL = 1e-5
+SHARD_RTOL = 1e-4
+SHARD_STEP_RTOL, SHARD_STEP_ATOL = 2e-2, 2e-3
+EXAMPLES = ("quickstart", "serve_fft", "serve_lm", "train_lm",
+            "pulsar_pipeline")
 
 
 def reset_launches() -> None:
@@ -4200,6 +4250,29 @@ def _device_ops(fn) -> int:
                for ev in prof.events())
 
 
+def _busy_wall_ops(fn) -> tuple[float, float, int]:
+    """One profiled run of ``fn``: the device's busy ms (its kernels,
+    copies and sets summed), the run's own wall ms (CUDA events around
+    it) and its device operations, so that the three describe one run.
+    A spin kernel first, finished before the run starts, keeps the
+    profiler's first milliseconds (see :func:`device_breakdown`)."""
+    from torch.profiler import ProfilerActivity, profile
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and "spin_kernel" not in ev.name]
+    return (sum(ev.device_time for ev in evs) / 1e3,
+            start.elapsed_time(end), len(evs))
+
+
 def _zoo_arch(name: str, gen: torch.Generator) -> None:
     """One architecture at full width, bf16: prefill, ZOO_DECODE_STEPS
     decode steps, the cache trees against ``cache_shapes``; decode =
@@ -4373,6 +4446,8 @@ def _train_full(card: str) -> None:
         split = device_breakdown(lambda: step(state, x, y))
         busy = sum(split.values())
         ops = _device_ops(lambda: step(state, x, y))
+        one_busy, one_wall, one_ops = _busy_wall_ops(
+            lambda: step(state, x, y))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -4389,6 +4464,9 @@ def _train_full(card: str) -> None:
               f"{busy:.4f} ms of one profiled step (idle share "
               f"{max(0.0, 1 - busy / chain_ms):.3f} of the chained step), "
               f"{ops} device operations")
+        print(f"phase 14: one profiled step timed by CUDA events around "
+              f"it: busy {one_busy:.4f} of {one_wall:.4f} ms, idle share "
+              f"{1 - one_busy / one_wall:.4f}, {one_ops} device operations")
         print(f"phase 14: qwen2-0.5b train step memory: state {state_b} B "
               f"({state_b / 1e9:.3f} GB), allocated before a step "
               f"{before / 1e9:.3f} GB, peak {peak / 1e9:.3f} GB "
@@ -4408,6 +4486,9 @@ def _train_full(card: str) -> None:
               f"{row['counter_j'] / (row['runs'] * tokens):.4e} J/token; "
               f"trace {row['trace_w']:.2f} W; SM clock {row['sm_mhz']:.0f} "
               f"MHz ({row['sm_range'][0]}..{row['sm_range'][1]})")
+        PHASE14.update(step_ms=med, chain_ms=chain_ms, busy_ms=one_busy,
+                       wall_ms=one_wall, ops=one_ops, peak=peak,
+                       j_step=row["counter_j"] / row["runs"])
         save_dir = os.path.join(ckpt_dir, "timed")
         t0 = time.perf_counter()
         CheckpointManager(save_dir).save(30, state)
@@ -4774,6 +4855,357 @@ def phase15_dryrun(gen: torch.Generator) -> dict[str, int]:
     return run
 
 
+def _shard_cost(card: str) -> None:
+    """(a) qwen2-0.5b bf16 through ``launch.train.main --mesh 4x1``: the
+    driver's steps, then the sharded step timed chained, profiled (busy,
+    device operations), its peak memory and J/step, beside phase 14's
+    1x1 numbers; (c) one step's collective record against the
+    accounting."""
+    ckpt_dir = tempfile.mkdtemp(prefix="phase16-")
+    d = int(SHARD_MESH.split("x")[0])
+    batch, seq = 8, 128
+    try:
+        log: list = []
+        t0 = time.perf_counter()
+        state = train_launch.main(
+            ["--arch", "qwen2-0.5b", "--batch", str(batch), "--seq",
+             str(seq), "--steps", str(SHARD_STEPS), "--lr", "1e-2",
+             "--ckpt-every", str(10 * SHARD_STEPS), "--mesh", SHARD_MESH,
+             "--ckpt-dir", ckpt_dir, "--dvfs-report"], log=log)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [float(m["loss"]) for m in log]
+    norms = [float(m["grad_norm"]) for m in log]
+    check(len(log) == SHARD_STEPS and all(map(math.isfinite,
+                                              losses + norms)),
+          f"phase 16: (a) losses {losses} grad norms {norms}")
+    walls = [m["wall"] * 1e3 for m in log]
+    med = statistics.median(walls[2:])
+    print(f"phase 16: (a) launch.train --mesh {SHARD_MESH} qwen2-0.5b bf16 "
+          f"(batch {batch} x {seq}, {batch // d} x {seq} a replica) on "
+          f"{card}: {SHARD_STEPS} steps in {wall:.3f} s (init, state "
+          f"placement and the final checkpoint included); losses "
+          f"{[round(x, 4) for x in losses]}; step walls (ms, synchronised) "
+          f"{[round(x, 3) for x in walls]}")
+
+    cfg = ZOO_ARCHS["qwen2-0.5b"]
+    model = build_model(cfg)
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((d, 1), ("data", "model"),
+                     devices=train_launch.mesh_slots(d, device))
+    sharded = shard_state(state, model, mesh)
+    step = make_sharded_train_step(model, mesh, peak_lr=1e-2)
+    batches = _train_batches(cfg, batch, seq, SHARD_CHAINED)
+    x, y = batches[0]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    chained = sharded
+    for bx, by in batches:
+        chained, metrics = step(chained, bx, by)
+    stop.record()
+    stop.synchronize()
+    chain_ms = start.elapsed_time(stop) / SHARD_CHAINED
+    check(math.isfinite(float(metrics["loss"])),
+          "phase 16: (a) chained steps gave a non-finite loss")
+    del chained, metrics
+    busy, one_wall, ops = _busy_wall_ops(lambda: step(sharded, x, y))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step(sharded, x, y)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    mesh.reset_collective_record()
+    step(sharded, x, y)
+    torch.cuda.synchronize()
+    got = mesh.collective_totals()
+    want = accounted_record(model, state, mesh, batch // d * seq)
+    check(got == want, f"phase 16: (c) record {got} != accounting by the "
+          f"formula {want}")
+    print(f"phase 16: (c) one {SHARD_MESH} step's collective record = the "
+          f"accounting (tokens {batch // d * seq} a replica) with the "
+          f"embedding gathered once and the loss and squared norm "
+          f"all-reduced: by kind {got[0]}, by axis {got[1]}")
+
+    # The step takes over a second, so the energy counter's rise over
+    # SHARD_ENERGY_STEPS synchronised steps after a warm one (its ~100 ms
+    # steps are a few per cent of that span).
+    handle = nvml.device_handle(torch.cuda.current_device())
+    step(sharded, x, y)
+    torch.cuda.synchronize()
+    e0, t_e = nvml.energy_mj(handle), time.perf_counter()
+    for _ in range(SHARD_ENERGY_STEPS):
+        step(sharded, x, y)
+    torch.cuda.synchronize()
+    e1, t_e = nvml.energy_mj(handle), time.perf_counter() - t_e
+    j_step = (e1 - e0) / 1e3 / SHARD_ENERGY_STEPS
+    one = PHASE14
+    print(f"phase 16: (a) qwen2-0.5b bf16 step on {SHARD_MESH} ({d} slots of "
+          f"{device}; the collectives are copies within the card) against "
+          f"1x1 (phase 14): median driver wall {med:.4f} ms (1x1 "
+          f"{one['step_ms']:.4f}, x{med / one['step_ms']:.3f}); chained "
+          f"{chain_ms:.4f} ms (1x1 {one['chain_ms']:.4f}, "
+          f"x{chain_ms / one['chain_ms']:.3f}); one profiled step timed by "
+          f"CUDA events around it: busy {busy:.4f} of {one_wall:.4f} ms, "
+          f"idle share {1 - busy / one_wall:.4f} (1x1 {one['busy_ms']:.4f} "
+          f"of {one['wall_ms']:.4f}, {1 - one['busy_ms'] / one['wall_ms']:.4f})"
+          f", {ops} device operations (1x1 {one['ops']}, "
+          f"x{ops / one['ops']:.3f}); peak "
+          f"memory {peak / 1e9:.3f} GB, {before / 1e9:.3f} GB allocated "
+          f"before the step (1x1 peak {one['peak'] / 1e9:.3f}); "
+          f"{j_step:.4f} J/step by the energy counter over "
+          f"{SHARD_ENERGY_STEPS} steps in {t_e:.3f} s, "
+          f"{(e1 - e0) / 1e3 / t_e:.2f} W (1x1 {one['j_step']:.4f}, "
+          f"x{j_step / one['j_step']:.3f})")
+    del sharded, state
+    torch.cuda.empty_cache()
+
+
+def _worst(got, want) -> tuple[float, float, str]:
+    """(the largest over the leaves of max |got - want| over the leaf's
+    largest |want| (0 where both are 0), the largest of |got - want| -
+    atol - rtol |want| at the step tolerance, the path of the leaf with
+    the first)."""
+    rel, over, where = 0.0, -math.inf, ""
+    for (path, a), b in zip(tree_items(got), tree_leaves(want)):
+        diff = (a.double() - b.double()).abs()
+        top = b.double().abs()
+        err = (float(diff.max() / top.max()) if top.max() > 0
+               else math.inf if diff.max() > 0 else 0.0)
+        if err > rel:
+            rel, where = err, path
+        over = max(over, float((diff - SHARD_STEP_ATOL
+                                - SHARD_STEP_RTOL * top).max()))
+    return rel, over, where
+
+
+def _compare(got, want, m_got, m_want, first: bool, moments: bool = True
+             ) -> tuple[bool, str]:
+    """Two train states and their metrics after one step (``first``) or
+    two, within SHARD_*'s tolerances: (held, a line of the largest
+    differences).  Without ``moments`` the first step's moments are
+    printed and not held."""
+    loss = abs(float(m_got["loss"]) - float(m_want["loss"])) / abs(
+        float(m_want["loss"]))
+    norm = abs(float(m_got["grad_norm"]) - float(m_want["grad_norm"])) / abs(
+        float(m_want["grad_norm"]))
+    trees = {"params": _worst(got.params, want.params),
+             "m": _worst(got.opt.m, want.opt.m),
+             "v": _worst(got.opt.v, want.opt.v)}
+    if first:
+        held = trees["params"][0] == 0 and (
+            not moments or (trees["m"][0] <= SHARD_RTOL
+                            and trees["v"][0] <= SHARD_RTOL))
+    else:
+        held = all(t[1] <= 0 for t in trees.values())
+    held = held and loss <= SHARD_LOSS_RTOL and norm <= SHARD_RTOL
+    (rp, op, _), (rm, om, wm), (rv, ov, wv) = (trees[k] for k in
+                                               ("params", "m", "v"))
+    return held, (f"loss rel {loss:.3e}, grad norm rel {norm:.3e}, params / "
+                  f"m / v within {rp:.3e} / {rm:.3e} ({wm}) / {rv:.3e} "
+                  f"({wv}) of a leaf's largest |value|, margins to the step "
+                  f"tolerance {-op:.3e} / {-om:.3e} / {-ov:.3e}")
+
+
+class _Float64(torch.overrides.TorchFunctionMode):
+    """Float32 code run in float64: a float32 dtype argument becomes
+    float64 and ``.float()`` ``.double()``; a call that still makes a
+    float32, bfloat16 or float16 tensor raises."""
+
+    LOW = (torch.float32, torch.bfloat16, torch.float16)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        wide = lambda a: torch.float64 if a is torch.float32 else a
+        if func is torch.Tensor.float:
+            func = torch.Tensor.double
+        out = func(*map(wide, args),
+                   **{k: wide(v) for k, v in (kwargs or {}).items()})
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor) and t.dtype in self.LOW:
+                raise RuntimeError(f"float64 run: {func} made {t.dtype}")
+        return out
+
+
+@contextlib.contextmanager
+def _float64():
+    """The port's float32 model and train steps computed in float64:
+    :class:`_Float64`, float64 the default dtype, and ``remat`` a plain
+    call (a mode does not reach a checkpoint's recompute in the backward;
+    the values are the same either way)."""
+    old, ckpt = torch.get_default_dtype(), model_common.checkpoint
+    torch.set_default_dtype(torch.float64)
+    model_common.checkpoint = lambda fn, *args, **kw: fn(*args)
+    try:
+        with _Float64():
+            yield
+    finally:
+        torch.set_default_dtype(old)
+        model_common.checkpoint = ckpt
+
+
+def _shard_equal(part: str, name: str, d: int, batch: int, seq: int,
+                 plain_moments: bool) -> None:
+    """(``part``) ``name`` at full width in float32 (TF32 off), two steps
+    on a (d, 1) mesh of slots of the card from one state and two batches,
+    held against the unsharded step with ``microbatches=d``, whose float32
+    gradient sum over the row groups is the replicas' (``make_train_step``'s
+    arithmetic), within every SHARD_* tolerance; and against the plain
+    unsharded step within them.  The first step again in float64
+    (:func:`_float64`): the (d, 1) step against the plain one held within
+    every first-step tolerance, and each float32 first step against the
+    float64 one.  Without ``plain_moments`` the float32 first step's
+    moments against plain 1x1 and against float64 are printed, not held:
+    mamba2-370m's plain float32 step is itself 3e-4 of a leaf's largest
+    |value| from the float64 one (``A_log``, ``conv_w``), so no split of
+    its sums holds 1e-4.  The unsharded step with ``microbatches=d``
+    against the plain one is printed."""
+    cfg = _zoo_cfg(name, dtype="float32")
+    model = build_model(cfg)
+    state = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(SEED))
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((d, 1), ("data", "model"),
+                     devices=train_launch.mesh_slots(d, device))
+    one_step = make_train_step(model)
+    split_step = make_train_step(model, microbatches=d)
+    step = make_sharded_train_step(model, mesh)
+    batches = _train_batches(cfg, batch, seq, 2)
+    x, y = batches[0]
+    with _float64():
+        wide = map_state(lambda t: tree_map(
+            lambda a: a.double() if a.is_floating_point() else a, t), state)
+        ref, m_ref = one_step(wide, x, y)
+        wide_d, m_wide_d = step(shard_state(wide, model, mesh), x, y)
+        wide_d = gather_state(wide_d)
+    del wide
+    one, split, sharded = state, state, shard_state(state, model, mesh)
+    del state
+    lines = []
+
+    def hold(label: str, args, first: bool, moments: bool | None) -> None:
+        held, text = _compare(*args, first, bool(moments))
+        check(held or moments is None,
+              f"phase 16: ({part}) {name} step {label}: {text}")
+        lines.append(f"step {label}: {text}")
+    hold(f"0 {d}x1 = 1x1, both in float64", (wide_d, ref, m_wide_d, m_ref),
+         True, True)
+    del wide_d
+    with _no_tf32():
+        for i, (x, y) in enumerate(batches):
+            one, m1 = one_step(one, x, y)
+            split, ms = split_step(split, x, y)
+            sharded, md = step(sharded, x, y)
+            got = gather_state(sharded)
+            hold(f"{i} {d}x1 = 1x1 microbatches={d}", (got, split, md, ms),
+                 i == 0, True)
+            hold(f"{i} {d}x1 = 1x1", (got, one, md, m1), i == 0,
+                 plain_moments or i > 0)
+            hold(f"{i} 1x1 microbatches={d} = 1x1", (split, one, ms, m1),
+                 i == 0, None)
+            if i == 0:
+                hold(f"0 {d}x1 = 1x1 float64", (got, ref, md, m_ref), True,
+                     plain_moments)
+                hold("0 1x1 = 1x1 float64", (one, ref, m1, m_ref), True,
+                     plain_moments)
+                del ref
+            del got
+    print(f"phase 16: ({part}) {name} float32 at full width on {d}x1, 2 "
+          f"steps of {batch} x {seq}, and its first step in float64; each "
+          f"line held but those printed only (microbatches={d} against 1x1"
+          + ("" if plain_moments else ", the float32 first step's moments "
+             "against plain 1x1 and float64") + "):")
+    for line in lines:
+        print(f"phase 16: ({part})   {line}")
+    del one, split, sharded
+    torch.cuda.empty_cache()
+
+
+def _example(name: str):
+    """The example module ``examples/torch/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}",
+        os.path.join(ROOT, "examples", "torch", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_examples() -> dict[str, int]:
+    """(e) The five examples with their default arguments on the card,
+    each with its launch counts set to 0 just before and read just
+    after; returns their sum."""
+    total: collections.Counter = collections.Counter()
+    for name in EXAMPLES:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = _example(name).main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = launch_counts()
+        total.update(run)
+        if name == "quickstart":
+            check(len(out["sweeps"]) == 6 and run["fft_c2c"] > 0,
+                  f"phase 16: (e) quickstart launches {run}")
+            note = f"mean optimal {out['mean_optimal'].f_mean:.0f} MHz"
+        elif name == "serve_fft":
+            rep = out.report()
+            check((rep.n_requests, rep.n_transforms) == (7, 17),
+                  f"phase 16: (e) serve_fft served {rep.n_requests} "
+                  f"requests, {rep.n_transforms} transforms")
+            note = (f"{rep.n_batches} batches, "
+                    f"{rep.joules_per_transform * 1e6:.2f} uJ/transform "
+                    f"(H100 model)")
+        elif name == "serve_lm":
+            check(tuple(np.asarray(out).shape) == (4, 16),
+                  f"phase 16: (e) serve_lm tokens {np.asarray(out).shape}")
+            note = "tokens (4, 16)"
+        elif name == "train_lm":
+            losses = [float(m["loss"]) for m in out]
+            first = statistics.fmean(losses[:TRAIN_ENDS])
+            last = statistics.fmean(losses[-TRAIN_ENDS:])
+            check(last < first and all(map(math.isfinite, losses)),
+                  f"phase 16: (e) train_lm loss {first:.4f} -> {last:.4f}")
+            note = (f"{len(losses)} steps, mean loss of the first "
+                    f"{TRAIN_ENDS} {first:.4f}, of the last {last:.4f}")
+        else:
+            check(out["peak_bin"] == 96
+                  and all(rows and rows[0][:2] == (4.0, 700)
+                          for rows in out["fdas"]),
+                  f"phase 16: (e) pulsar_pipeline {out}")
+            note = "pulsar at bin 96, FDAS drift +4 at bin 700"
+        print(f"phase 16: (e) example {name}: {wall:.2f} s, {note}, "
+              f"launches { {k: v for k, v in run.items() if v} }")
+    shutil.rmtree(os.path.join(tempfile.gettempdir(),
+                               "repro_torch_example_ckpt"),
+                  ignore_errors=True)
+    return dict(total)
+
+
+def phase16_sharded(gen: torch.Generator) -> dict[str, int]:
+    """The sharded train step on data meshes of slots of the card, then
+    the five examples; returns the examples' launches (the train steps
+    launch none of the port's kernels: their counts, set to 0 before and
+    read after, stay 0).  (``gen`` is unused: every draw comes from a
+    seeded generator of its own.)"""
+    t0 = time.perf_counter()
+    card = _card()
+    reset_launches()
+    _shard_cost(card)
+    for case in SHARD_EQUAL:
+        _shard_equal(*case)
+    torch.cuda.synchronize()
+    run = launch_counts()
+    check(not any(run.values()), f"phase 16: the port's kernels launched "
+          f"{run} in the train steps")
+    launches = _run_examples()
+    print(f"phase 16: wall time {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -4793,7 +5225,7 @@ def main() -> int:
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
                   phase9_energy, phase10_tune, phase11_robust,
                   phase12_distributed, phase13_zoo, phase14_train,
-                  phase15_dryrun):
+                  phase15_dryrun, phase16_sharded):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

@@ -52,9 +52,11 @@ that the fixed input spec places).
 
 "train" counts the forward, the rematerialised forward and the backward.
 A weight's uses in one forward default to the product of its leading
-(stacked-layer) dims; the caller says otherwise (a shared block).  Not
-counted: the split-KV reduction of a decode cache whose sequence carries
-``model``, and collectives of the inputs.
+(stacked-layer) dims; the caller says otherwise (a shared block).  No
+collective is counted over an axis of size 1: a partitioner emits none
+there, and the sharded train step (``train.sharded``) moves nothing.
+Not counted: the split-KV reduction of a decode cache whose sequence
+carries ``model``, and collectives of the inputs.
 """
 from __future__ import annotations
 
@@ -129,7 +131,7 @@ def collective_accounting(params, specs, mesh, *, kind: str, tokens: int,
     in one forward."""
     train = kind == "train"
     gathers, passes = (2, 3) if train else (1, 1)
-    batch = [a for a in ("pod", "data") if a in mesh.shape]
+    batch = [a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1]
     model = mesh.shape.get("model", 1)
     by_kind = dict.fromkeys(COLLECTIVE_KINDS, 0.0)
     by_axis = dict.fromkeys(mesh.axis_names, 0.0)
@@ -158,10 +160,11 @@ def collective_accounting(params, specs, mesh, *, kind: str, tokens: int,
             add("all-reduce", replicated[0], local)
         n_uses = (uses(path, shape) if uses is not None
                   else math.prod(shape[:-2]))
-        if len(shape) >= 2 and "model" in _axes(entries[-2]) and n_uses:
+        if (model > 1 and len(shape) >= 2 and "model" in _axes(entries[-2])
+                and n_uses):
             add("all-reduce", "model",
                 passes * n_uses * tokens * shape[-1] * act_bytes)
-        if (path.endswith("moe/w_gate") and top_k
+        if (model > 1 and path.endswith("moe/w_gate") and top_k
                 and "model" in _axes(entries[-3])):
             layers = math.prod(shape[:-3])
             add("all-to-all", "model", passes * 2 * layers * tokens / model

@@ -35,12 +35,25 @@ The output of :func:`pencil_fft` is in *transposed* layout — element
 (FFTW's MPI transposed-output convention).  Use :func:`untranspose_ref`
 on gathered results when validating.
 
-Each collective adds the bytes it moves between shards, per shard taking
-part, to its mesh's ``collective_bytes`` (a chunk that stays on its own
-shard counts 0): the counterpart of the per-device collective bytes the
-reference's dry run reads from HLO.  :func:`pencil_exchange_bytes` is
-what the pencil's collectives move; :func:`pencil_collective_bytes` is
-the reference's analytic model, equal to it for C2C.
+The mesh keeps two byte counters, in two conventions:
+
+* ``collective_bytes`` — what :meth:`Mesh.all_to_all` and
+  :meth:`Mesh.ppermute` move between shards, per shard taking part (a
+  chunk that stays on its own shard counts 0).
+  :func:`pencil_exchange_bytes` is what the pencil's collectives move;
+  :func:`pencil_collective_bytes` is the reference's analytic model,
+  equal to it for C2C.
+* ``collective_record`` — bytes by (kind, axis) of the training
+  collectives :meth:`Mesh.all_gather`, :meth:`Mesh.reduce_scatter` and
+  :meth:`Mesh.all_reduce`, in the reference's HLO convention: the bytes
+  of each result a collective makes on a slot, summed and averaged over
+  the mesh's devices (a slot's own chunk counts).  That is what
+  ``analysis.cost.collective_accounting`` prices a device; the sharded
+  train step (``train.sharded``) is held to it.
+
+A training collective's sum runs in float32 whatever the parts' dtype,
+in slot order, so every slot gets the same bits; its result comes back
+in the parts' dtype.
 """
 from __future__ import annotations
 
@@ -81,6 +94,7 @@ class Mesh:
                 f"{math.prod(self.shape.values())} devices, got "
                 f"{len(self.devices)}")
         self.collective_bytes = 0.0
+        self.collective_record: dict[tuple[str, str], float] = {}
 
     @property
     def size(self) -> int:
@@ -101,6 +115,80 @@ class Mesh:
 
     def reset_collective_bytes(self) -> None:
         self.collective_bytes = 0.0
+
+    def reset_collective_record(self) -> None:
+        self.collective_record = {}
+
+    def collective_totals(self) -> tuple[dict[str, float], dict[str, float]]:
+        """The record as ``analysis.cost.collective_accounting`` returns
+        its count: (bytes by kind, without zeros; bytes by axis, every
+        axis)."""
+        by_kind: dict[str, float] = {}
+        by_axis = dict.fromkeys(self.axis_names, 0.0)
+        for (kind, axis), nbytes in self.collective_record.items():
+            by_kind[kind] = by_kind.get(kind, 0.0) + nbytes
+            by_axis[axis] += nbytes
+        return {k: v for k, v in by_kind.items() if v}, by_axis
+
+    def _record(self, kind: str, axis: str, results) -> None:
+        key = (kind, axis)
+        self.collective_record[key] = self.collective_record.get(
+            key, 0.0) + sum(_nbytes(r) for r in results) / self.size
+
+    def _slots(self, parts: Sequence[torch.Tensor], axis: str
+               ) -> list[torch.device]:
+        devices = self.axis_devices(axis)
+        if len(parts) != len(devices):
+            raise ValueError(f"{len(parts)} parts for the {len(devices)} "
+                             f"slots of mesh axis {axis!r}")
+        return devices
+
+    def all_gather(self, shards: Sequence[torch.Tensor], dim: int, *,
+                   axis: str, slot: int) -> torch.Tensor:
+        """``jax.lax.all_gather(tiled=True)`` over ``axis`` as one slot
+        sees it: shard p lies on slot p; slot ``slot`` (an index along the
+        axis) gets the shards concatenated along ``dim``.  A single
+        controller makes only the result it uses next, one replica's."""
+        devices = self._slots(shards, axis)
+        first = shards[0]
+        dim %= first.dim()
+        shape = list(first.shape)
+        shape[dim] = sum(s.shape[dim] for s in shards)
+        out = torch.empty(shape, dtype=first.dtype, device=devices[slot])
+        at = 0
+        for s in shards:
+            out.narrow(dim, at, s.shape[dim]).copy_(s)
+            at += s.shape[dim]
+        self._record("all-gather", axis, [out])
+        return out
+
+    def reduce_scatter(self, parts: Sequence[torch.Tensor], dim: int, *,
+                       axis: str) -> list[torch.Tensor]:
+        """``jax.lax.psum_scatter(tiled=True)`` over ``axis``: part q lies
+        on slot q; slot p gets chunk p (along ``dim``) of the parts'
+        sum."""
+        devices = self._slots(parts, axis)
+        d = len(devices)
+        first = parts[0]
+        dim %= first.dim()
+        if first.shape[dim] % d:
+            raise ValueError(
+                f"reduce_scatter: dim {dim} of size {first.shape[dim]} "
+                f"does not split into {d} chunks")
+        c = first.shape[dim] // d
+        out = [_sum([q.narrow(dim, p * c, c) for q in parts], dev)
+               for p, dev in enumerate(devices)]
+        self._record("reduce-scatter", axis, out)
+        return out
+
+    def all_reduce(self, parts: Sequence[torch.Tensor], *, axis: str
+                   ) -> list[torch.Tensor]:
+        """``jax.lax.psum`` over ``axis``: part q lies on slot q; every
+        slot gets the parts' sum."""
+        devices = self._slots(parts, axis)
+        out = [_sum(parts, dev) for dev in devices]
+        self._record("all-reduce", axis, out)
+        return out
 
     def all_to_all(self, shards: Sequence[torch.Tensor], split_dim: int,
                    concat_dim: int) -> list[torch.Tensor]:
@@ -161,6 +249,19 @@ class Mesh:
         self.collective_bytes += moved / d
         return [o if o is not None else torch.zeros_like(s)
                 for o, s in zip(out, shards)]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _sum(parts: Sequence[torch.Tensor], device: torch.device
+         ) -> torch.Tensor:
+    """The parts' float32 sum, in order, on ``device``, in their dtype."""
+    total = parts[0].to(device=device, dtype=torch.float32, copy=True)
+    for q in parts[1:]:
+        total += q.to(device)
+    return total.to(parts[0].dtype)
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
@@ -230,6 +331,37 @@ def shard(x, mesh: Mesh, axis: str, dim: int) -> ShardedTensor:
         tuple(x.narrow(dim, p * c, c).to(dev)
               for p, dev in enumerate(mesh.axis_devices(axis))),
         mesh, axis, dim)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ReplicatedTensor:
+    """A tensor held whole on every slot of the mesh axis ``axis``: copy
+    p on ``mesh.axis_devices(axis)[p]`` (a replicated leaf of a sharded
+    train state)."""
+
+    copies: tuple[torch.Tensor, ...]
+    mesh: Mesh
+    axis: str
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.copies[0].shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.copies[0].dtype
+
+    def gather(self) -> torch.Tensor:
+        """The tensor (the first slot's copy)."""
+        return self.copies[0]
+
+
+def replicate(x, mesh: Mesh, axis: str) -> ReplicatedTensor:
+    """``x`` on every slot of ``axis``; a copy already on its device is
+    ``x`` itself."""
+    x = torch.as_tensor(x)
+    return ReplicatedTensor(tuple(x.to(dev) for dev in
+                                  mesh.axis_devices(axis)), mesh, axis)
 
 
 def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:

@@ -4,6 +4,8 @@
       --reduced --steps 100 --batch 8 --seq 128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --batch 8 --seq 128 --steps 30 --dvfs-report
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --batch 8 --seq 128 --steps 30 --mesh 4x1
 
 Wires together: config -> model -> train state -> synthetic data ->
 fault-tolerant loop (checkpoint/restart) -> DVFS clock plan.  It runs on
@@ -18,29 +20,45 @@ read and written once) decides the energy-optimal clock of the H100 SXM
 record with its bf16 tensor-core peak, reported beside the training
 metrics.
 
-``--mesh`` takes only ``1x1``: the port has no sharded executor yet.  The
-sharded train state's specs exist (``train.step.train_state_specs``,
-fixed for a mesh by ``launch.specs.fix_tree``; ``launch.dryrun`` prices
-them); running it on a mesh is ROADMAP.md queue 1 item 12d.
+``--mesh DxM`` is the (data, model) mesh.  ``1x1`` runs the unsharded
+step (``train.step``).  ``Dx1`` runs the sharded step (``train.sharded``):
+ZeRO weight shards over D data replicas, each taking a D-th of the
+batch.  Its slots are every visible card when their count is D (the
+reference's ``jax.make_mesh``), else D slots of the ``--device`` card, or
+D CPU slots with ``--device cpu``; the launcher prints them.  A
+checkpoint holds the gathered state in the reference's format, so one
+written on any mesh restores on any other (``runtime.checkpoint``).  On
+a mesh, ``--dvfs-report`` prices one slot's share: the step's FLOPs over
+D, the slot's state read and written, and the step's collective bytes
+(``Mesh.collective_record``) at the data axis' network rate
+(``analysis.roofline.NETWORK_BANDWIDTH``).  ``M`` > 1 (tensor
+parallelism) and an MoE architecture on D > 1 raise
+``NotImplementedError``: ROADMAP.md queue 1 item 12e.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch.analysis.roofline import NETWORK_BANDWIDTH
 from repro_torch.configs import get_arch
 from repro_torch.core.dvfs import sweep
 from repro_torch.core.hardware import H100_SXM_BF16
 from repro_torch.core.workloads import roofline_workload
 from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.fft.distributed import make_mesh
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.models.common import tree_leaves
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.fault import FaultTolerantDriver
+from repro_torch.train.sharded import (check_sizes, gather_state,
+                                       make_sharded_train_step, shard_state,
+                                       slot_state)
 from repro_torch.train.step import (TrainState, init_train_state,
                                     make_train_step)
 
@@ -59,9 +77,28 @@ def step_flops(step_fn, state: TrainState, inp, labels) -> int:
     return counter.get_total_flops()
 
 
+def parse_mesh(text: str) -> tuple[int, int]:
+    """``"DxM"`` -> (D, M)."""
+    try:
+        d, m = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {text!r}: expected DxM, e.g. 4x1") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh {text!r}: sizes must be positive")
+    return d, m
+
+
+def mesh_slots(d: int, device: torch.device) -> list[torch.device]:
+    """The mesh's D slots: every visible card when their count is D, else
+    D slots of ``device`` (a card or the CPU)."""
+    if device.type == "cuda" and torch.cuda.device_count() == d:
+        return [torch.device("cuda", i) for i in range(d)]
+    return [device] * d
+
+
 def main(argv=None, *, state: TrainState | None = None,
          log: list | None = None) -> TrainState:
-    """Train and return the final state.
+    """Train and return the final state (gathered, on a mesh).
 
     ``state``, when given, replaces the seeded initial state (for example
     one carried across with ``train.step.state_from_reference``); ``log``,
@@ -81,34 +118,45 @@ def main(argv=None, *, state: TrainState | None = None,
                                          "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model mesh; only 1x1 until a sharded "
-                         "executor (ROADMAP.md queue 1 item 12d)")
+                    help="data x model mesh: 1x1, or Dx1 for D data "
+                         "replicas (model > 1 is ROADMAP.md queue 1 item "
+                         "12e)")
     ap.add_argument("--dvfs-report", action="store_true",
                     help="print the energy-optimal clock plan for the step")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; running "
-            "the sharded train state (train_state_specs) on a mesh is "
-            "ROADMAP.md queue 1 item 12d")
-    device = resolve_device(args.device)
+    d, m = parse_mesh(args.mesh)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
+    mesh = None
+    check_sizes(model, d, m)
+    device = resolve_device(args.device)
     if state is None:
         state = init_train_state(
             model, torch.Generator(device=device).manual_seed(0), device)
 
-    train_step = make_train_step(model, microbatches=args.microbatches,
-                                 peak_lr=args.lr)
+    if (d, m) == (1, 1):
+        train_step = make_train_step(model, microbatches=args.microbatches,
+                                     peak_lr=args.lr)
+    else:
+        mesh = make_mesh((d, m), ("data", "model"),
+                         devices=mesh_slots(d * m, device))
+        print(f"[train] mesh {args.mesh} (data, model) on slots "
+              f"{', '.join(str(s) for s in mesh.devices)}")
+        state = shard_state(state, model, mesh)
+        train_step = make_sharded_train_step(
+            model, mesh, microbatches=args.microbatches, peak_lr=args.lr)
+
+    cards = [s for s in dict.fromkeys(mesh.devices if mesh is not None
+                                      else [device]) if s.type == "cuda"]
 
     def step_fn(st, inp, labels):
         out = train_step(st, inp, labels)
-        if device.type == "cuda":     # the driver's wall covers the step
-            torch.cuda.synchronize(device)
+        for card in cards:            # the driver's wall covers the step
+            torch.cuda.synchronize(card)
         return out
 
     ds = SyntheticTokens(cfg.vocab, args.seq, args.batch)
@@ -131,18 +179,36 @@ def main(argv=None, *, state: TrainState | None = None,
           f"final loss {float(rows[-1]['loss']):.4f}")
 
     if args.dvfs_report:
-        # Roofline profile of the step -> energy-optimal clock.
-        flops = step_flops(train_step, final_state, *data(0))
-        prof = roofline_workload(
-            f"train-{cfg.name}", H100_SXM_BF16, hlo_flops=flops,
-            hbm_bytes=2 * state_bytes(final_state), issue_efficiency=0.8)
-        res = sweep(prof, H100_SXM_BF16)
-        print(f"[dvfs] bound={prof.regime(H100_SXM_BF16)!r} "
+        # Roofline profile of the step (one slot's share) -> optimal clock.
+        device_spec = H100_SXM_BF16
+        if mesh is None:
+            flops = step_flops(train_step, final_state, *data(0))
+            prof = roofline_workload(
+                f"train-{cfg.name}", device_spec, hlo_flops=flops,
+                hbm_bytes=2 * state_bytes(final_state), issue_efficiency=0.8)
+        else:
+            mesh.reset_collective_record()
+            flops = step_flops(train_step, final_state, *data(0)) / d
+            hbm = 2 * state_bytes(slot_state(final_state, 0))
+            coll = sum(mesh.collective_record.values())
+            device_spec = dataclasses.replace(
+                device_spec, link_bandwidth=NETWORK_BANDWIDTH)
+            prof = roofline_workload(
+                f"train-{cfg.name}", device_spec, hlo_flops=flops,
+                hbm_bytes=hbm, collective_bytes=coll, issue_efficiency=0.8)
+            print(f"[dvfs] one slot of {args.mesh}: {flops:.4e} FLOP "
+                  f"({prof.t_compute * 1e3:.4f} ms at the bf16 peak), "
+                  f"{hbm} B of state read and written ({prof.t_mem * 1e3:.4f}"
+                  f" ms), {coll:.0f} B of collectives "
+                  f"({prof.t_coll * 1e3:.4f} ms at "
+                  f"{NETWORK_BANDWIDTH / 1e9:.0f} GB/s)")
+        res = sweep(prof, device_spec)
+        print(f"[dvfs] bound={prof.regime(device_spec)!r} "
               f"optimal={res.optimal.f:.0f} MHz "
-              f"({100*res.optimal.f/H100_SXM_BF16.f_max:.0f}% of boost), "
+              f"({100*res.optimal.f/device_spec.f_max:.0f}% of boost), "
               f"power cut {100*res.power_reduction:.0f}%, "
               f"slowdown {100*res.slowdown:.1f}%, I_ef {res.i_ef_boost:.2f}")
-    return final_state
+    return final_state if mesh is None else gather_state(final_state)
 
 
 if __name__ == "__main__":

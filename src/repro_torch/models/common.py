@@ -23,6 +23,7 @@ the reference tree's paths joined by ``.`` (``layers.attn.w_q``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import types
 from typing import Any, Callable
 
@@ -145,7 +146,8 @@ def tree_items(tree, path: str = "") -> list[tuple[str, Any]]:
 def unstack(tree, n: int) -> list[dict]:
     """The ``n`` slices along the leading (stacked-layer) axis of every
     leaf, as ``n`` nested dicts of views (``jax.lax.scan``'s per-step
-    ``xs``): one ``unbind`` a leaf."""
+    ``xs``): one ``unbind`` a leaf (a :class:`LazyLeaf`'s gives its
+    layers' leaves)."""
     if _is_tree(tree):
         parts = {k: unstack(tree[k], n) for k in tree.keys()}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
@@ -200,6 +202,27 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None
             ).to(dtype)
 
 
+class LazyLeaf:
+    """A parameter leaf made where it is used: a weight sharded over the
+    data replicas, whose all-gather runs on use (``train.sharded``).
+    :func:`remat` makes the leaves among its arguments inside the
+    checkpointed function, so that the recompute makes them again, as the
+    reference's ``jax.checkpoint`` gathers a ZeRO-sharded weight again;
+    :func:`unstack` splits one into its layers' leaves."""
+
+    def make(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def unbind(self, dim: int = 0) -> list["LazyLeaf"]:
+        raise NotImplementedError
+
+
+def _made(fn: Callable, *args):
+    """``fn(*args)`` with every :class:`LazyLeaf` of ``args`` made."""
+    return fn(*tree_map(lambda a: a.make() if isinstance(a, LazyLeaf)
+                        else a, list(args)))
+
+
 def remat(fn: Callable, *args):
     """``fn(*args)``, rematerialised in backward: the reference's
     ``jax.checkpoint(policy=nothing_saveable)``.  Where autograd records
@@ -207,8 +230,11 @@ def remat(fn: Callable, *args):
     ``torch.utils.checkpoint``, which keeps none of its activations and
     runs it again when backward needs them; elsewhere (serving under
     ``inference_mode``) it is a plain call.  The values are the same bits
-    either way."""
+    either way.  A :class:`LazyLeaf` among ``args`` is made inside the
+    checkpointed call; without one, ``fn`` is called as it is."""
     if torch.is_grad_enabled():
+        if any(isinstance(a, LazyLeaf) for a in tree_leaves(list(args))):
+            fn = functools.partial(_made, fn)
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)

@@ -26,6 +26,14 @@ from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec,
                                        tree_map, unstack)
 
 
+#: The top-level key of the parameter tree (the stacked layers) whose
+#: leaves are used only inside a rematerialised layer (``remat``): the
+#: sharded train step (``train.sharded``) all-gathers a sharded one
+#: there, and again in the recompute; it gathers every other sharded leaf
+#: once.
+REMAT_PARAMS = ("layers",)
+
+
 def _dims(cfg: ArchConfig):
     s = cfg.ssm
     inner = s.expand * cfg.d_model

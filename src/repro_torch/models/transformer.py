@@ -31,6 +31,14 @@ from repro_torch.models.mla import (init_mla, mla_attention, mla_cache_shape,
 from repro_torch.models.moe import init_moe, moe_block
 
 
+#: The top-level key of the parameter tree (the stacked layers) whose
+#: leaves are used only inside a rematerialised layer or 5:1 group
+#: (``remat``): the sharded train step (``train.sharded``) all-gathers a
+#: sharded one there, and again in the recompute; it gathers every other
+#: sharded leaf once.
+REMAT_PARAMS = ("layers",)
+
+
 # ---------------------------------------------------------------------------
 # Parameter construction
 # ---------------------------------------------------------------------------

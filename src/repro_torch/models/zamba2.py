@@ -30,6 +30,14 @@ from repro_torch.models.mamba2 import (init_mamba_block, mamba_block,
                                        mamba_cache_specs, mamba_decode)
 
 
+#: The top-level keys of the parameter tree (the sites' mamba layers and
+#: projections) whose leaves are used only inside a rematerialised site
+#: (``remat``): the sharded train step (``train.sharded``) all-gathers a
+#: sharded one there, and again in the recompute; it gathers every other
+#: sharded leaf once.
+REMAT_PARAMS = ("site_layers", "site_proj")
+
+
 def _site_layout(cfg: ArchConfig) -> tuple[int, int]:
     every = cfg.shared_attn_every
     n_sites = cfg.n_layers // every

@@ -45,10 +45,14 @@ def global_norm(tree) -> torch.Tensor:
 def adamw_update(params, grads, state: AdamWState, *,
                  lr: float | torch.Tensor = 3e-4, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float | None = 1.0):
+                 weight_decay: float = 0.1, clip_norm: float | None = 1.0,
+                 grad_norm: torch.Tensor | None = None):
     """-> (new params, new state, global norm of ``grads`` before the
-    clip).  The inputs are left as they are."""
-    gnorm = global_norm(grads)
+    clip).  The inputs are left as they are.  ``grad_norm``, when given,
+    is the global norm to clip by in place of ``grads``' own: a data
+    replica's slot updates its shards of the tree by the whole tree's
+    norm (``train.sharded``)."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     # A bf16 gradient is cast to float32 before it is scaled: in JAX the
     # bf16 x f32 product promotes to float32, in torch it would stay bf16.
     grads = tree_map(lambda g: g.float(), grads)

@@ -34,7 +34,10 @@ ShardedTensor``) is saved as its gathered array, so the manifest stays
 mesh-agnostic, and restored onto the mesh, axis and dim of the ``like``
 leaf — a checkpoint saved on one mesh restores onto the shrunk mesh of
 ``runtime.elastic.elastic_remesh_plan`` (the reference's
-``device_put(arr, like.sharding)``).
+``device_put(arr, like.sharding)``).  A replicated leaf
+(``ReplicatedTensor``) is saved once and restored onto every slot of the
+``like`` leaf's axis, so a sharded train state (``train.sharded``) saved
+on one data mesh restores on another, or unsharded.
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.fft.distributed import ShardedTensor, shard
+from repro_torch.fft.distributed import (ReplicatedTensor, ShardedTensor,
+                                         replicate, shard)
 from repro_torch.models.common import ParamTree
 
 #: numpy's dtype for the 16-bit words of a bfloat16 leaf.
@@ -141,7 +145,7 @@ def _rebuild(like, leaves: dict[str, Any], path: tuple = ()):
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """The leaf as the array ``np.save`` writes, and its manifest dtype."""
-    if isinstance(leaf, ShardedTensor):
+    if isinstance(leaf, (ShardedTensor, ReplicatedTensor)):
         leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
@@ -176,6 +180,9 @@ def _restore_leaf(arr: np.ndarray, like):
     if isinstance(like, ShardedTensor):
         return shard(_from_host(arr).to(like.dtype), like.mesh,
                      like.axis, like.dim)
+    if isinstance(like, ReplicatedTensor):
+        return replicate(_from_host(arr).to(like.dtype), like.mesh,
+                         like.axis)
     if isinstance(like, torch.Tensor):
         return _from_host(arr).to(device=like.device, dtype=like.dtype)
     if isinstance(like, np.ndarray):

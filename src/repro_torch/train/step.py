@@ -69,8 +69,12 @@ def loss_fn(model: Model, params, inp, labels, *, aux_weight: float
     return ce + aux_weight * aux
 
 
+#: The weight of the MoE load-balancing loss in the train steps' loss.
+AUX_WEIGHT = 0.01
+
+
 def make_train_step(model: Model, *, microbatches: int = 1,
-                    aux_weight: float = 0.01, peak_lr: float = 3e-4
+                    aux_weight: float = AUX_WEIGHT, peak_lr: float = 3e-4
                     ) -> Callable:
     """Build ``train_step(state, inputs, labels) -> (state, metrics)``.
 

@@ -238,6 +238,31 @@ def test_collectives_over_pods_and_uses():
     assert by_kind["all-reduce"] == sharded + 16 * 4 + 3 * 5 * 10 * 16 * 2
 
 
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (1, 4)])
+def test_no_collective_over_an_axis_of_size_one(mesh_shape):
+    """A partitioner emits no collective over one device: on (4, 1) the
+    ZeRO gathers, scatters and gradient all-reduces stay on ``data`` and
+    nothing is charged to ``model``; on (1, 4) the TP all-reduce and the
+    experts' all-to-all stay on ``model`` and nothing is charged to
+    ``data``."""
+    d, m = mesh_shape
+    by_kind, by_axis = accounting("train", mesh_shape)
+    nbytes = {"w_in": 16 * 32 * 2, "w_out": 3 * 32 * 16 * 2,
+              "moe": 2 * 4 * 16 * 8 * 2, "norm": 16 * 4}
+    if m == 1:
+        sharded = nbytes["w_in"] + nbytes["w_out"] + nbytes["moe"]
+        assert by_kind == {"all-gather": 2 * sharded,
+                           "reduce-scatter": sharded / d,
+                           "all-reduce": nbytes["norm"]}
+        assert by_axis == {"data": 2 * sharded + sharded / d
+                           + nbytes["norm"], "model": 0.0}
+    else:
+        tp = 3 * 3 * 10 * 16 * 2
+        a2a = 3 * 2 * 2 * (10 / 4) * 2 * 16 * 2
+        assert by_kind == {"all-reduce": tp, "all-to-all": a2a}
+        assert by_axis == {"data": 0.0, "model": tp + a2a}
+
+
 # ---------------------------------------------------------------------------
 # The byte counter and the FFT wrappers' meta branch
 # ---------------------------------------------------------------------------

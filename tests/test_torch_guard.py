@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` imports JAX, the
 JAX reference package ``repro`` or ``ml_dtypes`` (which the card's
 machine lacks; ``models.convert`` imports it inside the one function that
-hands bf16 arrays back to the reference)."""
+hands bf16 arrays back to the reference); nor do the port's examples and
+``chip_smoke.py``."""
 import ast
 import os
 import pkgutil
@@ -67,7 +68,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "repro_torch.launch", "repro_torch.launch.serve",
                  "repro_torch.optim", "repro_torch.optim.adamw",
                  "repro_torch.optim.schedule", "repro_torch.train",
-                 "repro_torch.train.step", "repro_torch.launch.train",
+                 "repro_torch.train.step", "repro_torch.train.sharded",
+                 "repro_torch.launch.train",
                  "repro_torch.data", "repro_torch.launch.mesh",
                  "repro_torch.launch.specs", "repro_torch.launch.dryrun",
                  "repro_torch.launch.fft_dryrun", "repro_torch.analysis",
@@ -108,6 +110,21 @@ def test_no_source_file_names_jax_or_repro_in_an_import():
         (os.path.relpath(path, SRC), name)
         for path in files for name in _imported_names(path)
         if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not offending, offending
+
+
+def test_the_examples_and_the_chip_check_name_no_jax_or_repro():
+    """``examples/torch/*.py`` and ``chip_smoke.py`` run on the card's
+    machine, which has no JAX."""
+    root = os.path.dirname(SRC)
+    examples = os.path.join(root, "examples", "torch")
+    files = [os.path.join(examples, f) for f in sorted(os.listdir(examples))
+             if f.endswith(".py")] + [os.path.join(root, "chip_smoke.py")]
+    assert len(files) == 6
+    offending = [
+        (os.path.relpath(path, root), name)
+        for path in files for name in _imported_names(path)
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not offending, offending
 
 

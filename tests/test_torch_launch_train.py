@@ -7,8 +7,9 @@ cannot train under the installed jax); the reference's driver claims
 same losses); a ``TrainState`` checkpoint restores across the packages
 under the reference's key names; a bf16 checkpoint is byte-identical to
 the reference's and restores in the port (the reference cannot restore
-it); ``--mesh`` past 1x1 and a card-less ``cuda`` raise; an
-embeddings-input model cannot be trained in either package."""
+it); ``--mesh 2x1`` on CPU slots trains as ``1x1`` does; a model axis
+past 1, an MoE architecture on a data mesh and a card-less ``cuda``
+raise; an embeddings-input model cannot be trained in either package."""
 import json
 import os
 
@@ -92,10 +93,51 @@ def test_main_raises_without_a_card_unless_asked_for_the_cpu(tmp_path):
         train.main(ARGS + ["--ckpt-dir", str(tmp_path)])
 
 
-def test_mesh_past_one_device_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="12d"):
-        train.main(ARGS + ["--mesh", "2x1", "--device", "cpu",
-                           "--ckpt-dir", str(tmp_path)])
+@pytest.mark.parametrize("arch,mesh", [("qwen2-0.5b", "2x2"),
+                                       ("dbrx-132b", "2x1")])
+def test_mesh_past_one_device_raises(arch, mesh, tmp_path):
+    """Tensor parallelism (a model axis past 1) and an MoE architecture on
+    more than one data replica are queue 1 item 12e."""
+    args = ["--arch", arch, "--reduced", "--steps", "1", "--batch", "2",
+            "--seq", "16", "--mesh", mesh, "--device", "cpu",
+            "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(NotImplementedError, match="12e"):
+        train.main(args)
+
+
+def test_a_data_mesh_trains_as_one_device(tmp_path, capsys):
+    """``--mesh 2x1`` on two CPU slots: the slot list printed, the losses
+    of ``--mesh 1x1`` and, after three steps, its state within the step
+    tolerance; the checkpoints hold the gathered state and restore in an
+    unsharded run's state."""
+    args = ARGS + ["--device", "cpu", "--dvfs-report"]
+    one_log, mesh_log = [], []
+    one = train.main(args + ["--ckpt-dir", str(tmp_path / "1x1")],
+                     log=one_log)
+    capsys.readouterr()
+    got = train.main(args + ["--mesh", "2x1", "--ckpt-dir",
+                             str(tmp_path / "2x1")], log=mesh_log)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "[train] mesh 2x1 (data, model) on slots cpu, cpu"
+    assert out[-2].startswith("[dvfs] one slot of 2x1: ")
+    assert " B of collectives (" in out[-2]
+    assert out[-1].startswith("[dvfs] bound=")
+    np.testing.assert_allclose([float(m["loss"]) for m in mesh_log],
+                               [float(m["loss"]) for m in one_log],
+                               rtol=1e-5)
+    assert int(got.step) == int(one.step) == 3
+    for a, b in zip(flat(got), flat(one)):
+        np.testing.assert_allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL)
+    restored = CheckpointManager(str(tmp_path / "2x1")).restore(one, 3)
+    for a, b in zip(flat(restored), flat(got)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_data_mesh_on_the_card_raises_without_one(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device trains")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(ARGS + ["--mesh", "4x1", "--ckpt-dir", str(tmp_path)])
 
 
 def test_an_embeddings_input_model_cannot_be_trained_in_either_package(
