@@ -226,7 +226,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      the launches of (e) counted (set to 0 just before each example, read
      just after), (a)-(d) launching none.  On one card the collectives
      are HBM-to-HBM copies;
- 17. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 17. tensor and expert parallelism (``train.sharded`` with a ``model``
+     axis) on slots of the card (counts set to 0 before, read after, stay
+     0): (a) qwen2-0.5b at full width and depth in bf16 through
+     ``launch.train.main --mesh 2x2`` at phase 14's 8 x 128 (4 x 128 a
+     replica, 2 model slots each), 8 steps: the step's median, idle
+     share, device operations, peak memory and J/step beside phase 16's
+     4x1 and phase 14's 1x1, and the per-axis ``--dvfs-report`` lines;
+     (b) qwen2-0.5b at full width in float32 (TF32 off) on 1x2 and 2x2
+     against 1x1 from one state, two steps of 8 x 128, within the CPU
+     tests' tolerances, the first step also in float64; (c)
+     deepseek-v2-lite-16b at full width cut in depth to its dense layer
+     and one MoE layer, 2 x 128 tokens (one group of 256 over the two
+     replicas), its first step in float64 on 2x1 and 2x2 held within
+     1e-12 of a leaf's largest |value| against 1x1 with one microbatch
+     (the sharded step routes the whole batch's groups, as the
+     reference's does), the peak memory, and in float32 its differences
+     and the (token, k) routes that differ from 1x1's, printed; (d) the
+     record of one (a) step equal to ``train.sharded.accounted_record``;
+ 18. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -311,12 +329,15 @@ from repro_torch.models import mamba2 as mamba2_impl  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.runtime.fault import FaultTolerantDriver  # noqa: E402
 from repro_torch.data.synthetic import SyntheticTokens  # noqa: E402
-from repro_torch.train.step import (init_train_state,  # noqa: E402
-                                    make_train_step, map_state)
+from repro_torch.train.step import (TrainState,  # noqa: E402
+                                    init_train_state, make_train_step,
+                                    map_state)
 from repro_torch.train.sharded import (accounted_record,  # noqa: E402
                                        gather_state, make_sharded_train_step,
                                        shard_state)
 from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import moe as moe_impl  # noqa: E402
+from repro_torch.optim.adamw import AdamWState  # noqa: E402
 from repro_torch.models.common import tree_items  # noqa: E402
 from repro_torch.runtime.faults import (CRASH_PROCESS,  # noqa: E402
                                         FAIL_CLOCK_LOCK, FAIL_PLAN_BUILD,
@@ -689,6 +710,27 @@ SHARD_RTOL = 1e-4
 SHARD_STEP_RTOL, SHARD_STEP_ATOL = 2e-2, 2e-3
 EXAMPLES = ("quickstart", "serve_fft", "serve_lm", "train_lm",
             "pulsar_pipeline")
+#: Phase 16's 4x1 numbers, which phase 17 prints beside its 2x2 ones.
+PHASE16: dict[str, float] = {}
+#: Phase 17, tensor and expert parallelism on slots of the card:
+#: qwen2-0.5b bf16 through ``launch.train`` on TP_MESH at phase 14's
+#: batch (TP_STEPS driver steps, SHARD_CHAINED timed back to back); the
+#: float32 equality meshes of qwen2-0.5b at 8 x 128 (two steps each,
+#: the first also in float64, within the CPU tests' tolerances, SHARD_*);
+#: deepseek-v2-lite-16b at full width cut in depth to TP_MOE_LAYERS (its
+#: one dense layer and one MoE layer: 1.085e9 parameters, 8.7 GB a copy in
+#: float64) on TP_MOE_MESHES at TP_MOE_BATCH x TP_MOE_SEQ tokens, one
+#: group of 256 that spans the two data replicas, its first step in
+#: float64 held within TP_MOE_RTOL of a leaf's largest |value| against
+#: 1x1, its float32 differences and differing (token, k) routes printed.
+TP_MESH = "2x2"
+TP_STEPS = 8
+TP_EQUAL = ((1, 2), (2, 2))
+TP_MOE = "deepseek-v2-lite-16b"
+TP_MOE_LAYERS = 2
+TP_MOE_MESHES = ((2, 1), (2, 2))
+TP_MOE_BATCH, TP_MOE_SEQ = 2, 128
+TP_MOE_RTOL = 1e-12
 
 
 def reset_launches() -> None:
@@ -4855,45 +4897,45 @@ def phase15_dryrun(gen: torch.Generator) -> dict[str, int]:
     return run
 
 
-def _shard_cost(card: str) -> None:
-    """(a) qwen2-0.5b bf16 through ``launch.train.main --mesh 4x1``: the
-    driver's steps, then the sharded step timed chained, profiled (busy,
-    device operations), its peak memory and J/step, beside phase 14's
-    1x1 numbers; (c) one step's collective record against the
-    accounting."""
-    ckpt_dir = tempfile.mkdtemp(prefix="phase16-")
-    d = int(SHARD_MESH.split("x")[0])
+def _mesh_run(card: str, phase: int, mesh_text: str, steps: int
+              ) -> dict[str, float]:
+    """qwen2-0.5b bf16 through ``launch.train.main --mesh mesh_text`` at
+    phase 14's batch (8 x 128): the driver's steps, then the sharded step
+    timed chained, profiled (busy, device operations), its peak memory
+    and J/step; one step's collective record held against
+    ``train.sharded.accounted_record``.  Returns the numbers."""
+    ckpt_dir = tempfile.mkdtemp(prefix=f"phase{phase}-")
+    d, m = train_launch.parse_mesh(mesh_text)
     batch, seq = 8, 128
     try:
         log: list = []
         t0 = time.perf_counter()
         state = train_launch.main(
             ["--arch", "qwen2-0.5b", "--batch", str(batch), "--seq",
-             str(seq), "--steps", str(SHARD_STEPS), "--lr", "1e-2",
-             "--ckpt-every", str(10 * SHARD_STEPS), "--mesh", SHARD_MESH,
+             str(seq), "--steps", str(steps), "--lr", "1e-2",
+             "--ckpt-every", str(10 * steps), "--mesh", mesh_text,
              "--ckpt-dir", ckpt_dir, "--dvfs-report"], log=log)
         wall = time.perf_counter() - t0
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    losses = [float(m["loss"]) for m in log]
-    norms = [float(m["grad_norm"]) for m in log]
-    check(len(log) == SHARD_STEPS and all(map(math.isfinite,
-                                              losses + norms)),
-          f"phase 16: (a) losses {losses} grad norms {norms}")
-    walls = [m["wall"] * 1e3 for m in log]
+    losses = [float(x["loss"]) for x in log]
+    norms = [float(x["grad_norm"]) for x in log]
+    check(len(log) == steps and all(map(math.isfinite, losses + norms)),
+          f"phase {phase}: (a) losses {losses} grad norms {norms}")
+    walls = [x["wall"] * 1e3 for x in log]
     med = statistics.median(walls[2:])
-    print(f"phase 16: (a) launch.train --mesh {SHARD_MESH} qwen2-0.5b bf16 "
-          f"(batch {batch} x {seq}, {batch // d} x {seq} a replica) on "
-          f"{card}: {SHARD_STEPS} steps in {wall:.3f} s (init, state "
-          f"placement and the final checkpoint included); losses "
-          f"{[round(x, 4) for x in losses]}; step walls (ms, synchronised) "
-          f"{[round(x, 3) for x in walls]}")
+    print(f"phase {phase}: (a) launch.train --mesh {mesh_text} qwen2-0.5b "
+          f"bf16 (batch {batch} x {seq}, {batch // d} x {seq} a replica, "
+          f"{m} model slots a replica) on {card}: {steps} steps in "
+          f"{wall:.3f} s (init, state placement and the final checkpoint "
+          f"included); losses {[round(x, 4) for x in losses]}; step walls "
+          f"(ms, synchronised) {[round(x, 3) for x in walls]}")
 
     cfg = ZOO_ARCHS["qwen2-0.5b"]
     model = build_model(cfg)
     device = torch.device("cuda", torch.cuda.current_device())
-    mesh = make_mesh((d, 1), ("data", "model"),
-                     devices=train_launch.mesh_slots(d, device))
+    mesh = make_mesh((d, m), ("data", "model"),
+                     devices=train_launch.mesh_slots(d * m, device))
     sharded = shard_state(state, model, mesh)
     step = make_sharded_train_step(model, mesh, peak_lr=1e-2)
     batches = _train_batches(cfg, batch, seq, SHARD_CHAINED)
@@ -4909,7 +4951,7 @@ def _shard_cost(card: str) -> None:
     stop.synchronize()
     chain_ms = start.elapsed_time(stop) / SHARD_CHAINED
     check(math.isfinite(float(metrics["loss"])),
-          "phase 16: (a) chained steps gave a non-finite loss")
+          f"phase {phase}: (a) chained steps gave a non-finite loss")
     del chained, metrics
     busy, one_wall, ops = _busy_wall_ops(lambda: step(sharded, x, y))
     torch.cuda.empty_cache()
@@ -4924,12 +4966,13 @@ def _shard_cost(card: str) -> None:
     torch.cuda.synchronize()
     got = mesh.collective_totals()
     want = accounted_record(model, state, mesh, batch // d * seq)
-    check(got == want, f"phase 16: (c) record {got} != accounting by the "
-          f"formula {want}")
-    print(f"phase 16: (c) one {SHARD_MESH} step's collective record = the "
-          f"accounting (tokens {batch // d * seq} a replica) with the "
-          f"embedding gathered once and the loss and squared norm "
-          f"all-reduced: by kind {got[0]}, by axis {got[1]}")
+    part = "(c)" if phase == 16 else "(d)"
+    check(got == want, f"phase {phase}: {part} record {got} != accounting "
+          f"by the formula {want}")
+    print(f"phase {phase}: {part} one {mesh_text} step's collective record "
+          f"= the accounting (tokens {batch // d * seq} a replica) by "
+          f"train.sharded.accounted_record's formulas: by kind {got[0]}, "
+          f"by axis {got[1]}")
 
     # The step takes over a second, so the energy counter's rise over
     # SHARD_ENERGY_STEPS synchronised steps after a warm one (its ~100 ms
@@ -4942,27 +4985,54 @@ def _shard_cost(card: str) -> None:
         step(sharded, x, y)
     torch.cuda.synchronize()
     e1, t_e = nvml.energy_mj(handle), time.perf_counter() - t_e
-    j_step = (e1 - e0) / 1e3 / SHARD_ENERGY_STEPS
-    one = PHASE14
-    print(f"phase 16: (a) qwen2-0.5b bf16 step on {SHARD_MESH} ({d} slots of "
-          f"{device}; the collectives are copies within the card) against "
-          f"1x1 (phase 14): median driver wall {med:.4f} ms (1x1 "
-          f"{one['step_ms']:.4f}, x{med / one['step_ms']:.3f}); chained "
-          f"{chain_ms:.4f} ms (1x1 {one['chain_ms']:.4f}, "
-          f"x{chain_ms / one['chain_ms']:.3f}); one profiled step timed by "
-          f"CUDA events around it: busy {busy:.4f} of {one_wall:.4f} ms, "
-          f"idle share {1 - busy / one_wall:.4f} (1x1 {one['busy_ms']:.4f} "
-          f"of {one['wall_ms']:.4f}, {1 - one['busy_ms'] / one['wall_ms']:.4f})"
-          f", {ops} device operations (1x1 {one['ops']}, "
-          f"x{ops / one['ops']:.3f}); peak "
-          f"memory {peak / 1e9:.3f} GB, {before / 1e9:.3f} GB allocated "
-          f"before the step (1x1 peak {one['peak'] / 1e9:.3f}); "
-          f"{j_step:.4f} J/step by the energy counter over "
-          f"{SHARD_ENERGY_STEPS} steps in {t_e:.3f} s, "
-          f"{(e1 - e0) / 1e3 / t_e:.2f} W (1x1 {one['j_step']:.4f}, "
-          f"x{j_step / one['j_step']:.3f})")
     del sharded, state
     torch.cuda.empty_cache()
+    return {"step_ms": med, "chain_ms": chain_ms, "busy_ms": busy,
+            "wall_ms": one_wall, "ops": ops, "peak": peak, "before": before,
+            "j_step": (e1 - e0) / 1e3 / SHARD_ENERGY_STEPS,
+            "watts": (e1 - e0) / 1e3 / t_e, "t_e": t_e}
+
+
+def _beside(run: dict[str, float], label: str, other: dict[str, float]
+            ) -> str:
+    """``run``'s step numbers beside ``other``'s (``label``)."""
+    return (f"{label}: driver wall {other['step_ms']:.4f} "
+            f"(x{run['step_ms'] / other['step_ms']:.3f}), chained "
+            f"{other['chain_ms']:.4f} "
+            f"(x{run['chain_ms'] / other['chain_ms']:.3f}), busy {other['busy_ms']:.4f} of {other['wall_ms']:.4f}, idle "
+            f"share {1 - other['busy_ms'] / other['wall_ms']:.4f}, "
+            f"{other['ops']} device operations "
+            f"(x{run['ops'] / other['ops']:.3f}), peak "
+            f"{other['peak'] / 1e9:.3f} GB, {other['j_step']:.4f} J/step "
+            f"(x{run['j_step'] / other['j_step']:.3f})")
+
+
+def _run_line(run: dict[str, float]) -> str:
+    return (f"median driver wall {run['step_ms']:.4f} ms; chained "
+            f"{run['chain_ms']:.4f} ms; one profiled step timed by CUDA "
+            f"events around it: busy {run['busy_ms']:.4f} of "
+            f"{run['wall_ms']:.4f} ms, idle share "
+            f"{1 - run['busy_ms'] / run['wall_ms']:.4f}, {run['ops']} device "
+            f"operations; peak memory {run['peak'] / 1e9:.3f} GB, "
+            f"{run['before'] / 1e9:.3f} GB allocated before the step; "
+            f"{run['j_step']:.4f} J/step by the energy counter over "
+            f"{SHARD_ENERGY_STEPS} steps in {run['t_e']:.3f} s, "
+            f"{run['watts']:.2f} W")
+
+
+def _shard_cost(card: str) -> None:
+    """(a) qwen2-0.5b bf16 through ``launch.train.main --mesh 4x1``: the
+    driver's steps, then the sharded step timed chained, profiled (busy,
+    device operations), its peak memory and J/step, beside phase 14's
+    1x1 numbers; (c) one step's collective record against the
+    accounting."""
+    run = _mesh_run(card, 16, SHARD_MESH, SHARD_STEPS)
+    PHASE16.update(run)
+    d = int(SHARD_MESH.split("x")[0])
+    print(f"phase 16: (a) qwen2-0.5b bf16 step on {SHARD_MESH} ({d} slots of "
+          f"the card; the collectives are copies within the card): "
+          f"{_run_line(run)}; against "
+          f"{_beside(run, '1x1 (phase 14)', PHASE14)}")
 
 
 def _worst(got, want) -> tuple[float, float, str]:
@@ -5048,9 +5118,9 @@ def _float64():
 
 
 def _shard_equal(part: str, name: str, d: int, batch: int, seq: int,
-                 plain_moments: bool) -> None:
+                 plain_moments: bool, m: int = 1, phase: int = 16) -> None:
     """(``part``) ``name`` at full width in float32 (TF32 off), two steps
-    on a (d, 1) mesh of slots of the card from one state and two batches,
+    on a (d, m) mesh of slots of the card from one state and two batches,
     held against the unsharded step with ``microbatches=d``, whose float32
     gradient sum over the row groups is the replicas' (``make_train_step``'s
     arithmetic), within every SHARD_* tolerance; and against the plain
@@ -5068,8 +5138,9 @@ def _shard_equal(part: str, name: str, d: int, batch: int, seq: int,
     state = init_train_state(
         model, torch.Generator(device="cuda").manual_seed(SEED))
     device = torch.device("cuda", torch.cuda.current_device())
-    mesh = make_mesh((d, 1), ("data", "model"),
-                     devices=train_launch.mesh_slots(d, device))
+    mesh = make_mesh((d, m), ("data", "model"),
+                     devices=train_launch.mesh_slots(d * m, device))
+    shape = f"{d}x{m}"
     one_step = make_train_step(model)
     split_step = make_train_step(model, microbatches=d)
     step = make_sharded_train_step(model, mesh)
@@ -5089,9 +5160,9 @@ def _shard_equal(part: str, name: str, d: int, batch: int, seq: int,
     def hold(label: str, args, first: bool, moments: bool | None) -> None:
         held, text = _compare(*args, first, bool(moments))
         check(held or moments is None,
-              f"phase 16: ({part}) {name} step {label}: {text}")
+              f"phase {phase}: ({part}) {name} step {label}: {text}")
         lines.append(f"step {label}: {text}")
-    hold(f"0 {d}x1 = 1x1, both in float64", (wide_d, ref, m_wide_d, m_ref),
+    hold(f"0 {shape} = 1x1, both in float64", (wide_d, ref, m_wide_d, m_ref),
          True, True)
     del wide_d
     with _no_tf32():
@@ -5100,26 +5171,26 @@ def _shard_equal(part: str, name: str, d: int, batch: int, seq: int,
             split, ms = split_step(split, x, y)
             sharded, md = step(sharded, x, y)
             got = gather_state(sharded)
-            hold(f"{i} {d}x1 = 1x1 microbatches={d}", (got, split, md, ms),
+            hold(f"{i} {shape} = 1x1 microbatches={d}", (got, split, md, ms),
                  i == 0, True)
-            hold(f"{i} {d}x1 = 1x1", (got, one, md, m1), i == 0,
+            hold(f"{i} {shape} = 1x1", (got, one, md, m1), i == 0,
                  plain_moments or i > 0)
             hold(f"{i} 1x1 microbatches={d} = 1x1", (split, one, ms, m1),
                  i == 0, None)
             if i == 0:
-                hold(f"0 {d}x1 = 1x1 float64", (got, ref, md, m_ref), True,
+                hold(f"0 {shape} = 1x1 float64", (got, ref, md, m_ref), True,
                      plain_moments)
                 hold("0 1x1 = 1x1 float64", (one, ref, m1, m_ref), True,
                      plain_moments)
                 del ref
             del got
-    print(f"phase 16: ({part}) {name} float32 at full width on {d}x1, 2 "
-          f"steps of {batch} x {seq}, and its first step in float64; each "
+    print(f"phase {phase}: ({part}) {name} float32 at full width on {shape}, "
+          f"2 steps of {batch} x {seq}, and its first step in float64; each "
           f"line held but those printed only (microbatches={d} against 1x1"
           + ("" if plain_moments else ", the float32 first step's moments "
              "against plain 1x1 and float64") + "):")
     for line in lines:
-        print(f"phase 16: ({part})   {line}")
+        print(f"phase {phase}: ({part})   {line}")
     del one, split, sharded
     torch.cuda.empty_cache()
 
@@ -5206,6 +5277,190 @@ def phase16_sharded(gen: torch.Generator) -> dict[str, int]:
     return launches
 
 
+def _tp_cost(card: str) -> None:
+    """(a) qwen2-0.5b bf16 through ``launch.train.main --mesh 2x2``,
+    beside phase 16's 4x1 and phase 14's 1x1; (d) one step's record
+    against the accounting."""
+    run = _mesh_run(card, 17, TP_MESH, TP_STEPS)
+    print(f"phase 17: (a) qwen2-0.5b bf16 step on {TP_MESH} (4 slots of the "
+          f"card, 2 model slots a replica, 7 query heads and 1 key/value "
+          f"head a slot; the collectives are copies within the card): "
+          f"{_run_line(run)}; against "
+          f"{_beside(run, '4x1 (phase 16)', PHASE16)}; against "
+          f"{_beside(run, '1x1 (phase 14)', PHASE14)}")
+
+
+def _to_host(state: TrainState) -> TrainState:
+    """A (gathered) train state's moments on the host, its parameters and
+    counters left out (the first step leaves the parameters as they
+    were)."""
+    host = lambda t: tree_map(lambda a: a.detach().cpu(), t)
+    return TrainState(params=None, opt=AdamWState(
+        step=state.opt.step, m=host(state.opt.m), v=host(state.opt.v)),
+        step=state.step)
+
+
+def _worst_host(got: TrainState, want: TrainState) -> tuple[float, str]:
+    """The largest over the moments' leaves of max |got - want| over the
+    leaf's largest |want|, and its path; ``got`` a state, sharded or not,
+    gathered a leaf at a time, ``want`` moments on the host, brought to
+    ``got``'s device a leaf at a time."""
+    worst, where = 0.0, ""
+    for part in ("m", "v"):
+        mine = dict(tree_items(getattr(got.opt, part)))
+        for path, b in tree_items(getattr(want.opt, part)):
+            leaf = mine[path]
+            a = (leaf if isinstance(leaf, torch.Tensor) else leaf.gather()
+                 ).detach().double()
+            b = b.to(a.device).double()
+            top = float(b.abs().max())
+            diff = float((a - b).abs().max())
+            err = diff / top if top else (math.inf if diff else 0.0)
+            if err > worst:
+                worst, where = err, f"{part}/{path}"
+    return worst, where
+
+
+class _Routes:
+    """Records the top-k experts of every ``models.moe._dispatch`` call
+    (its valid tokens') while active."""
+
+    def __init__(self):
+        self.calls: list[torch.Tensor] = []
+        self.real = moe_impl._dispatch
+
+    def __enter__(self):
+        def spy(params, tg, cfg, *, valid=None, **kw):
+            out = self.real(params, tg, cfg, valid=valid, **kw)
+            topi = out[2]
+            if valid is not None:
+                topi = topi[valid.to(topi.device)]
+            self.calls.append(topi.reshape(-1, topi.shape[-1]).sort(-1)[0]
+                              .cpu())
+            return out
+        moe_impl._dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        moe_impl._dispatch = self.real
+
+
+def _moe_mesh() -> None:
+    """(c) deepseek-v2-lite-16b at full width, cut to one dense and one MoE
+    layer, at 2 x 128 tokens (one group of 256 over the two replicas):
+    the first step in float64 on each of TP_MOE_MESHES held against 1x1
+    (one microbatch: the sharded step routes the whole batch's groups, as
+    the reference's does) within TP_MOE_RTOL of a leaf's largest
+    |value|, the parameters unchanged; then in float32 (TF32 off), each
+    mesh's moments against 1x1 and against float64, and its (token, k)
+    routes that differ from 1x1's, printed."""
+    cfg = _zoo_cfg(TP_MOE, n_layers=TP_MOE_LAYERS, dtype="float32")
+    model = build_model(cfg)
+    state = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    x, y = _train_batches(cfg, TP_MOE_BATCH, TP_MOE_SEQ, 1)[0]
+    device = torch.device("cuda", torch.cuda.current_device())
+    meshes = {f"{d}x{m}": make_mesh((d, m), ("data", "model"),
+                                    devices=train_launch.mesh_slots(d * m,
+                                                                    device))
+              for d, m in TP_MOE_MESHES}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    with _float64():
+        wide = map_state(lambda t: tree_map(
+            lambda a: a.double() if a.is_floating_point() else a, t), state)
+        del state
+        ref, m_ref = make_train_step(model)(wide, x, y)
+        ref = _to_host(ref)
+        torch.cuda.empty_cache()
+        for shape, mesh in meshes.items():
+            got, m_got = make_sharded_train_step(model, mesh)(
+                shard_state(wide, model, mesh), x, y)
+            params_same = all(
+                torch.equal(g.gather(), w)
+                for g, w in zip(tree_leaves(got.params),
+                                tree_leaves(wide.params)))
+            err, where = _worst_host(got, ref)
+            loss = abs(float(m_got["loss"]) - float(m_ref["loss"])) / abs(
+                float(m_ref["loss"]))
+            norm = abs(float(m_got["grad_norm"]) - float(m_ref["grad_norm"])
+                       ) / float(m_ref["grad_norm"])
+            text = (f"step 0 {shape} = 1x1 in float64: loss rel {loss:.3e}, "
+                    f"grad norm rel {norm:.3e}, m / v within {err:.3e} of a "
+                    f"leaf's largest |value| ({where}), parameters "
+                    f"{'unchanged' if params_same else 'CHANGED'}")
+            check(params_same and max(err, loss, norm) <= TP_MOE_RTOL,
+                  f"phase 17: (c) {TP_MOE} {text}")
+            lines.append(text)
+            del got
+            torch.cuda.empty_cache()
+        del wide
+    peak64 = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    # The float32 state again from its seed (float64 held the card).
+    state = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(SEED))
+    with _no_tf32():
+        with _Routes() as routes:
+            one, m_one = make_train_step(model)(state, x, y)
+        want = routes.calls[0]
+        one = _to_host(one)
+        for shape, mesh in meshes.items():
+            with _Routes() as routes:
+                got, m_got = make_sharded_train_step(model, mesh)(
+                    shard_state(state, model, mesh), x, y)
+            d, m = mesh.shape["data"], mesh.shape["model"]
+            mine = torch.cat([routes.calls[r * m] for r in range(d)])
+            differ = int((mine != want).sum())
+            err, where = _worst_host(got, one)
+            err64, where64 = _worst_host(got, ref)
+            loss = abs(float(m_got["loss"]) - float(m_one["loss"])) / abs(
+                float(m_one["loss"]))
+            lines.append(
+                f"step 0 {shape} float32 (printed): loss rel {loss:.3e} "
+                f"against 1x1, m / v within {err:.3e} ({where}) of 1x1's, "
+                f"{err64:.3e} ({where64}) of float64's; {differ} of "
+                f"{want.numel()} (token, k) routes differ from 1x1's")
+            del got
+            torch.cuda.empty_cache()
+        err, where = _worst_host(one, ref)
+        lines.append(f"step 0 1x1 float32 against float64 (printed): m / v "
+                     f"within {err:.3e} ({where})")
+    gs = moe_impl._group_size(TP_MOE_BATCH * TP_MOE_SEQ, cfg.moe)
+    print(f"phase 17: (c) {TP_MOE} at full width cut to {TP_MOE_LAYERS} "
+          f"layers (1 dense, 1 MoE: {n_params} parameters), "
+          f"{TP_MOE_BATCH} x {TP_MOE_SEQ} tokens in MoE groups of {gs}, "
+          f"{TP_MOE_BATCH * TP_MOE_SEQ // 2} tokens a data replica; peak "
+          f"memory of the float64 steps {peak64 / 1e9:.3f} GB:")
+    for line in lines:
+        print(f"phase 17: (c)   {line}")
+    del state, one
+    torch.cuda.empty_cache()
+
+
+def phase17_tp(gen: torch.Generator) -> dict[str, int]:
+    """Tensor and expert parallelism (``train.sharded`` with a model axis)
+    on slots of the card; returns no launches (the train steps launch
+    none of the port's kernels: their counts, set to 0 before and read
+    after, stay 0).  (``gen`` is unused: every draw comes from a seeded
+    generator of its own.)"""
+    t0 = time.perf_counter()
+    card = _card()
+    reset_launches()
+    _tp_cost(card)
+    for d, m in TP_EQUAL:
+        _shard_equal("b", "qwen2-0.5b", d, 8, 128, True, m=m, phase=17)
+    _moe_mesh()
+    torch.cuda.synchronize()
+    run = launch_counts()
+    check(not any(run.values()), f"phase 17: the port's kernels launched "
+          f"{run} in the train steps")
+    print(f"phase 17: wall time {time.perf_counter() - t0:.2f} s")
+    return {}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -5225,7 +5480,7 @@ def main() -> int:
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
                   phase9_energy, phase10_tune, phase11_robust,
                   phase12_distributed, phase13_zoo, phase14_train,
-                  phase15_dryrun, phase16_sharded):
+                  phase15_dryrun, phase16_sharded, phase17_tp):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

@@ -44,16 +44,24 @@ The mesh keeps two byte counters, in two conventions:
   :func:`pencil_collective_bytes` is the reference's analytic model,
   equal to it for C2C.
 * ``collective_record`` — bytes by (kind, axis) of the training
-  collectives :meth:`Mesh.all_gather`, :meth:`Mesh.reduce_scatter` and
-  :meth:`Mesh.all_reduce`, in the reference's HLO convention: the bytes
-  of each result a collective makes on a slot, summed and averaged over
-  the mesh's devices (a slot's own chunk counts).  That is what
+  collectives :meth:`Mesh.all_gather`, :meth:`Mesh.reduce_scatter`,
+  :meth:`Mesh.all_reduce` and :meth:`Mesh.send`
+  (``collective-permute``), in the reference's HLO convention: the
+  bytes of each result a collective makes on a slot, summed and averaged
+  over the mesh's devices (a slot's own chunk counts).  That is what
   ``analysis.cost.collective_accounting`` prices a device; the sharded
-  train step (``train.sharded``) is held to it.
+  train step (``train.sharded``) is held to it.  Each runs over the line
+  of one axis at fixed indices of the others (``at``; 0 where it names
+  none), and :meth:`Mesh.line` gives the line's collectives that
+  autograd differentiates (:class:`MeshLine`, tensor parallelism).
 
-A training collective's sum runs in float32 whatever the parts' dtype,
-in slot order, so every slot gets the same bits; its result comes back
-in the parts' dtype.
+:class:`PlacedTensor` is a tensor placed over every axis of a mesh by a
+partition spec (:func:`place`), the sharded train state's leaf on a mesh
+with a model axis.
+
+A training collective's sum runs in float32 (float64 for float64 parts)
+whatever the parts' dtype, in slot order, so every slot gets the same
+bits; its result comes back in the parts' dtype.
 """
 from __future__ import annotations
 
@@ -100,14 +108,47 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
-    def axis_devices(self, axis: str) -> list[torch.device]:
-        """The devices at index p of ``axis`` and 0 of every other axis."""
+    def axis_devices(self, axis: str, at: dict[str, int] | None = None
+                     ) -> list[torch.device]:
+        """The devices of the line of ``axis`` at the indices ``at`` of the
+        other axes (0 where ``at`` names none): index p of ``axis``."""
+        return [self.devices[p] for p in self.line_slots(axis, at)]
+
+    def line_slots(self, axis: str, at: dict[str, int] | None = None
+                   ) -> list[int]:
+        """The flat slot numbers (row-major over the mesh) of the line of
+        ``axis`` at the indices ``at`` of the other axes."""
         if axis not in self.shape:
             raise KeyError(f"mesh has no axis {axis!r}; axes "
                            f"{self.axis_names}")
-        i = self.axis_names.index(axis)
-        stride = math.prod(list(self.shape.values())[i + 1:])
-        return [self.devices[p * stride] for p in range(self.shape[axis])]
+        return [self.slot_of({**(at or {}), axis: p})
+                for p in range(self.shape[axis])]
+
+    def index_of(self, slot: int) -> dict[str, int]:
+        """The mesh position (an index an axis) of the flat slot number
+        ``slot``."""
+        index = {}
+        for name in reversed(self.axis_names):
+            slot, index[name] = divmod(slot, self.shape[name])
+        return {name: index[name] for name in self.axis_names}
+
+    def slot_of(self, index: dict[str, int]) -> int:
+        """The flat slot number of the mesh position ``index`` (an index
+        an axis; 0 for an axis it does not name)."""
+        slot = 0
+        for name in self.axis_names:
+            i = index.get(name, 0)
+            if not 0 <= i < self.shape[name]:
+                raise IndexError(f"index {i} out of range for mesh axis "
+                                 f"{name!r} of size {self.shape[name]}")
+            slot = slot * self.shape[name] + i
+        return slot
+
+    def line(self, axis: str, at: dict[str, int] | None = None
+             ) -> "MeshLine":
+        """The line of ``axis`` at the indices ``at`` of the other axes,
+        with collectives that autograd differentiates."""
+        return MeshLine(self, axis, dict(at or {}))
 
     def unique_devices(self) -> list[torch.device]:
         """Each device of the mesh once, in mesh order."""
@@ -135,21 +176,23 @@ class Mesh:
         self.collective_record[key] = self.collective_record.get(
             key, 0.0) + sum(_nbytes(r) for r in results) / self.size
 
-    def _slots(self, parts: Sequence[torch.Tensor], axis: str
-               ) -> list[torch.device]:
-        devices = self.axis_devices(axis)
+    def _slots(self, parts: Sequence[torch.Tensor], axis: str,
+               at: dict[str, int] | None = None) -> list[torch.device]:
+        devices = self.axis_devices(axis, at)
         if len(parts) != len(devices):
             raise ValueError(f"{len(parts)} parts for the {len(devices)} "
                              f"slots of mesh axis {axis!r}")
         return devices
 
     def all_gather(self, shards: Sequence[torch.Tensor], dim: int, *,
-                   axis: str, slot: int) -> torch.Tensor:
-        """``jax.lax.all_gather(tiled=True)`` over ``axis`` as one slot
-        sees it: shard p lies on slot p; slot ``slot`` (an index along the
-        axis) gets the shards concatenated along ``dim``.  A single
-        controller makes only the result it uses next, one replica's."""
-        devices = self._slots(shards, axis)
+                   axis: str, slot: int, at: dict[str, int] | None = None
+                   ) -> torch.Tensor:
+        """``jax.lax.all_gather(tiled=True)`` over the line of ``axis`` at
+        ``at`` as one slot sees it: shard p lies on slot p; slot ``slot``
+        (an index along the axis) gets the shards concatenated along
+        ``dim``.  A single controller makes only the result it uses next,
+        one replica's."""
+        devices = self._slots(shards, axis, at)
         first = shards[0]
         dim %= first.dim()
         shape = list(first.shape)
@@ -163,11 +206,12 @@ class Mesh:
         return out
 
     def reduce_scatter(self, parts: Sequence[torch.Tensor], dim: int, *,
-                       axis: str) -> list[torch.Tensor]:
-        """``jax.lax.psum_scatter(tiled=True)`` over ``axis``: part q lies
-        on slot q; slot p gets chunk p (along ``dim``) of the parts'
-        sum."""
-        devices = self._slots(parts, axis)
+                       axis: str, at: dict[str, int] | None = None
+                       ) -> list[torch.Tensor]:
+        """``jax.lax.psum_scatter(tiled=True)`` over the line of ``axis``
+        at ``at``: part q lies on slot q; slot p gets chunk p (along
+        ``dim``) of the parts' sum."""
+        devices = self._slots(parts, axis, at)
         d = len(devices)
         first = parts[0]
         dim %= first.dim()
@@ -181,13 +225,31 @@ class Mesh:
         self._record("reduce-scatter", axis, out)
         return out
 
-    def all_reduce(self, parts: Sequence[torch.Tensor], *, axis: str
+    def all_reduce(self, parts: Sequence[torch.Tensor], *, axis: str,
+                   at: dict[str, int] | None = None, op: str = "sum"
                    ) -> list[torch.Tensor]:
-        """``jax.lax.psum`` over ``axis``: part q lies on slot q; every
-        slot gets the parts' sum."""
-        devices = self._slots(parts, axis)
-        out = [_sum(parts, dev) for dev in devices]
+        """``jax.lax.psum`` (``op="max"``: ``pmax``) over the line of
+        ``axis`` at ``at``: part q lies on slot q; every slot gets the
+        parts' sum (their largest values)."""
+        devices = self._slots(parts, axis, at)
+        if op == "sum":
+            out = [_sum(parts, dev) for dev in devices]
+        elif op == "max":
+            top = functools.reduce(torch.maximum,
+                                   [q.to(devices[0]) for q in parts])
+            out = [top.to(dev, copy=True) for dev in devices]
+        else:
+            raise ValueError(f"all_reduce: unknown op {op!r}")
         self._record("all-reduce", axis, out)
+        return out
+
+    def send(self, x: torch.Tensor, *, axis: str, dst: int,
+             at: dict[str, int] | None = None) -> torch.Tensor:
+        """``jax.lax.ppermute`` of one pair on the line of ``axis`` at
+        ``at``: ``x`` (on another slot of the line) copied to slot ``dst``;
+        recorded under ``("collective-permute", axis)``."""
+        out = x.to(self.axis_devices(axis, at)[dst], copy=True)
+        self._record("collective-permute", axis, [out])
         return out
 
     def all_to_all(self, shards: Sequence[torch.Tensor], split_dim: int,
@@ -257,8 +319,10 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def _sum(parts: Sequence[torch.Tensor], device: torch.device
          ) -> torch.Tensor:
-    """The parts' float32 sum, in order, on ``device``, in their dtype."""
-    total = parts[0].to(device=device, dtype=torch.float32, copy=True)
+    """The parts' sum in float32 (float64 parts: in float64), in order, on
+    ``device``, in their dtype."""
+    wide = torch.promote_types(parts[0].dtype, torch.float32)
+    total = parts[0].to(device=device, dtype=wide, copy=True)
     for q in parts[1:]:
         total += q.to(device)
     return total.to(parts[0].dtype)
@@ -362,6 +426,184 @@ def replicate(x, mesh: Mesh, axis: str) -> ReplicatedTensor:
     x = torch.as_tensor(x)
     return ReplicatedTensor(tuple(x.to(dev) for dev in
                                   mesh.axis_devices(axis)), mesh, axis)
+
+
+def _entries(spec, ndim: int) -> list[tuple[str, ...]]:
+    """A partition spec's entry for each of ``ndim`` dims as a tuple of
+    axis names, major first (``()``: not split)."""
+    entries = list(spec) + [None] * (ndim - len(spec))
+    return [() if e is None else (e,) if isinstance(e, str) else tuple(e)
+            for e in entries]
+
+
+def _block(shape, entries, mesh: Mesh, index: dict[str, int]
+           ) -> tuple[slice, ...]:
+    """The block of a tensor of ``shape`` split by ``entries`` that the
+    mesh position ``index`` holds."""
+    out = []
+    for n, axes in zip(shape, entries):
+        count, i = 1, 0
+        for a in axes:
+            count *= mesh.shape[a]
+            i = i * mesh.shape[a] + index[a]
+        if n % count:
+            raise ValueError(f"a dim of size {n} does not split over the "
+                             f"mesh axes {axes} ({count} slots)")
+        c = n // count
+        out.append(slice(i * c, (i + 1) * c))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlacedTensor:
+    """A tensor placed on every slot of a mesh by a partition spec
+    (``spec``: an entry a dim, ``None``, an axis name or a tuple of names,
+    major first, as ``jax.sharding.PartitionSpec``): slot p (row-major
+    over the mesh) holds the block at its indices of the axes each dim
+    splits over, and the slots that differ only along an axis the spec
+    does not name hold copies.  A leaf of the sharded train state on a
+    mesh with a model axis (``train.sharded``)."""
+
+    shards: tuple[torch.Tensor, ...]
+    mesh: Mesh
+    spec: tuple
+
+    @property
+    def entries(self) -> list[tuple[str, ...]]:
+        return _entries(self.spec, self.shards[0].dim())
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(n * math.prod(self.mesh.shape[a] for a in axes)
+                     for n, axes in zip(self.shards[0].shape, self.entries))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def gather(self) -> torch.Tensor:
+        """The global tensor on the first slot's device (one copy of each
+        block)."""
+        out = torch.empty(self.shape, dtype=self.dtype,
+                          device=self.shards[0].device)
+        named = {a for axes in self.entries for a in axes}
+        for p, s in enumerate(self.shards):
+            index = self.mesh.index_of(p)
+            if all(index[a] == 0 for a in index if a not in named):
+                out[_block(self.shape, self.entries, self.mesh,
+                           index)].copy_(s)
+        return out
+
+
+def place(x, mesh: Mesh, spec) -> PlacedTensor:
+    """``x`` placed on ``mesh`` by ``spec``: slot p gets its block (a
+    view of ``x`` where it is on the slot's device already)."""
+    x = torch.as_tensor(x)
+    entries = _entries(spec, x.dim())
+    return PlacedTensor(tuple(
+        x[_block(x.shape, entries, mesh, mesh.index_of(p))].to(dev)
+        for p, dev in enumerate(mesh.devices)), mesh, tuple(spec))
+
+
+class _AllReduce(torch.autograd.Function):
+    """Partial sums on a line's slots -> their sum on every slot; the
+    backward all-reduces the cotangents."""
+
+    @staticmethod
+    def forward(ctx, line: "MeshLine", *parts):
+        ctx.line = line
+        return tuple(line.mesh.all_reduce(parts, axis=line.axis,
+                                          at=line.at))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        line = ctx.line
+        return (None, *line.mesh.all_reduce(grads, axis=line.axis,
+                                            at=line.at))
+
+
+class _AllGather(torch.autograd.Function):
+    """A block on each of a line's slots -> their concatenation along
+    ``dim`` on every slot; the backward reduce-scatters the cotangents
+    back to the blocks."""
+
+    @staticmethod
+    def forward(ctx, line: "MeshLine", dim: int, *blocks):
+        ctx.line, ctx.dim = line, dim
+        return tuple(line.mesh.all_gather(blocks, dim, axis=line.axis,
+                                          slot=p, at=line.at)
+                     for p in range(line.size))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        line = ctx.line
+        return (None, None, *line.mesh.reduce_scatter(
+            grads, ctx.dim, axis=line.axis, at=line.at))
+
+
+class _Copy(torch.autograd.Function):
+    """A replicated activation onto a line's slots (a copy on each slot's
+    device, not recorded: the value is the replica's already); the
+    backward sums the slots' cotangents (an all-reduce) onto ``x``."""
+
+    @staticmethod
+    def forward(ctx, line: "MeshLine", x):
+        ctx.line, ctx.device = line, x.device
+        return tuple(x.to(dev, copy=True) for dev in line.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        line = ctx.line
+        total = line.mesh.all_reduce(grads, axis=line.axis, at=line.at)[0]
+        return None, total.to(ctx.device)
+
+
+class MeshLine:
+    """The line of one mesh axis at fixed indices of the others
+    (:meth:`Mesh.line`): its slots' devices and the collectives of tensor
+    parallelism over it, as ``torch.autograd.Function``s whose backward
+    is the adjoint collective.  Each forward and backward is recorded on
+    the mesh under its (kind, axis).  On a line of one slot each is the
+    identity and records nothing."""
+
+    def __init__(self, mesh: Mesh, axis: str, at: dict[str, int]):
+        self.mesh, self.axis, self.at = mesh, axis, at
+        self.devices = mesh.axis_devices(axis, at)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def all_reduce(self, parts: Sequence[torch.Tensor]
+                   ) -> list[torch.Tensor]:
+        """The parts' sum on every slot (float32 sum, the parts' dtype);
+        backward: the all-reduce of the cotangents."""
+        if self.size == 1:
+            return list(parts)
+        return list(_AllReduce.apply(self, *parts))
+
+    def all_reduce_max(self, parts: Sequence[torch.Tensor]
+                       ) -> list[torch.Tensor]:
+        """The parts' largest values on every slot, without a gradient."""
+        if self.size == 1:
+            return [q.detach() for q in parts]
+        return self.mesh.all_reduce([q.detach() for q in parts],
+                                    axis=self.axis, at=self.at, op="max")
+
+    def all_gather(self, blocks: Sequence[torch.Tensor], dim: int
+                   ) -> list[torch.Tensor]:
+        """The blocks concatenated along ``dim`` on every slot; backward:
+        the reduce-scatter of the cotangents."""
+        if self.size == 1:
+            return list(blocks)
+        return list(_AllGather.apply(self, dim, *blocks))
+
+    def copy(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``x`` on every slot; backward: the sum of the slots'
+        cotangents."""
+        if self.size == 1:
+            return [x.to(self.devices[0])]
+        return list(_Copy.apply(self, x))
 
 
 def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:

@@ -6,6 +6,8 @@
       --batch 8 --seq 128 --steps 30 --dvfs-report
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --batch 8 --seq 128 --steps 30 --mesh 4x1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --batch 8 --seq 128 --steps 8 --mesh 2x2 --dvfs-report
 
 Wires together: config -> model -> train state -> synthetic data ->
 fault-tolerant loop (checkpoint/restart) -> DVFS clock plan.  It runs on
@@ -21,19 +23,23 @@ record with its bf16 tensor-core peak, reported beside the training
 metrics.
 
 ``--mesh DxM`` is the (data, model) mesh.  ``1x1`` runs the unsharded
-step (``train.step``).  ``Dx1`` runs the sharded step (``train.sharded``):
-ZeRO weight shards over D data replicas, each taking a D-th of the
-batch.  Its slots are every visible card when their count is D (the
-reference's ``jax.make_mesh``), else D slots of the ``--device`` card, or
-D CPU slots with ``--device cpu``; the launcher prints them.  A
-checkpoint holds the gathered state in the reference's format, so one
-written on any mesh restores on any other (``runtime.checkpoint``).  On
-a mesh, ``--dvfs-report`` prices one slot's share: the step's FLOPs over
-D, the slot's state read and written, and the step's collective bytes
-(``Mesh.collective_record``) at the data axis' network rate
-(``analysis.roofline.NETWORK_BANDWIDTH``).  ``M`` > 1 (tensor
-parallelism) and an MoE architecture on D > 1 raise
-``NotImplementedError``: ROADMAP.md queue 1 item 12e.
+step (``train.step``); any other runs the sharded step
+(``train.sharded``): ZeRO weight shards over D data replicas, each
+taking a D-th of the batch, and, for the transformer family, tensor and
+expert parallelism over the M model slots of each replica (an MoE
+layer's routing statistics the whole batch's).  mamba2 and zamba2 train
+on ``Dx1`` only; M > 1 raises ``NotImplementedError`` for them
+(ROADMAP.md queue 1 item 12f).  The slots are every visible card when
+their count is D M (the reference's ``jax.make_mesh``), else D M slots of
+the ``--device`` card, or CPU slots with ``--device cpu``; the launcher
+prints them.  A checkpoint holds the gathered state in the reference's
+format, so one written on any mesh restores on any other
+(``runtime.checkpoint``).  On a mesh, ``--dvfs-report`` prices one
+slot's share: the step's FLOPs over D M, the slot's state read and
+written, and the step's collective bytes (``Mesh.collective_record``)
+by axis, ``model`` at the NVLink rate and ``data`` at the network rate
+(``analysis.roofline.NVLINK_BANDWIDTH``, ``NETWORK_BANDWIDTH``; the
+roofline's ``RooflineTerms.collective_s``).
 """
 from __future__ import annotations
 
@@ -45,7 +51,8 @@ import tempfile
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.analysis.roofline import NETWORK_BANDWIDTH
+from repro_torch.analysis.roofline import (H100_ROOFLINE, NETWORK_BANDWIDTH,
+                                           NVLINK_BANDWIDTH, RooflineTerms)
 from repro_torch.configs import get_arch
 from repro_torch.core.dvfs import sweep
 from repro_torch.core.hardware import H100_SXM_BF16
@@ -89,8 +96,8 @@ def parse_mesh(text: str) -> tuple[int, int]:
 
 
 def mesh_slots(d: int, device: torch.device) -> list[torch.device]:
-    """The mesh's D slots: every visible card when their count is D, else
-    D slots of ``device`` (a card or the CPU)."""
+    """The mesh's ``d`` slots: every visible card when their count is
+    ``d``, else ``d`` slots of ``device`` (a card or the CPU)."""
     if device.type == "cuda" and torch.cuda.device_count() == d:
         return [torch.device("cuda", i) for i in range(d)]
     return [device] * d
@@ -118,9 +125,9 @@ def main(argv=None, *, state: TrainState | None = None,
                                          "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model mesh: 1x1, or Dx1 for D data "
-                         "replicas (model > 1 is ROADMAP.md queue 1 item "
-                         "12e)")
+                    help="data x model mesh: 1x1, or DxM for D data "
+                         "replicas of M model slots (M > 1: the "
+                         "transformer family)")
     ap.add_argument("--dvfs-report", action="store_true",
                     help="print the energy-optimal clock plan for the step")
     ap.add_argument("--device", default="cuda")
@@ -188,20 +195,34 @@ def main(argv=None, *, state: TrainState | None = None,
                 hbm_bytes=2 * state_bytes(final_state), issue_efficiency=0.8)
         else:
             mesh.reset_collective_record()
-            flops = step_flops(train_step, final_state, *data(0)) / d
+            flops = step_flops(train_step, final_state, *data(0)) / (d * m)
             hbm = 2 * state_bytes(slot_state(final_state, 0))
-            coll = sum(mesh.collective_record.values())
+            by_axis = mesh.collective_totals()[1]
+            terms = RooflineTerms(
+                arch=cfg.name, shape="train", mesh=args.mesh, chips=d * m,
+                hlo_flops=flops, hbm_bytes=hbm,
+                collective_bytes=sum(by_axis.values()), model_flops=0.0,
+                device=H100_ROOFLINE, network_bytes=by_axis["data"])
+            # One link rate prices the profile's collectives: the axes'
+            # time as the bytes that take it at the network rate.
             device_spec = dataclasses.replace(
                 device_spec, link_bandwidth=NETWORK_BANDWIDTH)
             prof = roofline_workload(
                 f"train-{cfg.name}", device_spec, hlo_flops=flops,
-                hbm_bytes=hbm, collective_bytes=coll, issue_efficiency=0.8)
+                hbm_bytes=hbm,
+                collective_bytes=terms.collective_s * NETWORK_BANDWIDTH,
+                issue_efficiency=0.8)
+            links = ", ".join(
+                f"{by_axis[axis]:.0f} B of collectives "
+                f"({by_axis[axis] / rate * 1e3:.4f} ms at {rate / 1e9:.0f} "
+                f"GB/s) on {axis}"
+                for axis, rate in (("data", NETWORK_BANDWIDTH),
+                                   ("model", NVLINK_BANDWIDTH))
+                if mesh.shape[axis] > 1)
             print(f"[dvfs] one slot of {args.mesh}: {flops:.4e} FLOP "
                   f"({prof.t_compute * 1e3:.4f} ms at the bf16 peak), "
                   f"{hbm} B of state read and written ({prof.t_mem * 1e3:.4f}"
-                  f" ms), {coll:.0f} B of collectives "
-                  f"({prof.t_coll * 1e3:.4f} ms at "
-                  f"{NETWORK_BANDWIDTH / 1e9:.0f} GB/s)")
+                  f" ms), {links}")
         res = sweep(prof, device_spec)
         print(f"[dvfs] bound={prof.regime(device_spec)!r} "
               f"optimal={res.optimal.f:.0f} MHz "

@@ -29,7 +29,7 @@ from typing import Any, Callable
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -204,7 +204,7 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None
 
 class LazyLeaf:
     """A parameter leaf made where it is used: a weight sharded over the
-    data replicas, whose all-gather runs on use (``train.sharded``).
+    mesh, whose all-gathers run on use (``train.sharded``).
     :func:`remat` makes the leaves among its arguments inside the
     checkpointed function, so that the recompute makes them again, as the
     reference's ``jax.checkpoint`` gathers a ZeRO-sharded weight again;
@@ -215,6 +215,32 @@ class LazyLeaf:
 
     def unbind(self, dim: int = 0) -> list["LazyLeaf"]:
         raise NotImplementedError
+
+
+class Slots:
+    """A leaf's values on the model slots of one data replica, slot m's
+    at index m (``train.sharded`` on a mesh with a ``model`` axis).
+    ``split``: the slots hold the leaf's blocks along the dim the family
+    splits over ``model`` (tensor or expert parallelism); else each holds
+    the whole leaf.  A leaf of the trees :func:`tree_map` walks."""
+
+    def __init__(self, values, split: bool = False):
+        self.values = tuple(values)
+        self.split = split
+
+    def __getitem__(self, m: int):
+        return self.values[m]
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def __iter__(self):
+        return iter(self.values)
+
+
+def at_slot(tree, m: int):
+    """Slot ``m``'s tree of a tree of :class:`Slots`."""
+    return tree_map(lambda s: s[m], tree)
 
 
 def _made(fn: Callable, *args):
@@ -231,10 +257,16 @@ def remat(fn: Callable, *args):
     runs it again when backward needs them; elsewhere (serving under
     ``inference_mode``) it is a plain call.  The values are the same bits
     either way.  A :class:`LazyLeaf` among ``args`` is made inside the
-    checkpointed call; without one, ``fn`` is called as it is."""
+    checkpointed call, and the recompute then runs ``fn`` to its end (no
+    early stop), so that each collective in it runs again, as the
+    reference's remat pass does; without one, ``fn`` is called as it
+    is."""
     if torch.is_grad_enabled():
         if any(isinstance(a, LazyLeaf) for a in tree_leaves(list(args))):
-            fn = functools.partial(_made, fn)
+            with set_checkpoint_early_stop(False):
+                return checkpoint(functools.partial(_made, fn), *args,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
@@ -291,6 +323,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return (logz - gold).mean()
 
 
+def _ce_chunk(s: int, chunk: int) -> int:
+    """The cross-entropy's chunk of a sequence of ``s``: ``chunk``, halved
+    until it divides ``s``."""
+    c = min(chunk, s)
+    while s % c:
+        c //= 2
+    return c
+
+
 def chunked_cross_entropy(unembed_fn: Callable, hidden: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int = 512
                           ) -> torch.Tensor:
@@ -299,9 +340,7 @@ def chunked_cross_entropy(unembed_fn: Callable, hidden: torch.Tensor,
     (:func:`remat`, as the reference's ``jax.checkpoint``), so the
     transient is one (B, chunk, V) chunk."""
     b, s = labels.shape
-    c = min(chunk, s)
-    while s % c:
-        c //= 2
+    c = _ce_chunk(s, chunk)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for start in range(0, s, c):
         total = total + remat(_chunk_ce, unembed_fn,
@@ -317,6 +356,52 @@ def _chunk_ce(unembed_fn: Callable, h: torch.Tensor, labels: torch.Tensor
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     return (logz - gold).sum()
+
+
+def chunked_cross_entropy_slots(unembed_fns: list[Callable],
+                                hidden: list[torch.Tensor],
+                                labels: list[torch.Tensor], line, *,
+                                split: bool, chunk: int = 512
+                                ) -> torch.Tensor:
+    """:func:`chunked_cross_entropy` of one data replica over its model
+    slots (``line``, a ``fft.distributed.MeshLine``; slot m's unembedding,
+    hidden states and labels at index m), on slot 0.  With ``split``,
+    slot m's unembedding gives the logits of its block of the vocabulary
+    (vocab-parallel): each chunk all-reduces the per-token max, then the
+    per-token sum of exps and the label's logit, so the (tokens, vocab)
+    logits are never gathered; else slot 0 computes the whole."""
+    if not split:
+        return chunked_cross_entropy(unembed_fns[0], hidden[0], labels[0],
+                                     chunk=chunk)
+    b, s = labels[0].shape
+    c = _ce_chunk(s, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=hidden[0].device)
+    for start in range(0, s, c):
+        total = total + remat(_chunk_ce_slots, unembed_fns,
+                              [h[:, start:start + c] for h in hidden],
+                              [y[:, start:start + c] for y in labels], line)
+    return total / (b * s)
+
+
+def _chunk_ce_slots(unembed_fns: list[Callable], hidden: list, labels: list,
+                    line) -> torch.Tensor:
+    """Summed token cross-entropy of one chunk, vocab-parallel: the max
+    without a gradient (the log-sum-exp's gradient does not depend on its
+    shift), the sums of exps and the label's logits (0 on a slot whose
+    block does not hold the label) all-reduced together."""
+    logits = [fn(h).float() for fn, h in zip(unembed_fns, hidden)]
+    top = line.all_reduce_max([z.amax(-1) for z in logits])
+    parts = []
+    for m, (z, y, mx) in enumerate(zip(logits, labels, top)):
+        width = z.shape[-1]
+        local = y - m * width
+        inside = (local >= 0) & (local < width)
+        gold = torch.take_along_dim(z, local.clamp(0, width - 1)[..., None],
+                                    dim=-1)[..., 0]
+        parts.append(torch.stack([torch.exp(z - mx[..., None]).sum(-1),
+                                  torch.where(inside, gold, 0.0)], dim=-1))
+    sums = line.all_reduce(parts)[0]
+    return (torch.log(sums[..., 0]) + top[0] - sums[..., 1]).sum()
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,8 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
     }
 
 
-def _project_q(params, x, positions, cfg: ArchConfig):
-    m, h = cfg.mla, cfg.n_heads
+def _project_q(params, x, positions, cfg: ArchConfig, h: int | None = None):
+    m, h = cfg.mla, h or cfg.n_heads
     b, s, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     q = (x @ params["w_q"]).reshape(b, s, h, qk)
@@ -50,12 +50,15 @@ def _project_kv_latent(params, x, positions, cfg: ArchConfig):
     return c_kv, k_rope
 
 
-def mla_attention(params, x, positions, cfg: ArchConfig,
-                  with_cache: bool = False):
-    """Full-sequence MLA (prefill) via the chunked GQA kernel."""
-    m, h = cfg.mla, cfg.n_heads
+def mla_heads(params, x, positions, cfg: ArchConfig, h: int | None = None):
+    """Full-sequence MLA of ``h`` heads (default every head; fewer where
+    ``w_q``, ``w_uk`` and ``w_uv`` hold a model slot's heads) via the
+    chunked GQA kernel, before ``w_o``: (the heads' output (B, S, h *
+    v_head_dim), c_kv, k_rope).  The latent and the rope key are every
+    head's."""
+    m, h = cfg.mla, h or cfg.n_heads
     b, s, _ = x.shape
-    q_nope, q_rope = _project_q(params, x, positions, cfg)
+    q_nope, q_rope = _project_q(params, x, positions, cfg, h)
     c_kv, k_rope = _project_kv_latent(params, x, positions, cfg)
     k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
     v = (c_kv @ params["w_uv"]).reshape(b, s, h, m.v_head_dim)
@@ -65,7 +68,14 @@ def mla_attention(params, x, positions, cfg: ArchConfig,
     k_full = torch.cat(
         [k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)], dim=-1)
     out = attention(q_full, k_full, v)                    # kv == h heads
-    out = out.reshape(b, s, h * m.v_head_dim) @ params["w_o"]
+    return out.reshape(b, s, h * m.v_head_dim), c_kv, k_rope
+
+
+def mla_attention(params, x, positions, cfg: ArchConfig,
+                  with_cache: bool = False):
+    """Full-sequence MLA (prefill) via the chunked GQA kernel."""
+    out, c_kv, k_rope = mla_heads(params, x, positions, cfg)
+    out = out @ params["w_o"]
     if with_cache:
         return out, {"c_kv": c_kv, "k_rope": k_rope}
     return out

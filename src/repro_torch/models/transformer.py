@@ -22,13 +22,15 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models import common as cm
-from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec,
+from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec, at_slot,
+                                       chunked_cross_entropy_slots,
                                        dense_init, dtype_of, matmul_f32,
                                        remat, rms_norm, rope, stack,
-                                       stack_specs, tree_map, unstack)
+                                       stack_specs, tree_items, tree_map,
+                                       unstack)
 from repro_torch.models.mla import (init_mla, mla_attention, mla_cache_shape,
-                                    mla_decode)
-from repro_torch.models.moe import init_moe, moe_block
+                                    mla_decode, mla_heads)
+from repro_torch.models.moe import init_moe, moe_block, moe_block_slots
 
 
 #: The top-level key of the parameter tree (the stacked layers) whose
@@ -165,10 +167,9 @@ def _mlp(m, y):
     return (F.silu(y @ m["w_gate"]) * (y @ m["w_up"])) @ m["w_down"]
 
 
-def _attn_forward(p, x, positions, cfg: ArchConfig, *, window,
-                  with_cache: bool = False):
-    if cfg.mla is not None:
-        return mla_attention(p, x, positions, cfg, with_cache=with_cache)
+def _qkv(p, x, positions, cfg: ArchConfig, heads: int, kv_heads: int):
+    """The roped queries and keys and the values of ``heads`` query and
+    ``kv_heads`` key/value heads (every head, or a model slot's)."""
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p["w_q"]
@@ -176,11 +177,19 @@ def _attn_forward(p, x, positions, cfg: ArchConfig, *, window,
     v = x @ p["w_v"]
     if cfg.qkv_bias:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
-    q = rope(q.reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = rope(q.reshape(b, s, heads, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(b, s, kv_heads, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, s, kv_heads, hd)
+
+
+def _attn_forward(p, x, positions, cfg: ArchConfig, *, window,
+                  with_cache: bool = False):
+    if cfg.mla is not None:
+        return mla_attention(p, x, positions, cfg, with_cache=with_cache)
+    b, s, d = x.shape
+    q, k, v = _qkv(p, x, positions, cfg, cfg.n_heads, cfg.n_kv_heads)
     out = attention(q, k, v, window=window)
-    out = out.reshape(b, s, cfg.n_heads * hd) @ p["w_o"]
+    out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ p["w_o"]
     if with_cache:
         return out, {"k": k, "v": v}
     return out
@@ -420,3 +429,195 @@ def decode_step(params, cache, token, cfg: ArchConfig):
     if cfg.n_dense_layers:
         out_cache["dense_layers"] = new_dense
     return logits, out_cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor and expert parallelism: one data replica on its model slots
+# (``train.sharded`` on a mesh with a ``model`` axis), Megatron's layout as
+# the reference's specs imply.  Activations are replicated over ``model``;
+# the column-parallel weights (``spec_in_proj``: q/k/v and their biases,
+# the MLP's and shared experts' gate and up, MLA's w_uk and w_uv) give
+# each slot its own features, the row-parallel ones (``spec_out_proj``:
+# w_o, w_down, shared_down) a partial sum that one all-reduce over
+# ``model`` completes; attention runs on the slot's own heads; experts are
+# split by expert; the embedding and the unembedding by vocabulary.
+# ---------------------------------------------------------------------------
+
+def _model_major(spec, ndim: int, dim: int) -> bool:
+    """Whether ``model`` is the major mesh axis of ``dim`` in ``spec``."""
+    entry = (list(spec) + [None] * (ndim - len(spec)))[dim]
+    return entry == "model" or (isinstance(entry, tuple) and bool(entry)
+                                and entry[0] == "model")
+
+
+def tp_blocks(cfg: ArchConfig, params, specs, m: int) -> dict[str, bool]:
+    """For each leaf of ``params`` whose fixed spec (``specs``, on a mesh
+    with a ``model`` axis of ``m`` slots) names ``model``: whether the
+    model slots use their blocks of it (True) or the whole leaf, which
+    is all-gathered over ``model`` before use (False).  A slot uses its
+    block where the block is the slot's share of the family's split:
+    query heads that divide over ``m`` (their key/value heads with them,
+    so that each GQA group stays on one slot; fewer key/value heads than
+    slots are each used whole by the slots of their group), MLP and
+    shared-expert widths, whole experts, vocabulary rows; and where the
+    fixed spec keeps ``model`` the major axis of that dim
+    (``launch.specs.fix_sharding`` may move it off).  MLA's ``w_dkv`` is
+    used whole: its latent feeds every head."""
+    if m == 1:
+        return {}
+    shape = {p: len(t.shape) for p, t in tree_items(params)}
+    spec = dict(tree_items(specs))
+
+    def major(path: str, dim: int) -> bool:
+        return _model_major(spec[path], shape[path], dim)
+
+    out: dict[str, bool] = {}
+    if "embed" in spec:
+        out["embed"] = major("embed", 0)
+    if "lm_head" in spec:
+        out["lm_head"] = major("lm_head", -1)
+    for parent in dict.fromkeys(p.rsplit("/", 1)[0] for p in shape
+                                if "/" in p):
+        kind = parent.rsplit("/", 1)[-1]
+        leaves = lambda *names: [f"{parent}/{n}" for n in names
+                                 if f"{parent}/{n}" in shape]
+        if kind == "attn":
+            h, kv = cfg.n_heads, cfg.n_kv_heads
+            queries = leaves("w_q", "w_uk", "w_uv", "b_q")
+            keys = leaves("w_k", "b_k", "w_v", "b_v")
+            q = h % m == 0 and all(major(p, -1) for p in queries)
+            kv_split = q and kv % m == 0 and all(major(p, -1) for p in keys)
+            q = q and (not keys or kv_split or (h // kv) % (h // m) == 0)
+            out.update(dict.fromkeys(queries, q))
+            out.update(dict.fromkeys(keys, kv_split))
+            out[f"{parent}/w_o"] = major(f"{parent}/w_o", -2)
+            continue
+        for prefix in ("w_", "shared_") if kind in ("mlp", "moe") else ():
+            triple = leaves(prefix + "gate", prefix + "up", prefix + "down")
+            if not triple:
+                continue
+            gate, up, down = triple
+            if kind == "moe" and prefix == "w_":      # experts, by expert
+                ok = cfg.moe.n_experts % m == 0 and all(
+                    major(p, -3) for p in (gate, up, down))
+            else:
+                ok = major(gate, -1) and major(up, -1) and major(down, -2)
+            out.update(dict.fromkeys((gate, up, down), ok))
+    return {p: v for p, v in out.items() if "model" in spec[p].axes}
+
+
+def _embed_slots(params, inp, cfg: ArchConfig, line) -> list:
+    """The embedded input on each model slot: with the table split over
+    the vocabulary, each slot looks up the tokens its rows hold (zeros
+    elsewhere) and one all-reduce sums them."""
+    if cfg.input_mode == "embeds":
+        return [x.to(dtype_of(cfg)) for x in inp]
+    table = params["embed"]
+    if not table.split:
+        return [w[ids] for w, ids in zip(table, inp)]
+    parts = []
+    for m, (w, ids) in enumerate(zip(table, inp)):
+        rows = w.shape[0]
+        local = ids - m * rows
+        inside = (local >= 0) & (local < rows)
+        parts.append(torch.where(inside[..., None],
+                                 w[local.clamp(0, rows - 1)], 0))
+    return line.all_reduce(parts)
+
+
+def _attn_slots(p, ys, positions, cfg: ArchConfig, *, window, line) -> list:
+    """Attention on each model slot's heads, then ``w_o``: a slot that
+    holds rows of ``w_o`` (its heads' rows, or, where every slot runs
+    every head, its share of them) makes a partial sum, and one
+    all-reduce sums them."""
+    hd = cfg.resolved_head_dim
+    outs = []
+    for m, (y, pos) in enumerate(zip(ys, positions)):
+        ps = at_slot(p, m)
+        b, s, _ = y.shape
+        if cfg.mla is not None:
+            heads = ps["w_q"].shape[-1] // (cfg.mla.qk_nope_head_dim
+                                            + cfg.mla.qk_rope_head_dim)
+            o = mla_heads(ps, y, pos, cfg, heads)[0]
+        else:
+            heads, kv = ps["w_q"].shape[-1] // hd, ps["w_k"].shape[-1] // hd
+            q, k, v = _qkv(ps, y, pos, cfg, heads, kv)
+            if heads < cfg.n_heads and kv == cfg.n_kv_heads:
+                # Fewer key/value heads than slots: the slot's query heads
+                # are one group's, whose key/value head it uses.
+                g = m * heads // (cfg.n_heads // cfg.n_kv_heads)
+                k, v = k[:, :, g:g + 1], v[:, :, g:g + 1]
+            o = attention(q, k, v, window=window).reshape(b, s, heads * hd)
+        rows = ps["w_o"].shape[0]
+        if o.shape[-1] != rows:
+            o = o[..., m * rows:(m + 1) * rows]
+        outs.append(o @ ps["w_o"])
+    return line.all_reduce(outs) if p["w_o"].split else outs
+
+
+def _layer_slots(p, xs, positions, cfg: ArchConfig, *, window,
+                 moe_layer: bool, line, routing, layer: int):
+    """One layer of a replica on its model slots: (the hidden states on
+    each slot, the MoE layer's (mean router probability, token fraction)
+    or None)."""
+    eps = cfg.norm_eps
+    ys = [rms_norm(x, g, eps) for x, g in zip(xs, p["ln_attn"])]
+    a = _attn_slots(p["attn"], ys, positions, cfg, window=window, line=line)
+    hs = [x + y for x, y in zip(xs, a)]
+    ys = [rms_norm(h, g, eps) for h, g in zip(hs, p["ln_mlp"])]
+    stats = None
+    if moe_layer:
+        f, prob, frac = moe_block_slots(p["moe"], ys, cfg.moe, line,
+                                        routing, layer)
+        stats = (prob, frac)
+    else:
+        f = [_mlp(at_slot(p["mlp"], m), y) for m, y in enumerate(ys)]
+        if p["mlp"]["w_down"].split:
+            f = line.all_reduce(f)
+    return [h + y for h, y in zip(hs, f)], stats
+
+
+def forward_loss_slots(params, inp: list, labels: list, cfg: ArchConfig,
+                       line, routing=None):
+    """The mean token cross-entropy of one data replica over its model
+    slots (``line``, a ``fft.distributed.MeshLine``), on slot 0, and each
+    MoE layer's (mean router probability, token fraction), slot 0's.
+
+    ``params`` is the parameter tree with a ``models.common.Slots`` a leaf
+    (the stacked layers' leaves ``LazyLeaf``s that make theirs inside the
+    rematerialised layer); ``inp`` and ``labels`` hold slot m's at index
+    m; ``routing`` gives the MoE layers' groups over the data replicas
+    (``models.moe.moe_block_slots``).  The layers are
+    :func:`_run`'s, rematerialised alike; on one slot the arithmetic is
+    the unsharded forward's."""
+    xs = _embed_slots(params, inp, cfg, line)
+    positions = [_positions(x) for x in xs]
+    moe_layer = cfg.moe is not None
+    for p in params.get("dense_layers", []):
+        xs, _ = _layer_slots(p, xs, positions, cfg, window=None,
+                             moe_layer=False, line=line, routing=routing,
+                             layer=-1)
+
+    def body(layers, hs):
+        stats = []
+        for lp, win, i in layers:
+            hs, st = _layer_slots(lp, hs, positions, cfg, window=win,
+                                  moe_layer=moe_layer, line=line,
+                                  routing=routing, layer=i)
+            stats += [st] if st else []
+        return hs, stats
+
+    stats = []
+    stacked = [(lp, win, i) for i, (lp, win) in
+               enumerate(_stacked(params, cfg))]
+    group = cfg.local_per_global + 1 if cfg.local_per_global else 1
+    for i in range(0, len(stacked), group):
+        xs, st = remat(body, stacked[i:i + group], xs)
+        stats += st
+    hs = [rms_norm(x, g, cfg.norm_eps)
+          for x, g in zip(xs, params["final_norm"])]
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    fns = [(lambda h, w=w: matmul_f32(h, w.t() if cfg.tie_embeddings
+                                      else w)) for w in table]
+    return chunked_cross_entropy_slots(fns, hs, labels, line,
+                                       split=table.split), stats

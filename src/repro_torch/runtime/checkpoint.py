@@ -37,7 +37,10 @@ leaf — a checkpoint saved on one mesh restores onto the shrunk mesh of
 ``device_put(arr, like.sharding)``).  A replicated leaf
 (``ReplicatedTensor``) is saved once and restored onto every slot of the
 ``like`` leaf's axis, so a sharded train state (``train.sharded``) saved
-on one data mesh restores on another, or unsharded.
+on one data mesh restores on another, or unsharded.  A leaf placed over
+several mesh axes (``PlacedTensor``) is saved gathered too and restored
+onto the ``like`` leaf's mesh by its spec: a state saved on a (data,
+model) mesh restores on any other, or unsharded.
 """
 from __future__ import annotations
 
@@ -51,8 +54,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.fft.distributed import (ReplicatedTensor, ShardedTensor,
-                                         replicate, shard)
+from repro_torch.fft.distributed import (PlacedTensor, ReplicatedTensor,
+                                         ShardedTensor, place, replicate,
+                                         shard)
 from repro_torch.models.common import ParamTree
 
 #: numpy's dtype for the 16-bit words of a bfloat16 leaf.
@@ -145,7 +149,7 @@ def _rebuild(like, leaves: dict[str, Any], path: tuple = ()):
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """The leaf as the array ``np.save`` writes, and its manifest dtype."""
-    if isinstance(leaf, (ShardedTensor, ReplicatedTensor)):
+    if isinstance(leaf, (ShardedTensor, ReplicatedTensor, PlacedTensor)):
         leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
@@ -183,6 +187,8 @@ def _restore_leaf(arr: np.ndarray, like):
     if isinstance(like, ReplicatedTensor):
         return replicate(_from_host(arr).to(like.dtype), like.mesh,
                          like.axis)
+    if isinstance(like, PlacedTensor):
+        return place(_from_host(arr).to(like.dtype), like.mesh, like.spec)
     if isinstance(like, torch.Tensor):
         return _from_host(arr).to(device=like.device, dtype=like.dtype)
     if isinstance(like, np.ndarray):

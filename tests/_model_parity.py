@@ -317,6 +317,31 @@ def close_or_zero(got, want, rel: float = RTOL) -> None:
         close(got, want, rel)
 
 
+def assert_same_training(one, sharded, m_one, m_sharded, step: int) -> None:
+    """One unsharded and one gathered sharded train state after ``step``
+    steps from one state and batch, within TrainParity's tolerances: the
+    loss within 1e-5 relative, the grad norm within 1e-4, the same lr; at
+    step 1 (lr 0) the parameters unchanged and the moments within 1e-4
+    of a leaf's largest |value|; later the parameters and moments within
+    ``STEP_RTOL``, ``STEP_ATOL``."""
+    close(m_sharded["loss"], m_one["loss"], LOSS_RTOL)
+    close(m_sharded["grad_norm"], m_one["grad_norm"])
+    assert float(m_sharded["lr"]) == float(m_one["lr"])
+    assert int(sharded.step) == int(sharded.opt.step) == step
+    if step == 1:
+        for a, b in zip(flat(sharded.params), flat(one.params)):
+            np.testing.assert_array_equal(a, b)
+        for part in ("m", "v"):
+            for a, b in zip(flat(getattr(sharded.opt, part)),
+                            flat(getattr(one.opt, part))):
+                close_or_zero(a, b)
+        return
+    for got, want in ((sharded.params, one.params),
+                      (sharded.opt.m, one.opt.m), (sharded.opt.v, one.opt.v)):
+        for a, b in zip(flat(got), flat(want)):
+            np.testing.assert_allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL)
+
+
 class TrainParity:
     """The training checks, run for the ``arch`` fixture (an
     :class:`Arch`)."""

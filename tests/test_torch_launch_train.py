@@ -7,11 +7,14 @@ cannot train under the installed jax); the reference's driver claims
 same losses); a ``TrainState`` checkpoint restores across the packages
 under the reference's key names; a bf16 checkpoint is byte-identical to
 the reference's and restores in the port (the reference cannot restore
-it); ``--mesh 2x1`` on CPU slots trains as ``1x1`` does; a model axis
-past 1, an MoE architecture on a data mesh and a card-less ``cuda``
-raise; an embeddings-input model cannot be trained in either package."""
+it); ``--mesh 2x1`` on CPU slots trains as ``1x1`` does, ``--mesh 2x2``
+too for reduced qwen2 and deepseek-v2-lite, its ``--dvfs-report``
+pricing the model and data axes apart; a model axis past 1 for mamba2
+and zamba2 and a card-less ``cuda`` raise; an embeddings-input model
+cannot be trained in either package."""
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,10 +29,14 @@ from repro.launch import train as ref_train
 from repro.data.synthetic import SyntheticTokens as RefTokens
 from repro.runtime.checkpoint import CheckpointManager as RefCheckpoints
 from repro.train.step import make_train_step as ref_make_train_step
+from repro_torch.configs import get_arch
 from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.fft.distributed import make_mesh
 from repro_torch.launch import train
+from repro_torch.models import build_model
 from repro_torch.models.convert import tensors_from_reference
 from repro_torch.runtime import CheckpointManager, FaultTolerantDriver
+from repro_torch.train.sharded import accounted_record
 from repro_torch.train.step import make_train_step
 
 ARGS = ["--arch", "qwen2-0.5b", "--reduced", "--steps", "3", "--batch", "2",
@@ -93,15 +100,15 @@ def test_main_raises_without_a_card_unless_asked_for_the_cpu(tmp_path):
         train.main(ARGS + ["--ckpt-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("arch,mesh", [("qwen2-0.5b", "2x2"),
-                                       ("dbrx-132b", "2x1")])
+@pytest.mark.parametrize("arch,mesh", [("mamba2-370m", "2x2"),
+                                       ("zamba2-1.2b", "2x2")])
 def test_mesh_past_one_device_raises(arch, mesh, tmp_path):
-    """Tensor parallelism (a model axis past 1) and an MoE architecture on
-    more than one data replica are queue 1 item 12e."""
+    """Tensor parallelism (a model axis past 1) of the SSM and hybrid
+    families is queue 1 item 12f."""
     args = ["--arch", arch, "--reduced", "--steps", "1", "--batch", "2",
             "--seq", "16", "--mesh", mesh, "--device", "cpu",
             "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="12e"):
+    with pytest.raises(NotImplementedError, match="12f"):
         train.main(args)
 
 
@@ -131,6 +138,48 @@ def test_a_data_mesh_trains_as_one_device(tmp_path, capsys):
     restored = CheckpointManager(str(tmp_path / "2x1")).restore(one, 3)
     for a, b in zip(flat(restored), flat(got)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-v2-lite-16b"])
+def test_a_two_axis_mesh_trains_as_one_device(arch, tmp_path, capsys):
+    """``--mesh 2x2`` on four CPU slots: the losses of ``--mesh 1x1`` and,
+    after three steps, its state within the step tolerance; the
+    ``--dvfs-report`` line prices the step's data and model bytes apart,
+    at the network and NVLink rates, and they are the record of one step
+    (``train.sharded.accounted_record``)."""
+    args = ["--arch", arch, "--reduced", "--steps", "3", "--batch", "4",
+            "--seq", "16", "--ckpt-every", "2", "--device", "cpu",
+            "--dvfs-report"]
+    one_log, mesh_log = [], []
+    one = train.main(args + ["--ckpt-dir", str(tmp_path / "1x1")],
+                     log=one_log)
+    capsys.readouterr()
+    got = train.main(args + ["--mesh", "2x2", "--ckpt-dir",
+                             str(tmp_path / "2x2")], log=mesh_log)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "[train] mesh 2x2 (data, model) on slots " + ", ".join(
+        ["cpu"] * 4)
+    np.testing.assert_allclose([float(m["loss"]) for m in mesh_log],
+                               [float(m["loss"]) for m in one_log],
+                               rtol=1e-5)
+    for a, b in zip(flat(got), flat(one)):
+        np.testing.assert_allclose(a, b, rtol=STEP_RTOL, atol=STEP_ATOL)
+    found = re.fullmatch(
+        r"\[dvfs\] one slot of 2x2: .* B of state read and written "
+        r"\(.* ms\), (\d+) B of collectives \(([\d.]+) ms at 50 GB/s\) on "
+        r"data, (\d+) B of collectives \(([\d.]+) ms at 450 GB/s\) "
+        r"on model",
+        out[-2])
+    assert found and out[-1].startswith("[dvfs] bound=")
+    model = build_model(get_arch(arch).reduced())
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[torch.device("cpu")]
+                     * 4)
+    _, by_axis = accounted_record(model, one, mesh, 2 * 16)
+    data, model_bytes = int(found[1]), int(found[3])
+    assert (data, model_bytes) == (round(by_axis["data"]),
+                                   round(by_axis["model"]))
+    assert float(found[2]) == round(data / 50e9 * 1e3, 4)
+    assert float(found[4]) == round(model_bytes / 450e9 * 1e3, 4)
 
 
 def test_a_data_mesh_on_the_card_raises_without_one(tmp_path):
