@@ -244,7 +244,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      reference's does), the peak memory, and in float32 its differences
      and the (token, k) routes that differ from 1x1's, printed; (d) the
      record of one (a) step equal to ``train.sharded.accounted_record``;
- 18. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+ 18. tensor parallelism of the SSM and hybrid families on slots of the
+     card (counts set to 0 before, read after, stay 0): (a) mamba2-370m
+     at full width and depth in bf16 through ``launch.train.main --mesh
+     2x2`` at phase 14's mamba2 batch (4 x 512, two 256-token chunks), 8
+     steps: the step's median, idle share, device operations, peak
+     memory and J/step beside a 1x1 run of the same batch, and the
+     per-axis ``--dvfs-report`` lines; (b) mamba2-370m at full width and
+     depth, its first step in float64 on 1x2 and 2x2 held within 1e-12 of
+     a leaf's largest |value| against 1x1, its float32 differences
+     printed; (c) zamba2-1.2b at full width cut in depth to its 2 head
+     layers and one site of 6, the same, and the peak memory; (d) the
+     records of one (a) step and of (c)'s float32 steps equal to
+     ``train.sharded.accounted_record``;
+ 19. print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -721,8 +734,8 @@ PHASE16: dict[str, float] = {}
 #: one dense layer and one MoE layer: 1.085e9 parameters, 8.7 GB a copy in
 #: float64) on TP_MOE_MESHES at TP_MOE_BATCH x TP_MOE_SEQ tokens, one
 #: group of 256 that spans the two data replicas, its first step in
-#: float64 held within TP_MOE_RTOL of a leaf's largest |value| against
-#: 1x1, its float32 differences and differing (token, k) routes printed.
+#: float64 held within F64_RTOL of a leaf's largest |value| against 1x1,
+#: its float32 differences and differing (token, k) routes printed.
 TP_MESH = "2x2"
 TP_STEPS = 8
 TP_EQUAL = ((1, 2), (2, 2))
@@ -730,7 +743,19 @@ TP_MOE = "deepseek-v2-lite-16b"
 TP_MOE_LAYERS = 2
 TP_MOE_MESHES = ((2, 1), (2, 2))
 TP_MOE_BATCH, TP_MOE_SEQ = 2, 128
-TP_MOE_RTOL = 1e-12
+F64_RTOL = 1e-12
+#: Phase 18, tensor parallelism of the SSM and hybrid families on slots of
+#: the card: mamba2-370m bf16 through ``launch.train`` on TP_MESH at
+#: TRAIN_SSM (TP_STEPS driver steps) beside 1x1 at the same batch
+#: (SSM_ONE_STEPS); mamba2-370m at full width and depth and zamba2-1.2b at
+#: full width cut to SSM_HYBRID_LAYERS (its 2 head layers and one site of
+#: 6), their first steps in float64 on SSM_MESHES held within F64_RTOL
+#: against 1x1 at SSM_BATCH x SSM_SEQ, the float32 differences printed,
+#: zamba2's float32 records held against ``accounted_record``.
+SSM_ONE_STEPS = 4
+SSM_MESHES = ((1, 2), (2, 2))
+SSM_HYBRID_LAYERS = 8
+SSM_BATCH, SSM_SEQ = 2, 256
 
 
 def reset_launches() -> None:
@@ -4897,21 +4922,22 @@ def phase15_dryrun(gen: torch.Generator) -> dict[str, int]:
     return run
 
 
-def _mesh_run(card: str, phase: int, mesh_text: str, steps: int
+def _mesh_run(card: str, phase: int, mesh_text: str, steps: int,
+              arch: str = "qwen2-0.5b", batch: int = 8, seq: int = 128
               ) -> dict[str, float]:
-    """qwen2-0.5b bf16 through ``launch.train.main --mesh mesh_text`` at
-    phase 14's batch (8 x 128): the driver's steps, then the sharded step
-    timed chained, profiled (busy, device operations), its peak memory
-    and J/step; one step's collective record held against
+    """``arch`` bf16 through ``launch.train.main --mesh mesh_text`` at
+    ``batch`` x ``seq`` (phase 14's 8 x 128 for qwen2-0.5b): the driver's
+    steps, then the step (sharded, or the unsharded one on 1x1) timed
+    chained, profiled (busy, device operations), its peak memory and
+    J/step; on a mesh, one step's collective record held against
     ``train.sharded.accounted_record``.  Returns the numbers."""
     ckpt_dir = tempfile.mkdtemp(prefix=f"phase{phase}-")
     d, m = train_launch.parse_mesh(mesh_text)
-    batch, seq = 8, 128
     try:
         log: list = []
         t0 = time.perf_counter()
         state = train_launch.main(
-            ["--arch", "qwen2-0.5b", "--batch", str(batch), "--seq",
+            ["--arch", arch, "--batch", str(batch), "--seq",
              str(seq), "--steps", str(steps), "--lr", "1e-2",
              "--ckpt-every", str(10 * steps), "--mesh", mesh_text,
              "--ckpt-dir", ckpt_dir, "--dvfs-report"], log=log)
@@ -4924,20 +4950,24 @@ def _mesh_run(card: str, phase: int, mesh_text: str, steps: int
           f"phase {phase}: (a) losses {losses} grad norms {norms}")
     walls = [x["wall"] * 1e3 for x in log]
     med = statistics.median(walls[2:])
-    print(f"phase {phase}: (a) launch.train --mesh {mesh_text} qwen2-0.5b "
+    print(f"phase {phase}: (a) launch.train --mesh {mesh_text} {arch} "
           f"bf16 (batch {batch} x {seq}, {batch // d} x {seq} a replica, "
           f"{m} model slots a replica) on {card}: {steps} steps in "
           f"{wall:.3f} s (init, state placement and the final checkpoint "
           f"included); losses {[round(x, 4) for x in losses]}; step walls "
           f"(ms, synchronised) {[round(x, 3) for x in walls]}")
 
-    cfg = ZOO_ARCHS["qwen2-0.5b"]
+    cfg = ZOO_ARCHS[arch]
     model = build_model(cfg)
-    device = torch.device("cuda", torch.cuda.current_device())
-    mesh = make_mesh((d, m), ("data", "model"),
-                     devices=train_launch.mesh_slots(d * m, device))
-    sharded = shard_state(state, model, mesh)
-    step = make_sharded_train_step(model, mesh, peak_lr=1e-2)
+    mesh = None
+    if (d, m) == (1, 1):
+        sharded, step = state, make_train_step(model, peak_lr=1e-2)
+    else:
+        device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh((d, m), ("data", "model"),
+                         devices=train_launch.mesh_slots(d * m, device))
+        sharded = shard_state(state, model, mesh)
+        step = make_sharded_train_step(model, mesh, peak_lr=1e-2)
     batches = _train_batches(cfg, batch, seq, SHARD_CHAINED)
     x, y = batches[0]
     torch.cuda.synchronize()
@@ -4961,18 +4991,19 @@ def _mesh_run(card: str, phase: int, mesh_text: str, steps: int
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
 
-    mesh.reset_collective_record()
-    step(sharded, x, y)
-    torch.cuda.synchronize()
-    got = mesh.collective_totals()
-    want = accounted_record(model, state, mesh, batch // d * seq)
-    part = "(c)" if phase == 16 else "(d)"
-    check(got == want, f"phase {phase}: {part} record {got} != accounting "
-          f"by the formula {want}")
-    print(f"phase {phase}: {part} one {mesh_text} step's collective record "
-          f"= the accounting (tokens {batch // d * seq} a replica) by "
-          f"train.sharded.accounted_record's formulas: by kind {got[0]}, "
-          f"by axis {got[1]}")
+    if mesh is not None:
+        mesh.reset_collective_record()
+        step(sharded, x, y)
+        torch.cuda.synchronize()
+        got = mesh.collective_totals()
+        want = accounted_record(model, state, mesh, batch // d * seq)
+        part = "(c)" if phase == 16 else "(d)"
+        check(got == want, f"phase {phase}: {part} record {got} != "
+              f"accounting by the formula {want}")
+        print(f"phase {phase}: {part} one {mesh_text} step's collective "
+              f"record = the accounting (tokens {batch // d * seq} a "
+              f"replica) by train.sharded.accounted_record's formulas: by "
+              f"kind {got[0]}, by axis {got[1]}")
 
     # The step takes over a second, so the energy counter's rise over
     # SHARD_ENERGY_STEPS synchronised steps after a warm one (its ~100 ms
@@ -5345,26 +5376,30 @@ class _Routes:
         moe_impl._dispatch = self.real
 
 
-def _moe_mesh() -> None:
-    """(c) deepseek-v2-lite-16b at full width, cut to one dense and one MoE
-    layer, at 2 x 128 tokens (one group of 256 over the two replicas):
-    the first step in float64 on each of TP_MOE_MESHES held against 1x1
-    (one microbatch: the sharded step routes the whole batch's groups, as
-    the reference's does) within TP_MOE_RTOL of a leaf's largest
-    |value|, the parameters unchanged; then in float32 (TF32 off), each
-    mesh's moments against 1x1 and against float64, and its (token, k)
-    routes that differ from 1x1's, printed."""
-    cfg = _zoo_cfg(TP_MOE, n_layers=TP_MOE_LAYERS, dtype="float32")
+def _first_steps(phase: int, part: str, cfg, batch: int, seq: int,
+                 shapes, note: str, record: bool = False) -> None:
+    """(``part``) ``cfg`` (float32, at full width) at ``batch`` x ``seq``
+    tokens: its first step in float64 on each mesh of ``shapes`` held
+    against 1x1 (one microbatch: the sharded step routes an MoE model's
+    whole batch's groups, as the reference's does) within F64_RTOL of a
+    leaf's largest |value|, the loss and grad norm relative, the
+    parameters unchanged; the float64 steps' peak memory; then in float32
+    (TF32 off) each mesh's moments against 1x1 and against float64, an
+    MoE model's (token, k) routes that differ from 1x1's, printed, and
+    with ``record`` each float32 step's collective record held against
+    ``train.sharded.accounted_record``."""
     model = build_model(cfg)
+    moe = cfg.moe is not None
+    spy = _Routes if moe else contextlib.nullcontext
     state = init_train_state(
         model, torch.Generator(device="cuda").manual_seed(SEED))
     n_params = sum(t.numel() for t in tree_leaves(state.params))
-    x, y = _train_batches(cfg, TP_MOE_BATCH, TP_MOE_SEQ, 1)[0]
+    x, y = _train_batches(cfg, batch, seq, 1)[0]
     device = torch.device("cuda", torch.cuda.current_device())
     meshes = {f"{d}x{m}": make_mesh((d, m), ("data", "model"),
                                     devices=train_launch.mesh_slots(d * m,
                                                                     device))
-              for d, m in TP_MOE_MESHES}
+              for d, m in shapes}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lines = []
@@ -5391,8 +5426,8 @@ def _moe_mesh() -> None:
                     f"grad norm rel {norm:.3e}, m / v within {err:.3e} of a "
                     f"leaf's largest |value| ({where}), parameters "
                     f"{'unchanged' if params_same else 'CHANGED'}")
-            check(params_same and max(err, loss, norm) <= TP_MOE_RTOL,
-                  f"phase 17: (c) {TP_MOE} {text}")
+            check(params_same and max(err, loss, norm) <= F64_RTOL,
+                  f"phase {phase}: ({part}) {cfg.name} {text}")
             lines.append(text)
             del got
             torch.cuda.empty_cache()
@@ -5403,39 +5438,50 @@ def _moe_mesh() -> None:
     state = init_train_state(
         model, torch.Generator(device="cuda").manual_seed(SEED))
     with _no_tf32():
-        with _Routes() as routes:
+        with spy() as routes:
             one, m_one = make_train_step(model)(state, x, y)
-        want = routes.calls[0]
+        want = routes.calls[0] if moe else None
         one = _to_host(one)
         for shape, mesh in meshes.items():
-            with _Routes() as routes:
+            mesh.reset_collective_record()
+            with spy() as routes:
                 got, m_got = make_sharded_train_step(model, mesh)(
                     shard_state(state, model, mesh), x, y)
             d, m = mesh.shape["data"], mesh.shape["model"]
-            mine = torch.cat([routes.calls[r * m] for r in range(d)])
-            differ = int((mine != want).sum())
             err, where = _worst_host(got, one)
             err64, where64 = _worst_host(got, ref)
             loss = abs(float(m_got["loss"]) - float(m_one["loss"])) / abs(
                 float(m_one["loss"]))
-            lines.append(
-                f"step 0 {shape} float32 (printed): loss rel {loss:.3e} "
-                f"against 1x1, m / v within {err:.3e} ({where}) of 1x1's, "
-                f"{err64:.3e} ({where64}) of float64's; {differ} of "
-                f"{want.numel()} (token, k) routes differ from 1x1's")
+            text = (f"step 0 {shape} float32 (printed): loss rel {loss:.3e} "
+                    f"against 1x1, m / v within {err:.3e} ({where}) of "
+                    f"1x1's, {err64:.3e} ({where64}) of float64's")
+            if moe:
+                mine = torch.cat([routes.calls[r * m] for r in range(d)])
+                text += (f"; {int((mine != want).sum())} of {want.numel()} "
+                         f"(token, k) routes differ from 1x1's")
+            if record:
+                rec = mesh.collective_totals()
+                acc = accounted_record(model, state, mesh, batch // d * seq)
+                check(rec == acc, f"phase {phase}: (d) {cfg.name} {shape} "
+                      f"record {rec} != accounting by the formula {acc}")
+                text += (f"; (d) its collective record = "
+                         f"train.sharded.accounted_record: by kind {rec[0]}, "
+                         f"by axis {rec[1]}")
+            lines.append(text)
             del got
             torch.cuda.empty_cache()
         err, where = _worst_host(one, ref)
         lines.append(f"step 0 1x1 float32 against float64 (printed): m / v "
                      f"within {err:.3e} ({where})")
-    gs = moe_impl._group_size(TP_MOE_BATCH * TP_MOE_SEQ, cfg.moe)
-    print(f"phase 17: (c) {TP_MOE} at full width cut to {TP_MOE_LAYERS} "
-          f"layers (1 dense, 1 MoE: {n_params} parameters), "
-          f"{TP_MOE_BATCH} x {TP_MOE_SEQ} tokens in MoE groups of {gs}, "
-          f"{TP_MOE_BATCH * TP_MOE_SEQ // 2} tokens a data replica; peak "
-          f"memory of the float64 steps {peak64 / 1e9:.3f} GB:")
+    if moe:
+        note += (f", MoE groups of "
+                 f"{moe_impl._group_size(batch * seq, cfg.moe)}")
+    print(f"phase {phase}: ({part}) {cfg.name} at full width {note}: "
+          f"{n_params} parameters, {batch} x {seq} tokens "
+          f"({batch * seq // 2} a data replica of 2); peak memory of the "
+          f"float64 steps {peak64 / 1e9:.3f} GB | {_card()}:")
     for line in lines:
-        print(f"phase 17: (c)   {line}")
+        print(f"phase {phase}: ({part})   {line}")
     del state, one
     torch.cuda.empty_cache()
 
@@ -5452,12 +5498,48 @@ def phase17_tp(gen: torch.Generator) -> dict[str, int]:
     _tp_cost(card)
     for d, m in TP_EQUAL:
         _shard_equal("b", "qwen2-0.5b", d, 8, 128, True, m=m, phase=17)
-    _moe_mesh()
+    _first_steps(17, "c", _zoo_cfg(TP_MOE, TP_MOE_LAYERS, "float32"),
+                 TP_MOE_BATCH, TP_MOE_SEQ, TP_MOE_MESHES,
+                 f"cut to {TP_MOE_LAYERS} layers (1 dense, 1 MoE)")
     torch.cuda.synchronize()
     run = launch_counts()
     check(not any(run.values()), f"phase 17: the port's kernels launched "
           f"{run} in the train steps")
     print(f"phase 17: wall time {time.perf_counter() - t0:.2f} s")
+    return {}
+
+
+def phase18_tp_ssm(gen: torch.Generator) -> dict[str, int]:
+    """Tensor parallelism of the SSM and hybrid families (``train.sharded``
+    with a ``model`` axis) on slots of the card; returns no launches (the
+    train steps launch none of the port's kernels: their counts, set to 0
+    before and read after, stay 0).  (``gen`` is unused: every draw comes
+    from a seeded generator of its own.)"""
+    t0 = time.perf_counter()
+    card = _card()
+    reset_launches()
+    run = _mesh_run(card, 18, TP_MESH, TP_STEPS, "mamba2-370m", *TRAIN_SSM)
+    one = _mesh_run(card, 18, "1x1", SSM_ONE_STEPS, "mamba2-370m",
+                    *TRAIN_SSM)
+    heads = ZOO_ARCHS["mamba2-370m"].ssm.expand * ZOO_ARCHS[
+        "mamba2-370m"].d_model // ZOO_ARCHS["mamba2-370m"].ssm.head_dim
+    print(f"phase 18: (a) mamba2-370m bf16 step on {TP_MESH} (4 slots of "
+          f"the card, 2 model slots a replica, {heads // 2} of its {heads} "
+          f"SSM heads a slot; the collectives are copies within the card): "
+          f"{_run_line(run)}; against "
+          f"{_beside(run, '1x1 (the same batch)', one)} | {card}")
+    _first_steps(18, "b", _zoo_cfg("mamba2-370m", dtype="float32"),
+                 SSM_BATCH, SSM_SEQ, SSM_MESHES, "and depth")
+    _first_steps(18, "c", _zoo_cfg("zamba2-1.2b", SSM_HYBRID_LAYERS,
+                                   "float32"),
+                 SSM_BATCH, SSM_SEQ, SSM_MESHES,
+                 f"cut to {SSM_HYBRID_LAYERS} layers (2 head layers, one "
+                 f"site of 6 and the shared block)", record=True)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    check(not any(launched.values()), f"phase 18: the port's kernels "
+          f"launched {launched} in the train steps")
+    print(f"phase 18: wall time {time.perf_counter() - t0:.2f} s | {card}")
     return {}
 
 
@@ -5480,7 +5562,8 @@ def main() -> int:
     for phase in (phase5_fdas, phase6_serving, phase7_pulsar, phase8_demo,
                   phase9_energy, phase10_tune, phase11_robust,
                   phase12_distributed, phase13_zoo, phase14_train,
-                  phase15_dryrun, phase16_sharded, phase17_tp):
+                  phase15_dryrun, phase16_sharded, phase17_tp,
+                  phase18_tp_ssm):
         for kernel, count in phase(gen).items():
             launches[kernel] += count
     for kernel, count in launches.items():

@@ -25,11 +25,10 @@ metrics.
 ``--mesh DxM`` is the (data, model) mesh.  ``1x1`` runs the unsharded
 step (``train.step``); any other runs the sharded step
 (``train.sharded``): ZeRO weight shards over D data replicas, each
-taking a D-th of the batch, and, for the transformer family, tensor and
-expert parallelism over the M model slots of each replica (an MoE
-layer's routing statistics the whole batch's).  mamba2 and zamba2 train
-on ``Dx1`` only; M > 1 raises ``NotImplementedError`` for them
-(ROADMAP.md queue 1 item 12f).  The slots are every visible card when
+taking a D-th of the batch, and tensor and expert parallelism over the
+M model slots of each replica, for every architecture (attention and MLP
+heads and widths, experts, mamba2's SSM heads; an MoE layer's routing
+statistics the whole batch's).  The slots are every visible card when
 their count is D M (the reference's ``jax.make_mesh``), else D M slots of
 the ``--device`` card, or CPU slots with ``--device cpu``; the launcher
 prints them.  A checkpoint holds the gathered state in the reference's
@@ -63,7 +62,7 @@ from repro_torch.models.api import build_model, resolve_device
 from repro_torch.models.common import tree_leaves
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.fault import FaultTolerantDriver
-from repro_torch.train.sharded import (check_sizes, gather_state,
+from repro_torch.train.sharded import (gather_state,
                                        make_sharded_train_step, shard_state,
                                        slot_state)
 from repro_torch.train.step import (TrainState, init_train_state,
@@ -126,8 +125,7 @@ def main(argv=None, *, state: TrainState | None = None,
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--mesh", default="1x1",
                     help="data x model mesh: 1x1, or DxM for D data "
-                         "replicas of M model slots (M > 1: the "
-                         "transformer family)")
+                         "replicas of M model slots")
     ap.add_argument("--dvfs-report", action="store_true",
                     help="print the energy-optimal clock plan for the step")
     ap.add_argument("--device", default="cuda")
@@ -139,7 +137,6 @@ def main(argv=None, *, state: TrainState | None = None,
         cfg = cfg.reduced()
     model = build_model(cfg)
     mesh = None
-    check_sizes(model, d, m)
     device = resolve_device(args.device)
     if state is None:
         state = init_train_state(

@@ -243,6 +243,86 @@ def at_slot(tree, m: int):
     return tree_map(lambda s: s[m], tree)
 
 
+def _model_major(spec, ndim: int, dim: int) -> bool:
+    """Whether ``model`` is the major mesh axis of ``dim`` in ``spec``."""
+    entry = (list(spec) + [None] * (ndim - len(spec)))[dim]
+    return entry == "model" or (isinstance(entry, tuple) and bool(entry)
+                                and entry[0] == "model")
+
+
+def major_of(params, specs) -> Callable[[str, int], bool]:
+    """``major(path, dim)``: whether ``model`` is the major mesh axis of
+    dim ``dim`` of leaf ``path`` of ``params`` under its fixed spec in
+    ``specs`` (the families' ``tp_blocks``)."""
+    ndim = {p: len(t.shape) for p, t in tree_items(params)}
+    spec = dict(tree_items(specs))
+    return lambda path, dim: _model_major(spec[path], ndim[path], dim)
+
+
+def vocab_blocks(params, major: Callable[[str, int], bool]
+                 ) -> dict[str, bool]:
+    """The embedding's and ``lm_head``'s entries of a ``tp_blocks``: the
+    model slots use their vocabulary rows where ``model`` is the major
+    axis of the vocabulary dim."""
+    out: dict[str, bool] = {}
+    if "embed" in params:
+        out["embed"] = major("embed", 0)
+    if "lm_head" in params:
+        out["lm_head"] = major("lm_head", -1)
+    return out
+
+
+def naming_model(blocks: dict[str, bool], specs) -> dict[str, bool]:
+    """``blocks`` cut to the leaves whose fixed spec names ``model``."""
+    spec = dict(tree_items(specs))
+    return {p: v for p, v in blocks.items() if "model" in spec[p].axes}
+
+
+def embed_slots(params, inp, cfg, line) -> list:
+    """The embedded input on each model slot of ``line`` (a
+    ``fft.distributed.MeshLine``): with the table split over the
+    vocabulary, each slot looks up the tokens its rows hold (zeros
+    elsewhere) and one all-reduce sums them."""
+    if cfg.input_mode == "embeds":
+        return [x.to(dtype_of(cfg)) for x in inp]
+    table = params["embed"]
+    if not table.split:
+        return [w[ids] for w, ids in zip(table, inp)]
+    parts = []
+    for m, (w, ids) in enumerate(zip(table, inp)):
+        rows = w.shape[0]
+        local = ids - m * rows
+        inside = (local >= 0) & (local < rows)
+        parts.append(torch.where(inside[..., None],
+                                 w[local.clamp(0, rows - 1)], 0))
+    return line.all_reduce(parts)
+
+
+def rms_norm_slots(xs: list, scales: list, eps: float, width: int, line
+                   ) -> list:
+    """:func:`rms_norm` over the last dim, ``width`` wide, whose blocks
+    the model slots of ``line`` hold (slot m's in ``xs[m]``, its block of
+    the scale in ``scales[m]``): each slot's per-row sum of squares in
+    float32, summed by one all-reduce, over ``width`` is the mean."""
+    xf = [x.float() for x in xs]
+    sums = line.all_reduce([v.square().sum(-1, keepdim=True) for v in xf])
+    return [(v * torch.rsqrt(s / width + eps) * (1.0 + w.float())).to(x.dtype)
+            for x, v, s, w in zip(xs, xf, sums, scales)]
+
+
+def lm_loss_slots(params, xs: list, labels: list, cfg, line) -> torch.Tensor:
+    """The final norm and the mean token cross-entropy of one data replica
+    over its model slots, on slot 0: vocab-parallel where the unembedding
+    (``lm_head``, or the tied embedding) is split over ``model``."""
+    hs = [rms_norm(x, g, cfg.norm_eps)
+          for x, g in zip(xs, params["final_norm"])]
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    fns = [(lambda h, w=w: matmul_f32(h, w.t() if cfg.tie_embeddings
+                                      else w)) for w in table]
+    return chunked_cross_entropy_slots(fns, hs, labels, line,
+                                       split=table.split)
+
+
 def _made(fn: Callable, *args):
     """``fn(*args)`` with every :class:`LazyLeaf` of ``args`` made."""
     return fn(*tree_map(lambda a: a.make() if isinstance(a, LazyLeaf)

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import common as cm
-from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec,
+from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec, at_slot,
                                        dense_init, dtype_of, matmul_f32,
                                        remat, rms_norm, stack, stack_specs,
                                        tree_map, unstack)
@@ -149,24 +149,63 @@ def _split_proj(proj, cfg: ArchConfig):
             proj[..., -h:])
 
 
+def _head_columns(w: torch.Tensor, cfg: ArchConfig, lo: int, hi: int
+                  ) -> torch.Tensor:
+    """The columns of ``in_proj`` (..., [z | x | B | C | dt]) that SSM
+    heads [lo, hi) read: their ``z``, ``x`` and ``dt``, all of ``B`` and
+    ``C`` (one state group); ``w`` itself for every head."""
+    inner, h, p, n = _dims(cfg)
+    if (lo, hi) == (0, h):
+        return w
+    end = 2 * inner + 2 * n
+    return torch.cat([w[..., lo * p:hi * p],
+                      w[..., inner + lo * p:inner + hi * p],
+                      w[..., 2 * inner:end], w[..., end + lo:end + hi]], -1)
+
+
+def _conv_channels(w: torch.Tensor, cfg: ArchConfig, lo: int, hi: int
+                   ) -> torch.Tensor:
+    """The conv channels (..., [x | B | C]) of SSM heads [lo, hi): their
+    ``x``, all of ``B`` and ``C``; ``w`` itself for every head."""
+    inner, h, p, _ = _dims(cfg)
+    if (lo, hi) == (0, h):
+        return w
+    return torch.cat([w[..., lo * p:hi * p], w[..., inner:]], -1)
+
+
+def _ssm_heads(params, x, cfg: ArchConfig, lo: int, hi: int):
+    """SSM heads [lo, hi) of a block on its input ``x`` (B, S, d): their
+    gated output y * silu(z) (B, S, (hi - lo) P) before ``gate_norm``,
+    the conv's input and the final state (B, hi - lo, P, N).  ``params``
+    holds ``in_proj``, ``conv_w`` and ``conv_b`` whole and every head's
+    ``A_log``, ``D`` and ``dt_bias``."""
+    _, _, p_dim, n = _dims(cfg)
+    k = hi - lo
+    width = k * p_dim
+    xn = rms_norm(x, params["ln"], cfg.norm_eps)
+    proj = xn @ _head_columns(params["in_proj"], cfg, lo, hi)
+    z, pre_conv, dt_raw = (proj[..., :width],
+                           proj[..., width:2 * width + 2 * n], proj[..., -k:])
+    xbc = _causal_conv(pre_conv,
+                       _conv_channels(params["conv_w"], cfg, lo, hi),
+                       _conv_channels(params["conv_b"], cfg, lo, hi))
+    xs = xbc[..., :width].reshape(*xbc.shape[:2], k, p_dim)
+    bmat = xbc[..., width:width + n]
+    cmat = xbc[..., width + n:]
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][lo:hi])
+    y, state = _ssd_chunked(xs, dt, bmat, cmat, params["A_log"][lo:hi],
+                            cfg.ssm.chunk)
+    y = y + (params["D"][lo:hi, None] * xs.float()).to(y.dtype)
+    y = y.reshape(*y.shape[:2], width)
+    return y * F.silu(z), pre_conv, state
+
+
 def mamba_block(params, x, cfg: ArchConfig, *, return_state: bool = False):
     """x: (B, S, d) -> (B, S, d) [+ (conv_tail, state) when prefilling]."""
-    inner, h, p_dim, n = _dims(cfg)
-    res = x
-    xn = rms_norm(x, params["ln"], cfg.norm_eps)
-    proj = xn @ params["in_proj"]
-    z, pre_conv, dt_raw = _split_proj(proj, cfg)
-    xbc = _causal_conv(pre_conv, params["conv_w"], params["conv_b"])
-    xs = xbc[..., :inner].reshape(*xbc.shape[:2], h, p_dim)
-    bmat = xbc[..., inner:inner + n]
-    cmat = xbc[..., inner + n:]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    y, state = _ssd_chunked(xs, dt, bmat, cmat, params["A_log"],
-                            cfg.ssm.chunk)
-    y = y + (params["D"][:, None] * xs.float()).to(y.dtype)
-    y = y.reshape(*y.shape[:2], inner)
-    y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    out = res + y @ params["out_proj"]
+    _, h, _, _ = _dims(cfg)
+    g, pre_conv, state = _ssm_heads(params, x, cfg, 0, h)
+    y = rms_norm(g, params["gate_norm"], cfg.norm_eps)
+    out = x + y @ params["out_proj"]
     if return_state:
         w = cfg.ssm.conv_width
         return out, (pre_conv[:, -(w - 1):, :], state)
@@ -296,3 +335,87 @@ def decode_step(params, cache, token, cfg: ArchConfig):
         new.append(c2)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, h, cfg), {"layers": stack(new)}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: one data replica on its model slots (``train.sharded``
+# on a mesh with a ``model`` axis).  Activations are replicated over
+# ``model``; slot m runs SSM heads [m H / M, (m + 1) H / M) where the heads
+# divide over the slots: from ``in_proj``, ``conv_w`` and ``conv_b``, used
+# whole (their blocks split [z | x | B | C | dt] off the head boundaries),
+# the columns of its heads and all of B and C; its heads' ``A_log``, ``D``
+# and ``dt_bias``; ``gate_norm`` over the whole inner width from one
+# all-reduce of the slots' sums of squares; ``out_proj`` row-parallel, its
+# partial sums all-reduced; the embedding and the unembedding by
+# vocabulary (``models.common``).
+# ---------------------------------------------------------------------------
+
+def mamba_blocks(cfg: ArchConfig, parent: str, major, m: int) -> dict:
+    """``tp_blocks``' entries of the mamba block under ``parent`` on ``m``
+    model slots (``major``: ``common.major_of``): ``in_proj``, ``conv_w``
+    and ``conv_b`` used whole; ``gate_norm``'s block where the SSM heads
+    divide over the slots (each slot its heads'); ``out_proj``'s rows
+    where ``model`` is their major axis (each slot's heads' rows, or,
+    where every slot runs every head, its share of them)."""
+    _, h, _, _ = _dims(cfg)
+    leaf = lambda name: f"{parent}/{name}"
+    rows = major(leaf("out_proj"), -2)
+    return {leaf("in_proj"): False, leaf("conv_w"): False,
+            leaf("conv_b"): False, leaf("out_proj"): rows,
+            leaf("gate_norm"): (h % m == 0 and rows
+                                and major(leaf("gate_norm"), -1))}
+
+
+def tp_blocks(cfg: ArchConfig, params, specs, m: int) -> dict[str, bool]:
+    """For each leaf of ``params`` whose fixed spec (``specs``, on a mesh
+    with a ``model`` axis of ``m`` slots) names ``model``: whether the
+    model slots use their blocks of it (True) or the whole leaf, which
+    is all-gathered over ``model`` before use (False): the stacked
+    layers' :func:`mamba_blocks`, the vocabulary rows of the embedding
+    and ``lm_head``."""
+    if m == 1:
+        return {}
+    major = cm.major_of(params, specs)
+    out = cm.vocab_blocks(params, major) | mamba_blocks(cfg, "layers",
+                                                        major, m)
+    return cm.naming_model(out, specs)
+
+
+def mamba_block_slots(p, xs: list, cfg: ArchConfig, line) -> list:
+    """One mamba block of a replica on its model slots (``p`` a tree of
+    ``models.common.Slots``; ``xs`` the hidden states on each slot): each
+    slot's heads, or every head on each slot where ``gate_norm`` is used
+    whole; on one slot the arithmetic of :func:`mamba_block`."""
+    inner, h, _, _ = _dims(cfg)
+    split = p["gate_norm"].split
+    k = h // len(xs) if split else h
+    gs = [_ssm_heads(at_slot(p, m), x, cfg, m * k if split else 0,
+                     m * k + k if split else h)[0]
+          for m, x in enumerate(xs)]
+    if split:
+        ys = cm.rms_norm_slots(gs, p["gate_norm"], cfg.norm_eps, inner, line)
+    else:
+        ys = [rms_norm(g, w, cfg.norm_eps) for g, w in zip(gs, p["gate_norm"])]
+    outs = []
+    for m, (y, w) in enumerate(zip(ys, p["out_proj"])):
+        rows = w.shape[0]
+        if y.shape[-1] != rows:
+            y = y[..., m * rows:(m + 1) * rows]
+        outs.append(y @ w)
+    if p["out_proj"].split:
+        outs = line.all_reduce(outs)
+    return [x + o for x, o in zip(xs, outs)]
+
+
+def forward_loss_slots(params, inp: list, labels: list, cfg: ArchConfig,
+                       line, routing=None):
+    """The mean token cross-entropy of one data replica over its model
+    slots (``line``, a ``fft.distributed.MeshLine``), on slot 0, and no
+    MoE statistics: ``models.transformer.forward_loss_slots``' contract
+    (``routing`` unused).  Each layer is rematerialised, as in
+    :func:`forward_hidden`; on one slot the arithmetic is the unsharded
+    forward's."""
+    xs = cm.embed_slots(params, inp, cfg, line)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        xs = remat(mamba_block_slots, lp, xs, cfg, line)
+    return cm.lm_loss_slots(params, xs, labels, cfg, line), []

@@ -23,7 +23,6 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models import common as cm
 from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec, at_slot,
-                                       chunked_cross_entropy_slots,
                                        dense_init, dtype_of, matmul_f32,
                                        remat, rms_norm, rope, stack,
                                        stack_specs, tree_items, tree_map,
@@ -443,11 +442,48 @@ def decode_step(params, cache, token, cfg: ArchConfig):
 # split by expert; the embedding and the unembedding by vocabulary.
 # ---------------------------------------------------------------------------
 
-def _model_major(spec, ndim: int, dim: int) -> bool:
-    """Whether ``model`` is the major mesh axis of ``dim`` in ``spec``."""
-    entry = (list(spec) + [None] * (ndim - len(spec)))[dim]
-    return entry == "model" or (isinstance(entry, tuple) and bool(entry)
-                                and entry[0] == "model")
+def attn_blocks(cfg: ArchConfig, parent: str, paths, major, m: int
+                ) -> dict:
+    """``tp_blocks``' entries of the attention leaves under ``parent``
+    (``paths``: the tree's leaf paths; ``major``: ``common.major_of``)
+    on ``m`` model slots: query heads that divide over the slots are
+    each slot's, their key/value heads with them, so that each GQA group
+    stays on one slot; fewer key/value heads than slots are each used
+    whole by the slots of their group; ``w_o``'s rows are the slots'
+    where ``model`` is their major axis."""
+    leaves = lambda *names: [f"{parent}/{n}" for n in names
+                             if f"{parent}/{n}" in paths]
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    queries = leaves("w_q", "w_uk", "w_uv", "b_q")
+    keys = leaves("w_k", "b_k", "w_v", "b_v")
+    q = h % m == 0 and all(major(p, -1) for p in queries)
+    kv_split = q and kv % m == 0 and all(major(p, -1) for p in keys)
+    q = q and (not keys or kv_split or (h // kv) % (h // m) == 0)
+    out = dict.fromkeys(queries, q) | dict.fromkeys(keys, kv_split)
+    out[f"{parent}/w_o"] = major(f"{parent}/w_o", -2)
+    return out
+
+
+def mlp_blocks(cfg: ArchConfig, parent: str, paths, major, m: int, *,
+               experts: bool = False) -> dict:
+    """``tp_blocks``' entries of the gate/up/down triples under ``parent``
+    (the MLP's ``w_*``, the shared experts' ``shared_*``): their widths
+    split over ``model``, or, for ``experts``, whole experts that divide
+    over the slots."""
+    out: dict[str, bool] = {}
+    for prefix in ("w_", "shared_"):
+        triple = [f"{parent}/{prefix}{n}" for n in ("gate", "up", "down")
+                  if f"{parent}/{prefix}{n}" in paths]
+        if not triple:
+            continue
+        gate, up, down = triple
+        if experts and prefix == "w_":            # experts, by expert
+            ok = cfg.moe.n_experts % m == 0 and all(
+                major(p, -3) for p in (gate, up, down))
+        else:
+            ok = major(gate, -1) and major(up, -1) and major(down, -2)
+        out.update(dict.fromkeys((gate, up, down), ok))
+    return out
 
 
 def tp_blocks(cfg: ArchConfig, params, specs, m: int) -> dict[str, bool]:
@@ -456,73 +492,25 @@ def tp_blocks(cfg: ArchConfig, params, specs, m: int) -> dict[str, bool]:
     model slots use their blocks of it (True) or the whole leaf, which
     is all-gathered over ``model`` before use (False).  A slot uses its
     block where the block is the slot's share of the family's split:
-    query heads that divide over ``m`` (their key/value heads with them,
-    so that each GQA group stays on one slot; fewer key/value heads than
-    slots are each used whole by the slots of their group), MLP and
-    shared-expert widths, whole experts, vocabulary rows; and where the
-    fixed spec keeps ``model`` the major axis of that dim
-    (``launch.specs.fix_sharding`` may move it off).  MLA's ``w_dkv`` is
-    used whole: its latent feeds every head."""
+    query heads that divide over ``m`` (:func:`attn_blocks`), MLP and
+    shared-expert widths, whole experts (:func:`mlp_blocks`), vocabulary
+    rows; and where the fixed spec keeps ``model`` the major axis of that
+    dim (``launch.specs.fix_sharding`` may move it off).  MLA's ``w_dkv``
+    is used whole: its latent feeds every head."""
     if m == 1:
         return {}
-    shape = {p: len(t.shape) for p, t in tree_items(params)}
-    spec = dict(tree_items(specs))
-
-    def major(path: str, dim: int) -> bool:
-        return _model_major(spec[path], shape[path], dim)
-
-    out: dict[str, bool] = {}
-    if "embed" in spec:
-        out["embed"] = major("embed", 0)
-    if "lm_head" in spec:
-        out["lm_head"] = major("lm_head", -1)
-    for parent in dict.fromkeys(p.rsplit("/", 1)[0] for p in shape
-                                if "/" in p):
+    major = cm.major_of(params, specs)
+    paths = {p for p, _ in tree_items(params)}
+    out = cm.vocab_blocks(params, major)
+    for parent in dict.fromkeys(p.rsplit("/", 1)[0] for p, _ in
+                                tree_items(params) if "/" in p):
         kind = parent.rsplit("/", 1)[-1]
-        leaves = lambda *names: [f"{parent}/{n}" for n in names
-                                 if f"{parent}/{n}" in shape]
         if kind == "attn":
-            h, kv = cfg.n_heads, cfg.n_kv_heads
-            queries = leaves("w_q", "w_uk", "w_uv", "b_q")
-            keys = leaves("w_k", "b_k", "w_v", "b_v")
-            q = h % m == 0 and all(major(p, -1) for p in queries)
-            kv_split = q and kv % m == 0 and all(major(p, -1) for p in keys)
-            q = q and (not keys or kv_split or (h // kv) % (h // m) == 0)
-            out.update(dict.fromkeys(queries, q))
-            out.update(dict.fromkeys(keys, kv_split))
-            out[f"{parent}/w_o"] = major(f"{parent}/w_o", -2)
-            continue
-        for prefix in ("w_", "shared_") if kind in ("mlp", "moe") else ():
-            triple = leaves(prefix + "gate", prefix + "up", prefix + "down")
-            if not triple:
-                continue
-            gate, up, down = triple
-            if kind == "moe" and prefix == "w_":      # experts, by expert
-                ok = cfg.moe.n_experts % m == 0 and all(
-                    major(p, -3) for p in (gate, up, down))
-            else:
-                ok = major(gate, -1) and major(up, -1) and major(down, -2)
-            out.update(dict.fromkeys((gate, up, down), ok))
-    return {p: v for p, v in out.items() if "model" in spec[p].axes}
-
-
-def _embed_slots(params, inp, cfg: ArchConfig, line) -> list:
-    """The embedded input on each model slot: with the table split over
-    the vocabulary, each slot looks up the tokens its rows hold (zeros
-    elsewhere) and one all-reduce sums them."""
-    if cfg.input_mode == "embeds":
-        return [x.to(dtype_of(cfg)) for x in inp]
-    table = params["embed"]
-    if not table.split:
-        return [w[ids] for w, ids in zip(table, inp)]
-    parts = []
-    for m, (w, ids) in enumerate(zip(table, inp)):
-        rows = w.shape[0]
-        local = ids - m * rows
-        inside = (local >= 0) & (local < rows)
-        parts.append(torch.where(inside[..., None],
-                                 w[local.clamp(0, rows - 1)], 0))
-    return line.all_reduce(parts)
+            out.update(attn_blocks(cfg, parent, paths, major, m))
+        elif kind in ("mlp", "moe"):
+            out.update(mlp_blocks(cfg, parent, paths, major, m,
+                                  experts=kind == "moe"))
+    return cm.naming_model(out, specs)
 
 
 def _attn_slots(p, ys, positions, cfg: ArchConfig, *, window, line) -> list:
@@ -590,7 +578,7 @@ def forward_loss_slots(params, inp: list, labels: list, cfg: ArchConfig,
     (``models.moe.moe_block_slots``).  The layers are
     :func:`_run`'s, rematerialised alike; on one slot the arithmetic is
     the unsharded forward's."""
-    xs = _embed_slots(params, inp, cfg, line)
+    xs = cm.embed_slots(params, inp, cfg, line)
     positions = [_positions(x) for x in xs]
     moe_layer = cfg.moe is not None
     for p in params.get("dense_layers", []):
@@ -614,10 +602,4 @@ def forward_loss_slots(params, inp: list, labels: list, cfg: ArchConfig,
     for i in range(0, len(stacked), group):
         xs, st = remat(body, stacked[i:i + group], xs)
         stats += st
-    hs = [rms_norm(x, g, cfg.norm_eps)
-          for x, g in zip(xs, params["final_norm"])]
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    fns = [(lambda h, w=w: matmul_f32(h, w.t() if cfg.tie_embeddings
-                                      else w)) for w in table]
-    return chunked_cross_entropy_slots(fns, hs, labels, line,
-                                       split=table.split), stats
+    return cm.lm_loss_slots(params, xs, labels, cfg, line), stats

@@ -21,13 +21,17 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models import common as cm
-from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec,
+from repro_torch.models.common import (SHAPES_ONLY, P, TensorSpec, at_slot,
                                        dense_init, dtype_of, matmul_f32,
                                        remat, rms_norm, rope, stack,
-                                       stack_specs, tree_map, unstack)
+                                       stack_specs, tree_items, tree_map,
+                                       unstack)
 from repro_torch.models.mamba2 import (init_mamba_block, mamba_block,
-                                       mamba_block_specs, mamba_cache_shapes,
+                                       mamba_block_slots, mamba_block_specs,
+                                       mamba_blocks, mamba_cache_shapes,
                                        mamba_cache_specs, mamba_decode)
+from repro_torch.models.transformer import (_attn_slots, _mlp, _positions,
+                                            attn_blocks, mlp_blocks)
 
 
 #: The top-level keys of the parameter tree (the sites' mamba layers and
@@ -252,3 +256,78 @@ def decode_step(params, cache, token, cfg: ArchConfig):
     return unembed(params, h, cfg), {
         "head": new_head, "sites_mamba": stack(new_sites),
         "attn_k": new_k, "attn_v": new_v}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: one data replica on its model slots (``train.sharded``
+# on a mesh with a ``model`` axis).  The head layers and each site's mamba
+# layers run ``mamba2.mamba_block_slots``; the shared block is Megatron's
+# layout over concat(hidden, embedding): ``w_q``/``w_k``/``w_v`` and the
+# MLP's gate and up column-parallel by attention head and width, ``w_o``
+# and ``w_down`` row-parallel, their partial sums all-reduced; each site's
+# ``site_proj`` is used whole (its blocks split the residual update's
+# columns, which every slot needs whole).
+# ---------------------------------------------------------------------------
+
+def tp_blocks(cfg: ArchConfig, params, specs, m: int) -> dict[str, bool]:
+    """For each leaf of ``params`` whose fixed spec (``specs``, on a mesh
+    with a ``model`` axis of ``m`` slots) names ``model``: whether the
+    model slots use their blocks of it (True) or the whole leaf, which
+    is all-gathered over ``model`` before use (False): each mamba block's
+    ``mamba2.mamba_blocks``, the shared block's attention and MLP
+    (``transformer.attn_blocks``, ``mlp_blocks``), ``site_proj`` whole,
+    the vocabulary rows of the embedding and ``lm_head``."""
+    if m == 1:
+        return {}
+    major = cm.major_of(params, specs)
+    paths = {p for p, _ in tree_items(params)}
+    head, _ = _site_layout(cfg)
+    out = cm.vocab_blocks(params, major)
+    for parent in [f"head_layers/{i}" for i in range(head)] + ["site_layers"]:
+        out.update(mamba_blocks(cfg, parent, major, m))
+    out.update(attn_blocks(cfg, "shared_attn", paths, major, m))
+    out.update(mlp_blocks(cfg, "shared_attn", paths, major, m))
+    out["site_proj"] = False
+    return cm.naming_model(out, specs)
+
+
+def _shared_slots(sp, proj, hs: list, emb0: list, positions: list,
+                  cfg: ArchConfig, line) -> list:
+    """The shared block on the model slots after one site's mamba layers
+    (:func:`_qkv` and :func:`_shared_out` on each slot's heads and MLP
+    width); ``proj`` the site's projection, whole on every slot."""
+    eps = cfg.norm_eps
+    ys = [rms_norm(torch.cat([h, e], dim=-1), g, eps)
+          for h, e, g in zip(hs, emb0, sp["ln"])]
+    a = _attn_slots(sp, ys, positions, cfg, window=None, line=line)
+    hs = [h + o @ w for h, o, w in zip(hs, a, proj)]
+    ys = [rms_norm(h, g, eps) for h, g in zip(hs, sp["ln_mlp"])]
+    f = [_mlp(at_slot(sp, m), y) for m, y in enumerate(ys)]
+    if sp["w_down"].split:
+        f = line.all_reduce(f)
+    return [h + y for h, y in zip(hs, f)]
+
+
+def forward_loss_slots(params, inp: list, labels: list, cfg: ArchConfig,
+                       line, routing=None):
+    """The mean token cross-entropy of one data replica over its model
+    slots (``line``, a ``fft.distributed.MeshLine``), on slot 0, and no
+    MoE statistics: ``models.transformer.forward_loss_slots``' contract
+    (``routing`` unused).  Each site is rematerialised, the head layers
+    are not, as in :func:`_run`; on one slot the arithmetic is the
+    unsharded forward's."""
+    xs = cm.embed_slots(params, inp, cfg, line)
+    emb0 = xs
+    positions = [_positions(x) for x in xs]
+    sp = params["shared_attn"]
+    for blk in params["head_layers"]:
+        xs = mamba_block_slots(blk, xs, cfg, line)
+
+    def site(blocks, proj, hs):
+        for blk in blocks:
+            hs = mamba_block_slots(blk, hs, cfg, line)
+        return _shared_slots(sp, proj, hs, emb0, positions, cfg, line)
+
+    for blocks, proj in _sites(params, cfg):
+        xs = remat(site, blocks, proj, xs)
+    return cm.lm_loss_slots(params, xs, labels, cfg, line), []

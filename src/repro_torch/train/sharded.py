@@ -1,8 +1,8 @@
 """The train step sharded over a single-controller ``("data", "model")``
 mesh (``repro_torch.fft.distributed.Mesh``): ZeRO-3 over ``data``, tensor
-and expert parallelism over ``model`` (the transformer family), the
-counterpart of the reference's step jitted with the ``in_shardings`` of
-its train state on ``jax.make_mesh((D, M), ("data", "model"))``.
+and expert parallelism over ``model``, the counterpart of the reference's
+step jitted with the ``in_shardings`` of its train state on
+``jax.make_mesh((D, M), ("data", "model"))``.
 
 **The state.** :func:`shard_state` places a ``TrainState`` (parameters,
 both AdamW moments, counters) by the specs of ``train_state_specs`` fixed
@@ -30,21 +30,24 @@ barrier in a backward).  In replica r's forward each leaf is a
   rematerialised layer for the stacked layers (the family's
   ``REMAT_PARAMS``), and again in the recompute, as the accounting
   counts; once, before the forward, for any other leaf;
-* a leaf whose model block the family cannot use (``models.transformer.
-  tp_blocks``: key/value heads fewer than the slots, MLA's ``w_dkv``, an
-  axis ``fix_sharding`` moved) is then all-gathered over the model line,
-  whose backward reduce-scatters its gradient back to the blocks;
+* a leaf whose model block the family cannot use (its ``tp_blocks``:
+  key/value heads fewer than the slots, MLA's ``w_dkv``, mamba2's
+  ``in_proj`` and conv, whose blocks split [z | x | B | C | dt] off the
+  SSM head boundaries, zamba2's ``site_proj``, an axis ``fix_sharding``
+  moved) is then all-gathered over the model line, whose backward
+  reduce-scatters its gradient back to the blocks;
 * a replicated leaf is the slot's copy.
 
 The data gather's backward hands each slot's gradient of its block to
-the slot.  The transformer family runs
-``models.transformer.forward_loss_slots``: Megatron's layout, the
-activations replicated over a replica's model slots, a partial sum of
-each row-parallel product, of the expert-parallel MoE combine and of the
-vocab-parallel embedding all-reduced over ``model`` once, the loss taken
-once a replica (on slot (r, 0)); on one model slot it is the unsharded
-forward.  The SSM and hybrid families (mamba2, zamba2) run their
-unsharded forward on ``(D, 1)`` meshes.
+the slot.  Each family runs its ``forward_loss_slots``
+(``models.transformer``, ``models.mamba2``, ``models.zamba2``):
+Megatron's layout, the activations replicated over a replica's model
+slots, a partial sum of each row-parallel product (``w_o``, ``w_down``,
+mamba2's ``out_proj``), of the expert-parallel MoE combine and of the
+vocab-parallel embedding all-reduced over ``model`` once, mamba2's SSM
+heads split over the slots with ``gate_norm``'s sums of squares
+all-reduced, the loss taken once a replica (on slot (r, 0)); on one
+model slot it is the unsharded forward.
 
 **MoE on a data mesh.** An MoE layer's groups are those of the whole
 microbatch's tokens, so its group size (with it capacity and drops) comes
@@ -92,41 +95,26 @@ from repro_torch.fft.distributed import (Mesh, PlacedTensor,
                                          ReplicatedTensor, ShardedTensor,
                                          place, replicate, shard)
 from repro_torch.launch.specs import fix_tree
-from repro_torch.models import transformer
 from repro_torch.models.api import Model, family_module
 from repro_torch.models.common import (LazyLeaf, Slots, dtype_of,
                                        tree_items, tree_map)
 from repro_torch.models.moe import _group_size
 from repro_torch.optim.adamw import AdamWState, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
-from repro_torch.train.step import (AUX_WEIGHT, TrainState, loss_fn,
+from repro_torch.train.step import (AUX_WEIGHT, TrainState,
                                     train_state_specs)
 
 AXIS = "data"
 MODEL = "model"
 
 
-def check_mesh(model: Model, mesh: Mesh) -> tuple[int, int]:
-    """The mesh's (data, model) sizes; raises where the sharded step
-    cannot run ``model`` on ``mesh``."""
+def check_mesh(mesh: Mesh) -> tuple[int, int]:
+    """The mesh's (data, model) sizes; raises where its axes are not
+    ``("data", "model")``."""
     if tuple(mesh.axis_names) != (AXIS, MODEL):
         raise ValueError(f"the sharded train step runs on a ('data', "
                          f"'model') mesh, not {mesh.axis_names}")
-    d, m = mesh.shape[AXIS], mesh.shape[MODEL]
-    check_sizes(model, d, m)
-    return d, m
-
-
-def check_sizes(model: Model, d: int, m: int) -> None:
-    """Raise ``NotImplementedError`` where the sharded step cannot run
-    ``model`` on a (``d``, ``m``) (data, model) mesh."""
-    if m > 1 and family_module(model.cfg) is not transformer:
-        raise NotImplementedError(
-            f"{model.cfg.name} on a ({d}, {m}) mesh: tensor parallelism of "
-            f"the {model.cfg.family} family (mamba2's in_proj split over "
-            "'model' off the SSM head boundaries, gate_norm over the whole "
-            "inner width) is ROADMAP.md queue 1 item 12f; it trains on "
-            "(D, 1) meshes")
+    return mesh.shape[AXIS], mesh.shape[MODEL]
 
 
 def _dims(leaf: PlacedTensor) -> tuple[int | None, int | None]:
@@ -161,7 +149,7 @@ def shard_state(state: TrainState, model: Model, mesh: Mesh) -> TrainState:
     a ``(D, 1)`` mesh a leaf split over ``data`` is a ``ShardedTensor``,
     any other leaf a ``ReplicatedTensor``; with a model axis every leaf is
     a ``PlacedTensor``."""
-    check_mesh(model, mesh)
+    check_mesh(mesh)
     fixed = fix_tree(state, train_state_specs(model), mesh)
     _check_specs(fixed.params, mesh)
     if mesh.shape[MODEL] > 1:
@@ -291,20 +279,6 @@ class SlotLeaf(LazyLeaf):
                 for shards, w in zip(layers, wrts)]
 
 
-class _First(LazyLeaf):
-    """The first slot's tensor of a :class:`SlotLeaf` (a family that runs
-    its unsharded forward)."""
-
-    def __init__(self, leaf: SlotLeaf):
-        self.inner = leaf
-
-    def make(self) -> torch.Tensor:
-        return self.inner.make()[0]
-
-    def unbind(self, dim: int = 0) -> list[_First]:
-        return [_First(x) for x in self.inner.unbind(dim)]
-
-
 class _Routing:
     """The MoE groups of one microbatch over the data replicas: the group
     size of the microbatch's tokens, and each replica's per-expert counts
@@ -366,18 +340,28 @@ def accounted_record(model: Model, state: TrainState, mesh: Mesh,
       gathered over ``data`` once a microbatch, not twice, and every leaf
       k times: all-gather (data) = (A - sum of such leaves' gathered
       bytes) x k, A the accounting's;
-    * a leaf the model slots use whole (``models.transformer.tp_blocks``)
-      is all-gathered over ``model``: its bytes, twice a microbatch inside
-      the rematerialised layers and once elsewhere, and its gradient
-      reduce-scattered: its bytes / M a microbatch;
+    * a leaf the model slots use whole (the family's ``tp_blocks``; among
+      them mamba2's ``in_proj``, ``conv_w`` and ``conv_b`` and zamba2's
+      ``site_proj``) is all-gathered over ``model``: its bytes, twice a
+      microbatch inside the rematerialised layers and once elsewhere, and
+      its gradient reduce-scattered: its bytes / M a microbatch;
     * a leaf replicated over ``model`` (M > 1) has its gradient
       all-reduced over ``model``: ``local``;
-    * the row-parallel all-reduces (model) run 3 times a use inside the
-      rematerialised layers and 2 times outside them (deepseek's dense
-      layer), where the accounting counts 3: -U for each such use; a leaf
+    * zamba2's shared block (``shared_attn``) is used once a site: the
+      accounting takes n_sites uses of each of its leaves (``uses=``), as
+      the dry run does;
+    * the row-parallel all-reduces (model: ``w_o``, ``w_down``, mamba2's
+      ``out_proj``) run 3 times a use inside the rematerialised layers
+      (zamba2's shared block inside each site too) and 2 times outside
+      them (deepseek's dense layer, zamba2's head layers), where the
+      accounting counts 3: -U for each such use; a leaf
       whose ``model`` axis ``fix_sharding`` moved onto its contracted dim
       is gathered and used whole, where the accounting counts 3 x tokens
       x its width x an activation's bytes a use;
+    * a mamba block whose SSM heads the model slots split all-reduces
+      ``gate_norm``'s per-token sums of squares (float32) once a pass: 4
+      x ``tokens`` bytes a layer, 3 passes inside the rematerialised
+      layers and 2 outside (model);
     * the embedding's lookup all-reduce runs in the forward and the
       backward, 2 U, against the 3 U the accounting counts (an
       embeddings-input model looks nothing up: -3 U);
@@ -407,9 +391,14 @@ def accounted_record(model: Model, state: TrainState, mesh: Mesh,
     fixed = fix_tree(state, train_state_specs(model), mesh).params
     act = dtype_of(cfg).itemsize
     top_k = cfg.moe.top_k if cfg.moe is not None else 0
+    n_sites = (cfg.n_layers // cfg.shared_attn_every
+               if cfg.shared_attn_every else 1)
+    shared = lambda path: path.startswith("shared_attn/")
+    uses_of = lambda path, shape: (n_sites if shared(path)
+                                   else math.prod(shape[:-2]))
     by_kind, by_axis = collective_accounting(
         state.params, fixed, mesh, kind="train", tokens=tokens,
-        act_bytes=act, top_k=top_k)
+        act_bytes=act, top_k=top_k, uses=uses_of)
 
     def add(kind: str, axis: str, nbytes: float) -> None:
         if nbytes:
@@ -418,8 +407,7 @@ def accounted_record(model: Model, state: TrainState, mesh: Mesh,
 
     family = family_module(cfg)
     lazy = family.REMAT_PARAMS
-    blocks = (transformer.tp_blocks(cfg, state.params, fixed, m)
-              if family is transformer else {})
+    blocks = family.tp_blocks(cfg, state.params, fixed, m)
     specs = dict(tree_items(fixed))
     size = lambda axes: math.prod(mesh.shape[a] for a in axes)
     data_gathers = by_kind.get("all-gather", 0.0)    # all over data
@@ -439,18 +427,22 @@ def accounted_record(model: Model, state: TrainState, mesh: Mesh,
         elif not blocks.get(path, False):
             add("all-gather", MODEL, nbytes * (2 if in_remat else 1) * k)
             add("reduce-scatter", MODEL, nbytes / m * k)
+        name = path.rsplit("/", 1)[-1]
+        passes = 3 if in_remat or shared(path) else 2
+        if name == "gate_norm" and blocks.get(path, False):
+            add("all-reduce", MODEL,
+                passes * math.prod(shape[:-1]) * 4 * tokens)
         if len(shape) < 2:
             continue
         entries = list(spec) + [None] * (len(shape) - len(spec))
         counted = MODEL in ((entries[-2],) if isinstance(entries[-2], str)
                             else entries[-2] or ())
-        uses = math.prod(shape[:-2])
-        name = path.rsplit("/", 1)[-1]
-        passes = 3 if in_remat else 2
+        uses = uses_of(path, shape)
         if path == "embed":
             ran = 2 * (cfg.input_mode != "embeds"
                        and blocks.get("embed", False))
-        elif name in ("w_o", "w_down") and "/moe/" not in f"/{path}/":
+        elif (name in ("w_o", "w_down", "out_proj")
+              and "/moe/" not in f"/{path}/"):
             ran = passes * blocks.get(path, False)
         elif path.endswith("moe/w_gate"):
             parent = path.rsplit("/", 1)[0]
@@ -486,9 +478,9 @@ def make_sharded_train_step(model: Model, mesh: Mesh, *,
     """Build ``train_step(state, inputs, labels) -> (state, metrics)`` on a
     state placed by :func:`shard_state`: ``make_train_step``'s arithmetic
     and metrics (``loss``, ``grad_norm``, ``lr``, on the first slot), the
-    batch split over the ``data`` slots and, for the transformer family,
-    each layer over the ``model`` slots."""
-    d, m_size = check_mesh(model, mesh)
+    batch split over the ``data`` slots and each layer over the ``model``
+    slots."""
+    d, m_size = check_mesh(mesh)
     cfg = model.cfg
     family = family_module(cfg)
     lazy_keys = set(family.REMAT_PARAMS)
@@ -497,8 +489,7 @@ def make_sharded_train_step(model: Model, mesh: Mesh, *,
     shapes = model.param_shapes()
     fixed = fix_tree(shapes, model.param_specs(), mesh)
     _check_specs(fixed, mesh)
-    blocks = (transformer.tp_blocks(cfg, shapes, fixed, m_size)
-              if family is transformer else {})
+    blocks = family.tp_blocks(cfg, shapes, fixed, m_size)
     # Each leaf's (used whole over ``model``, made inside the remat).
     flags = {path: (not blocks.get(path, False),
                     path.split("/")[0] in lazy_keys)
@@ -513,13 +504,7 @@ def make_sharded_train_step(model: Model, mesh: Mesh, *,
         tree = tree_map(lambda _: next(it), params)
         wrt = [s.wrt for s in made]
         line = mesh.line(MODEL, {AXIS: r})
-        if family is not transformer:
-            first = tree_map(lambda s: _First(s) if isinstance(s, LazyLeaf)
-                             else s[0], tree)
-            dev = line.devices[0]
-            return loss_fn(model, first, inp.to(dev), labels.to(dev),
-                           aux_weight=AUX_WEIGHT), [], wrt
-        ce, stats = transformer.forward_loss_slots(
+        ce, stats = family.forward_loss_slots(
             tree, line.copy(inp), line.copy(labels), cfg, line,
             routing.replica(r) if routing is not None else None)
         return ce, stats, wrt
@@ -568,8 +553,7 @@ def make_sharded_train_step(model: Model, mesh: Mesh, *,
         with torch.enable_grad():
             for i in range(microbatches):
                 routing = (_Routing(mesh, cfg.moe, rows * inp.shape[1])
-                           if family is transformer and cfg.moe is not None
-                           else None)
+                           if cfg.moe is not None else None)
                 pending = []
                 for r in range(d):
                     part = slice((i * d + r) * rows, (i * d + r + 1) * rows)

@@ -8,10 +8,10 @@ same losses); a ``TrainState`` checkpoint restores across the packages
 under the reference's key names; a bf16 checkpoint is byte-identical to
 the reference's and restores in the port (the reference cannot restore
 it); ``--mesh 2x1`` on CPU slots trains as ``1x1`` does, ``--mesh 2x2``
-too for reduced qwen2 and deepseek-v2-lite, its ``--dvfs-report``
-pricing the model and data axes apart; a model axis past 1 for mamba2
-and zamba2 and a card-less ``cuda`` raise; an embeddings-input model
-cannot be trained in either package."""
+too for reduced qwen2, deepseek-v2-lite, mamba2 and zamba2, its
+``--dvfs-report`` pricing the model and data axes apart; a card-less
+``cuda`` raises; an embeddings-input model cannot be trained in either
+package."""
 import json
 import os
 import re
@@ -100,18 +100,6 @@ def test_main_raises_without_a_card_unless_asked_for_the_cpu(tmp_path):
         train.main(ARGS + ["--ckpt-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("arch,mesh", [("mamba2-370m", "2x2"),
-                                       ("zamba2-1.2b", "2x2")])
-def test_mesh_past_one_device_raises(arch, mesh, tmp_path):
-    """Tensor parallelism (a model axis past 1) of the SSM and hybrid
-    families is queue 1 item 12f."""
-    args = ["--arch", arch, "--reduced", "--steps", "1", "--batch", "2",
-            "--seq", "16", "--mesh", mesh, "--device", "cpu",
-            "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="12f"):
-        train.main(args)
-
-
 def test_a_data_mesh_trains_as_one_device(tmp_path, capsys):
     """``--mesh 2x1`` on two CPU slots: the slot list printed, the losses
     of ``--mesh 1x1`` and, after three steps, its state within the step
@@ -140,7 +128,8 @@ def test_a_data_mesh_trains_as_one_device(tmp_path, capsys):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-v2-lite-16b",
+                                  "mamba2-370m", "zamba2-1.2b"])
 def test_a_two_axis_mesh_trains_as_one_device(arch, tmp_path, capsys):
     """``--mesh 2x2`` on four CPU slots: the losses of ``--mesh 1x1`` and,
     after three steps, its state within the step tolerance; the

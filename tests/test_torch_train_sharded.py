@@ -16,9 +16,9 @@ The mesh's (kind, axis) record of a step equals
 stated departures (``train.sharded.accounted_record``).  Also: the mesh's
 training collectives on hand-worked shards, the state's placement,
 checkpoints across 4x1, 1x1 and 2x1, a driver restart on a mesh,
-``microbatches=2``, the refusals of a model axis for the SSM and hybrid
-families, and ``remat`` leaving a call without sharded leaves as it
-was."""
+``microbatches=2`` (on 2x2 for the SSM and hybrid families, whose
+tensor parallelism ``tests/test_torch_train_tp_ssm.py`` checks), and
+``remat`` leaving a call without sharded leaves as it was."""
 import math
 
 import jax
@@ -198,14 +198,20 @@ def test_the_driver_restarts_a_sharded_step(tmp_path):
 
 @pytest.mark.parametrize("name,shape", [("mamba2-370m", (2, 2)),
                                         ("zamba2-1.2b", (2, 2))])
-def test_model_parallel_and_moe_meshes_raise(name, shape):
-    """Tensor parallelism of the SSM and hybrid families is queue 1 item
-    12f."""
-    model = build_model(ARCHS[name].reduced())
+def test_ssm_families_on_a_two_axis_mesh_equal_one_device(name, shape):
+    """mamba2 and zamba2 on 2x2 with ``microbatches=2``: the unsharded
+    step with two microbatches, and the record of the accounting, every
+    weight gathered twice as often."""
+    model, state, inp, labels = setup(name, seed=2)
     mesh = make_mesh(shape, ("data", "model"), devices=[CPU] * math.prod(
         shape))
-    with pytest.raises(NotImplementedError, match="12f"):
-        make_sharded_train_step(model, mesh)
+    one, m_one = make_train_step(model, microbatches=2)(state, inp, labels)
+    sharded, m_sharded = make_sharded_train_step(
+        model, mesh, microbatches=2)(shard_state(state, model, mesh), inp,
+                                     labels)
+    assert_same_training(one, gather_state(sharded), m_one, m_sharded, 1)
+    assert mesh.collective_totals() == accounted_record(
+        model, state, mesh, BATCH // shape[0] * SEQ, microbatches=2)
 
 
 def test_training_collectives_on_hand_worked_shards():
