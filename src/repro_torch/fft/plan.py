@@ -65,6 +65,7 @@ from repro_torch.kernels.fft.ops import (MAX_KERNEL_N, fft_kernel_c2c,
                                          fft_kernel_c2c_t, fft_kernel_c2r,
                                          fft_kernel_r2c, fft_kernel_r2c_t,
                                          transpose_kernel)
+from repro_torch.obs.trace import count_build, span, tracing
 from repro_torch.tune.config import KernelConfig
 from repro_torch.tune.context import plan_config as _tuned_plan_config
 
@@ -140,8 +141,7 @@ def pow2_fft(x: torch.Tensor, *, inverse: bool = False,
     n = x.shape[-1]
     if n > MAX_SINGLE_PASS:
         if inverse:
-            return torch.conj_physical(
-                pow2_fft(torch.conj_physical(x), config=config)) / n
+            return _conj_inverse(lambda v: pow2_fft(v, config=config), x, n)
         n1, n2 = _resolve_split(n, config)
         return four_step_fft(x, n1, n2, config=config)
     if n <= MAX_KERNEL_N and _kernels_enabled():
@@ -191,6 +191,20 @@ def fft_transposed(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
     return y.transpose(-1, -2).contiguous()
 
 
+def _conj_inverse(forward: Callable, x: torch.Tensor, n: int
+                  ) -> torch.Tensor:
+    """The inverse transform as conj(forward(conj(x))) / n, each pass in a
+    span of its own.  Rebinding ``x`` frees each intermediate where the
+    single expression would."""
+    with span("inverse.conj_in"):
+        x = torch.conj_physical(x)
+    x = forward(x)
+    with span("inverse.conj_out"):
+        x = torch.conj_physical(x)
+    with span("inverse.scale"):
+        return x / n
+
+
 def _routed_1d(x: torch.Tensor, n: int, inverse: bool,
                config: KernelConfig | None = None) -> torch.Tensor:
     """Last-axis C2C of any length, honouring ``inverse`` (conj trick for
@@ -199,7 +213,7 @@ def _routed_1d(x: torch.Tensor, n: int, inverse: bool,
         return pow2_fft(x, inverse=inverse, config=config)
     plan = plan_for_length(n)
     if inverse:
-        return torch.conj_physical(plan(torch.conj_physical(x))) / n
+        return _conj_inverse(plan, x, n)
     return plan(x)
 
 
@@ -262,7 +276,11 @@ class FFTPlan:
     radices: tuple[int, ...] = ()
 
     def __call__(self, x) -> torch.Tensor:
-        return self.fn(x)
+        if not tracing():
+            return self.fn(x)
+        with span("fft.plan", x, kind=self.kind, n=self.n,
+                  rows=math.prod(x.shape[:-1]), algorithm=self.algorithm):
+            return self.fn(x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,6 +297,7 @@ def _four_step_twiddle(n1: int, n2: int, device: torch.device
                        ) -> torch.Tensor:
     """The inter-pass twiddle as a complex64 tensor, once per device; on
     ``meta`` (a dry run) its shape alone."""
+    count_build("four_step_twiddle")
     if device.type == "meta":
         return torch.empty((n2, n1), dtype=torch.complex64, device=device)
     return torch.from_numpy(_four_step_twiddle_table(n1, n2)).to(
@@ -302,12 +321,13 @@ def four_step_fft(x: torch.Tensor, n1: int, n2: int,
     if x.shape[-1] != n:
         raise ValueError(f"four-step split {n1}x{n2} does not match the "
                          f"length {x.shape[-1]}")
-    batch = x.shape[:-1]
-    v = x.reshape(*batch, n1, n2)
-    tw = _four_step_twiddle(n1, n2, x.device)        # (n2, n1): w^{j2*k1}
-    v = fft_column(v, twiddle=tw, config=config)     # (..., n1, n2)
-    v = fft_transposed(v, config=config)             # (..., n2, n1)
-    return v.reshape(*batch, n)
+    with span("four_step"):
+        batch = x.shape[:-1]
+        v = x.reshape(*batch, n1, n2)
+        tw = _four_step_twiddle(n1, n2, x.device)    # (n2, n1): w^{j2*k1}
+        v = fft_column(v, twiddle=tw, config=config)  # (..., n1, n2)
+        v = fft_transposed(v, config=config)         # (..., n2, n1)
+        return v.reshape(*batch, n)
 
 
 # ---------------------------------------------------------------------------
@@ -328,8 +348,11 @@ def _r2c_fn(x, n: int, config: KernelConfig | None = None) -> torch.Tensor:
         return _kernel_rfft(x, **_kernel_overrides(config))
     if m < 1:
         return _as_complex(x)
-    return _rfft_split(
-        pow2_fft(_pack_real(x.to(torch.float32)), config=config), n)
+    with span("r2c.pack"):
+        z = _pack_real(x.to(torch.float32))
+    z = pow2_fft(z, config=config)
+    with span("r2c.split"):
+        return _rfft_split(z, n)
 
 
 def _c2r_fn(x, n: int, config: KernelConfig | None = None) -> torch.Tensor:
@@ -337,8 +360,11 @@ def _c2r_fn(x, n: int, config: KernelConfig | None = None) -> torch.Tensor:
     x = _as_complex(x)
     if 4 <= n and n // 2 <= MAX_KERNEL_N and _kernels_enabled():
         return _kernel_irfft(x, **_kernel_overrides(config))
-    return _unpack_real(
-        pow2_fft(_irfft_merge(x, n), inverse=True, config=config))
+    with span("c2r.merge"):
+        z = _irfft_merge(x, n)
+    z = pow2_fft(z, inverse=True, config=config)
+    with span("c2r.unpack"):
+        return _unpack_real(z)
 
 
 def plan_for_length(n: int, kind: str = "c2c") -> FFTPlan:
@@ -366,6 +392,7 @@ def plan_with_config(n: int, kind: str = "c2c",
 @functools.lru_cache(maxsize=None)
 def _plan_for_length(n: int, kind: str,
                      config: KernelConfig | None) -> FFTPlan:
+    count_build("plan")
     if kind not in ("c2c", "r2c", "c2r"):
         raise ValueError(f"unknown transform kind {kind!r}")
     if kind != "c2c":

@@ -30,6 +30,7 @@ import torch
 from repro_torch.fft.radix import (DEFAULT_RADICES, dft_matrix, is_pow2,
                                    radix_schedule, rfft_split_twiddles,
                                    stage_twiddles)
+from repro_torch.obs.trace import count_build
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -59,6 +60,7 @@ def _as_real(x) -> torch.Tensor:
 def _device_twiddles(n: int, radices: tuple[int, ...], inverse: bool,
                      device: torch.device, dtype: torch.dtype
                      ) -> tuple[torch.Tensor, ...]:
+    count_build("device_twiddles")
     return tuple(torch.from_numpy(t).to(device=device, dtype=dtype)
                  for t in stage_twiddles(n, radices, inverse))
 
@@ -128,6 +130,7 @@ def _unpack_real(z: torch.Tensor) -> torch.Tensor:
 def _split_factors(n: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
     """W[k] = exp(-2*pi*i*k/n), k = 0..n/2, on the device."""
+    count_build("split_factors")
     return torch.from_numpy(rfft_split_twiddles(n)).to(device=device,
                                                         dtype=dtype)
 

@@ -15,6 +15,12 @@ types included, as the reference's wrappers do) — except by the
 transpose, which keeps the dtype, as the reference's does.  Each runs on
 its own device: the plain torch version on the CPU, the CUDA kernel on
 the card.
+
+Each launch runs in a span ``kernel.<ledger name>`` (``obs.trace.span``)
+whose ``kind``, ``n`` and ``rows`` name the transforms it computes; the
+transpose's give its matrices (``n`` elements each, of ``itemsize``
+bytes) and ``fft-c2c-mul``'s its filter bank (``bank`` filters).  They
+are what a reader of the spans counts the launch's least work from.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from repro_torch.fft import stockham
 from repro_torch.fft.radix import DEFAULT_RADICES
 from repro_torch.kernels.fft import fft_kernel
 from repro_torch.obs.ledger import record_launch
+from repro_torch.obs.trace import span
 
 # One fused kernel handles transforms that fit shared memory: the register
 # passes of every FFT kernel but fft_c2c_mul, the double-buffered stages of
@@ -76,8 +83,9 @@ def fft_kernel_c2c(x: torch.Tensor, *, inverse: bool = False,
     lead = x.shape[:-1]
     b = _batch(x.shape, 1)
     launch = fft_kernel.pass_launch(n, b, tuple(radices), tile_b)
-    y = fft_kernel.fft_c2c(x.reshape(b, n), inverse=inverse,
-                           radices=radices, per_block=launch.per_block)
+    with span("kernel.fft-c2c", x, kind="c2c", n=n, rows=b):
+        y = fft_kernel.fft_c2c(x.reshape(b, n), inverse=inverse,
+                               radices=radices, per_block=launch.per_block)
     record_launch("fft-c2c", grid=(launch.blocks,),
                   tile=(launch.per_block, n), bytes_moved=16 * b * n,
                   shape=(b, n))
@@ -104,9 +112,11 @@ def fft_kernel_c2c_t(x: torch.Tensor, *, twiddle=None, inverse: bool = False,
                                     buffer=True)
     tile = launch.per_block
     cluster = fft_kernel.c2c_cluster(tile, r)
-    y = fft_kernel.fft_c2c_t(x.reshape(b, r, c), _twiddle(twiddle, x.device),
-                             inverse=inverse, radices=radices,
-                             per_block=tile, cluster=cluster)
+    tw = _twiddle(twiddle, x.device)
+    with span("kernel.fft-c2c-t", x, kind="c2c", n=c, rows=b * r):
+        y = fft_kernel.fft_c2c_t(x.reshape(b, r, c), tw, inverse=inverse,
+                                 radices=radices, per_block=tile,
+                                 cluster=cluster)
     record_launch("fft-c2c-t",
                   grid=(fft_kernel.clustered_blocks(b, r, tile, cluster),),
                   tile=(tile, c), bytes_moved=16 * b * r * c,
@@ -135,10 +145,11 @@ def fft_kernel_c2c_axis1(x: torch.Tensor, *, twiddle=None,
                                     buffer=True)
     tile = launch.per_block
     cluster = fft_kernel.c2c_cluster(tile, c)
-    y = fft_kernel.fft_c2c_axis1(x.reshape(b, r, c),
-                                 _twiddle(twiddle, x.device),
-                                 inverse=inverse, radices=radices,
-                                 per_block=tile, cluster=cluster)
+    tw = _twiddle(twiddle, x.device)
+    with span("kernel.fft-c2c-axis1", x, kind="c2c", n=r, rows=b * c):
+        y = fft_kernel.fft_c2c_axis1(x.reshape(b, r, c), tw,
+                                     inverse=inverse, radices=radices,
+                                     per_block=tile, cluster=cluster)
     record_launch("fft-c2c-axis1",
                   grid=(fft_kernel.clustered_blocks(b, c, tile, cluster),),
                   tile=(tile, r), bytes_moved=16 * b * r * c,
@@ -166,8 +177,9 @@ def fft_kernel_c2c_mul(x: torch.Tensor, bank, *, inverse: bool = False,
     lead = x.shape[:-1]
     b = _batch(x.shape, 1)
     tile = fft_kernel.transforms_per_block(n, b, tile_b)
-    y = fft_kernel.fft_c2c_mul(x.reshape(b, n), bank, inverse=inverse,
-                               radices=radices, per_block=tile)
+    with span("kernel.fft-c2c-mul", x, kind="c2c-mul", n=n, rows=b, bank=t):
+        y = fft_kernel.fft_c2c_mul(x.reshape(b, n), bank, inverse=inverse,
+                                   radices=radices, per_block=tile)
     record_launch("fft-c2c-mul", grid=(fft_kernel.blocks(b, tile),),
                   tile=(tile, n), bytes_moved=8 * n * (b + t + b * t),
                   shape=(b, t, n))
@@ -181,7 +193,9 @@ def transpose_kernel(x: torch.Tensor) -> torch.Tensor:
     r, c = x.shape[-2:]
     lead = x.shape[:-2]
     b = _batch(x.shape, 2)
-    y = fft_kernel.transpose(x.reshape(b, r, c))
+    with span("kernel.transpose", x, kind="transpose", n=r * c, rows=b,
+              itemsize=x.element_size()):
+        y = fft_kernel.transpose(x.reshape(b, r, c))
     tile = fft_kernel.TRANSPOSE_TILE
     record_launch("transpose", grid=(fft_kernel.transpose_blocks(b, r, c),),
                   tile=(tile, tile),
@@ -219,8 +233,9 @@ def fft_kernel_r2c(x: torch.Tensor, *,
     b = _batch(x.shape, 1)
     launch = fft_kernel.pass_launch(n // 2, b, tuple(radices), tile_b,
                                     split=True)
-    y = fft_kernel.fft_r2c(x.reshape(b, n), radices=radices,
-                           per_block=launch.per_block)
+    with span("kernel.fft-r2c", x, kind="r2c", n=n, rows=b):
+        y = fft_kernel.fft_r2c(x.reshape(b, n), radices=radices,
+                               per_block=launch.per_block)
     record_launch("fft-r2c", grid=(launch.blocks,),
                   tile=(launch.per_block, n),
                   bytes_moved=4 * b * (n + 2 * (n // 2 + 1)), shape=(b, n))
@@ -246,8 +261,9 @@ def fft_kernel_r2c_t(x: torch.Tensor, *,
                                     split=True)
     tile = launch.per_block
     cluster = fft_kernel.r2c_t_cluster(tile, r)
-    y = fft_kernel.fft_r2c_t(x.reshape(b, r, c), radices=radices,
-                             per_block=tile, cluster=cluster)
+    with span("kernel.fft-r2c-t", x, kind="r2c", n=c, rows=b * r):
+        y = fft_kernel.fft_r2c_t(x.reshape(b, r, c), radices=radices,
+                                 per_block=tile, cluster=cluster)
     record_launch("fft-r2c-t",
                   grid=(fft_kernel.clustered_blocks(b, r, tile, cluster),),
                   tile=(tile, c),
@@ -276,8 +292,9 @@ def fft_kernel_c2r(x: torch.Tensor, *,
     lead = x.shape[:-1]
     b = _batch(x.shape, 1)
     launch = fft_kernel.pass_launch(m, b, tuple(radices), tile_b, split=True)
-    y = fft_kernel.fft_c2r(x.reshape(b, m + 1), radices=radices,
-                           per_block=launch.per_block)
+    with span("kernel.fft-c2r", x, kind="c2r", n=n, rows=b):
+        y = fft_kernel.fft_c2r(x.reshape(b, m + 1), radices=radices,
+                               per_block=launch.per_block)
     record_launch("fft-c2r", grid=(launch.blocks,),
                   tile=(launch.per_block, n), bytes_moved=4 * b * (2 * (m + 1) + n),
                   shape=(b, n))

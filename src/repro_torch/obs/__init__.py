@@ -2,8 +2,14 @@
 ``repro.obs``).
 
 * :mod:`repro_torch.obs.trace` — deterministic nested-span tracing on an
-  injectable clock, with a per-device flight recorder snapshotted by
-  :func:`notify_fault`, and Chrome-trace / JSONL / blake2b exporters.
+  injectable clock (``time.time`` by default, the clock ``torch.profiler``
+  stamps its host events with), with a per-device flight recorder
+  snapshotted by :func:`notify_fault`, and Chrome-trace / JSONL / blake2b
+  exporters.  The program's spans go through ``trace.span``, which
+  records inside ``with tracer.active():`` and, into a session per
+  profiler start (``trace.profiler_spans``), while a ``torch.profiler``
+  records; otherwise it is one shared no-op.  A span on a CUDA tensor
+  times its device with CUDA events.
 * :mod:`repro_torch.obs.metrics` — a counters/gauges/fixed-bucket-histogram
   registry with one Prometheus-style text rendering, plus the guarded
   percentile helper.

@@ -4,18 +4,25 @@ Chrome trace byte for byte; the flight recorder through
 ``notify_fault``), ``obs.metrics`` (histogram quantiles and the
 Prometheus text), ``obs.drift`` (EWMA states, alerts, summary),
 ``obs.log`` (silence under pytest, levels, lines) and ``data.arrivals``
-(identical arrays and drain waves for a seed)."""
+(identical arrays and drain waves for a seed); and the port's own span
+entry point (``obs.trace.span``: the shared no-op, an active tracer's
+device time and builds, the bounded profiler session)."""
+import collections
 import io
 import json
+import time
 
 import numpy as np
 import pytest
+import torch
+from torch.autograd.profiler import profile
 
 import repro.data.arrivals as ref_arrivals
 import repro.obs as ref_obs
 import repro_torch.data as port_data
 import repro_torch.obs as port_obs
 from repro_torch.data import arrivals as port_arrivals
+from repro_torch.obs import trace as port_trace
 
 
 def _fake_clock():
@@ -79,6 +86,80 @@ def test_notify_fault_snapshots_every_live_tracer(error):
     assert snaps[0] == snaps[1]
     assert snaps[0][0] == type(error).__name__
     assert snaps[0][3] == ["open", "inner"]
+
+
+def test_span_off_is_one_shared_no_op():
+    """With no active tracer and no profiler, the program's span is one
+    shared object and records nothing."""
+    session = port_trace.profiler_spans()
+    x = torch.zeros(2, 4)
+    first = port_trace.span("fft.plan", x, kind="c2c", n=4, rows=2)
+    assert port_trace.span("r2c.split") is first
+    assert not port_trace.tracing()
+    with first:
+        port_trace.count_build("plan")
+    assert port_trace.profiler_spans() is session
+
+
+def test_active_tracer_records_device_time_and_builds():
+    tracer = port_obs.Tracer(timer=_fake_clock())
+    assert port_obs.Tracer().timer is time.time   # the profiler's clock
+    with tracer.active():
+        assert port_trace.tracing()
+        with port_trace.span("fft.plan", torch.zeros(2, 4), kind="c2c"):
+            with port_trace.span("kernel.fft-c2c", n=4):
+                pass
+            port_trace.count_build("plan")
+    assert not port_trace.tracing()
+    kernel, plan = tracer.spans
+    assert (kernel.parent, plan.parent) == ("fft.plan", None)
+    assert kernel.attrs == {"device": "cpu", "kind": "c2c", "n": 4}
+    assert kernel.device_s == kernel.duration == pytest.approx(0.00125)
+    assert tracer.builds == {"plan": 1}
+    assert "device_s" not in kernel.to_dict()     # exports unchanged
+
+
+def test_device_time_is_sampled_by_root_kind(monkeypatch):
+    """A tree times the device once in DEVICE_PERIOD_S for each (name,
+    kind, n) of its root; its events go back to the pool once read."""
+    class Event:
+        def elapsed_time(self, end):
+            return 2.0                                  # ms
+
+    pool = collections.defaultdict(list)
+    monkeypatch.setattr(port_trace, "_EVENT_POOL", pool)
+    monkeypatch.setattr(port_trace, "_start_events",
+                        lambda device: [device, Event(), Event()])
+    monkeypatch.setattr(port_trace, "_end_events", lambda events: None)
+    now = [0.0]
+    tracer = port_obs.Tracer(timer=lambda: now[0])
+    period = port_trace.DEVICE_PERIOD_S
+    with tracer.active():
+        for t, kind in ((0.0, "r2c"), (0.1, "r2c"), (0.1, "c2r"),
+                        (period, "r2c")):
+            now[0] = t
+            with port_trace.span("fft.plan", kind=kind, n=8,
+                                 device="cuda:0"):
+                with port_trace.span("r2c.split"):
+                    pass
+    assert [(s.attrs["kind"], s.device_s) for s in tracer.spans] == \
+        [("r2c", 0.002)] * 2 + [("r2c", None)] * 2 + \
+        [("c2r", 0.002)] * 2 + [("r2c", 0.002)] * 2
+    assert len(pool["cuda:0"]) == 12
+
+
+def test_bounded_tracer_drops_the_oldest_spans(monkeypatch):
+    """A profiler session keeps its last SESSION_SPANS spans and counts
+    the ones it dropped."""
+    assert port_trace.SESSION_SPANS == 2**16
+    monkeypatch.setattr(port_trace, "SESSION_SPANS", 3)
+    with profile(use_kineto=True):
+        for i in range(5):
+            with port_trace.span(f"s{i}"):
+                pass
+    session = port_trace.profiler_spans()
+    assert [s.name for s in session.spans] == ["s2", "s3", "s4"]
+    assert session.dropped == 2
 
 
 def _registry(obs):
