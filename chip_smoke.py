@@ -20,8 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. print the card's name and power limit (``nvidia-smi``);
   3. hold each kernel (the C2C variants: fft_c2c, fft_c2c_t with and
      without twiddle, fft_c2c_axis1 with and without twiddle, forward and
-     inverse; fft_r2c, fft_c2r; fft_r2c_t, transpose and fft_c2c_mul;
-     dedisperse, harmonic_sum_plane, harmonic_sum and
+     inverse; fft_r2c, fft_c2r; fft_r2c_split and fft_c2r_merge, the long
+     real plans' Hermitian split and merge, at B = 1, 3 and 476, N/2 =
+     2**14 and 2**19, rows 16-byte aligned and not; fft_r2c_t, transpose
+     and fft_c2c_mul; dedisperse, harmonic_sum_plane, harmonic_sum and
      power_spectrum_stats) against its plain torch version on the card,
      at small, ragged shapes and at the shapes the main paths give it —
      fft_c2c, fft_r2c and fft_c2r at every pow2 length (2..8192,
@@ -402,12 +404,12 @@ EXPECTED_LEDGER = {
 REAL_LENGTHS = (1024, 16384, 2**20)
 FOUR_STEP = {"fft-c2c-axis1": 1, "fft-c2c-t": 1}
 #: At 2**20 the packed 2**19-point transform runs the four-step pair (the
-#: c2r inverse through the conjugate trick); the split or merge is torch.
+#: c2r inverse on its inverse passes) and the split or merge kernel.
 REAL_EXPECTED = {
     ("r2c", 1024): {"fft-r2c": 1}, ("r2c", 16384): {"fft-r2c": 1},
-    ("r2c", 2**20): FOUR_STEP,
+    ("r2c", 2**20): {**FOUR_STEP, "fft-r2c-split": 1},
     ("c2r", 1024): {"fft-c2r": 1}, ("c2r", 16384): {"fft-c2r": 1},
-    ("c2r", 2**20): FOUR_STEP,
+    ("c2r", 2**20): {**FOUR_STEP, "fft-c2r-merge": 1},
 }
 #: N-D plans at 2 GB a batch: (label, function, input shape, complex input,
 #: ledger counts, rtol against torch.fft).  The last is the paper's
@@ -432,11 +434,13 @@ FDAS_ZMAX = 42
 FDAS_K0 = 1200 * FDAS_N // 8192
 FDAS_Z = 6.0
 FDAS_RTOL = 1e-4
-FDAS_LEDGER = {"fft-c2c-axis1": 1, "fft-c2c-t": 1, "fft-c2c-mul": 1,
-               "fft-c2c": 1}
+FDAS_LEDGER = {"fft-c2c-axis1": 1, "fft-c2c-t": 1, "fft-r2c-split": 1,
+               "fft-c2c-mul": 1, "fft-c2c": 1}
 LEDGER_TO_KERNEL = {"fft-c2c": "fft_c2c", "fft-c2c-t": "fft_c2c_t",
                     "fft-c2c-axis1": "fft_c2c_axis1", "fft-r2c": "fft_r2c",
                     "fft-c2r": "fft_c2r", "fft-r2c-t": "fft_r2c_t",
+                    "fft-r2c-split": "fft_r2c_split",
+                    "fft-c2r-merge": "fft_c2r_merge",
                     "transpose": "transpose", "fft-c2c-mul": "fft_c2c_mul",
                     "dedisperse": "dedisperse",
                     "harmonic-sum-plane": "harmonic_sum_plane",
@@ -447,7 +451,7 @@ LEDGER_TO_KERNEL = {"fft-c2c": "fft_c2c", "fft-c2c-t": "fft_c2c_t",
 #: kernels), which names it in profiler traces; no symbol is a substring
 #: of another's (phase 1 checks).
 KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
-           "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
+           "fft_r2c_split", "fft_c2r_merge", "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
            "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
 #: The staged kernels and their compiled instances, by library:
 #: dedisperse_kernel (one), harmonic_sum_plane_kernel<bins a thread> and
@@ -508,6 +512,8 @@ SOURCES = {
     "fft_c2c_axis1": "src/repro_torch/csrc/fft_c2c.cu",
     "fft_r2c": "src/repro_torch/csrc/fft_real.cu",
     "fft_c2r": "src/repro_torch/csrc/fft_real.cu",
+    "fft_r2c_split": "src/repro_torch/csrc/fft_real.cu",
+    "fft_c2r_merge": "src/repro_torch/csrc/fft_real.cu",
     "fft_r2c_t": "src/repro_torch/csrc/fft_real.cu",
     "transpose": "src/repro_torch/csrc/transpose.cu",
     "fft_c2c_mul": "src/repro_torch/csrc/fft_c2c.cu",
@@ -522,6 +528,9 @@ REPLACES = {
     "fft_c2c_axis1": "src/repro/kernels/fft/fft_kernel.py:515",
     "fft_r2c": "src/repro/kernels/fft/fft_kernel.py:386",
     "fft_c2r": "src/repro/kernels/fft/fft_kernel.py:606",
+    # No Pallas kernel: the reference splits and merges in jnp ops.
+    "fft_r2c_split": "none: jnp ops (src/repro/fft/stockham.py:109)",
+    "fft_c2r_merge": "none: jnp ops (src/repro/fft/stockham.py:118)",
     "fft_r2c_t": "src/repro/kernels/fft/fft_kernel.py:547",
     "transpose": "src/repro/kernels/fft/fft_kernel.py:577",
     "fft_c2c_mul": "src/repro/kernels/fft/fft_kernel.py:243",
@@ -532,6 +541,12 @@ REPLACES = {
         "src/repro/kernels/harmonic_sum/harmonic_sum_kernel.py:108",
     "power_spectrum_stats": "src/repro/kernels/spectrum/spectrum_kernel.py:32",
 }
+#: The split and merge kernels: rows and half lengths N/2 of their check
+#: (2**14 is the shortest half length on the long route), and the shape
+#: where they are timed, the 2**20 real plans' 2 GB batch.
+HERMITIAN_ROWS = (1, 3)
+HERMITIAN_HALVES = (2**14, 2**19)
+HERMITIAN_SHAPE = (FFTCase(2**20, transform="r2c").n_fft, 2**19)
 #: Serving phase: each wave submits 16 requests per stream, (4096, 4096)
 #: complex64 and (8192, 4096) float32, about 2.1 GB of each, just over the
 #: 2 GB batch budget, so each stream coalesces into two batches.  Request i
@@ -568,7 +583,8 @@ ONE_KERNEL_STAGE = {"dedisperse": "dedisp",
 #: Noise draws of the small-geometry recovery count in phase 7.
 RIDGE_SEEDS = 64
 PULSAR_LEDGER = {"dedisperse": 1, "fft-c2c-axis1": 1, "fft-c2c-t": 1,
-                 "fft-c2c-mul": 1, "fft-c2c": 1, "harmonic-sum-plane": 1}
+                 "fft-r2c-split": 1, "fft-c2c-mul": 1, "fft-c2c": 1,
+                 "harmonic-sum-plane": 1}
 #: The Sec. 5.3 demo at the reference's Table 4 shape (benchmarks/run.py).
 DEMO_SHAPE = demo.PipelineShape(batch=32, n=2**20, n_harmonics=32)
 #: Phase 9, the paper's experiment on the card: the main path's cases
@@ -1198,6 +1214,56 @@ def phase3_real_kernels(gen: torch.Generator,
             row = _pass_sweep_row(gen, name, n)
             if n == 1024:
                 results[name] = row
+
+
+def phase3_hermitian_kernels(gen: torch.Generator,
+                             results: dict[str, dict]) -> None:
+    """fft_r2c_split and fft_c2r_merge against their plain versions on the
+    card: B in HERMITIAN_ROWS and at HERMITIAN_SHAPE, each half length,
+    rows at an odd element offset (not 16-byte aligned: the spans' scalar
+    edges) and not; then each timed at HERMITIAN_SHAPE beside its plain
+    version and a copy of the same bytes; adds one row per kernel to
+    ``results``."""
+    cases = (("fft_r2c_split", 0, ops.fft_kernel_r2c_split,
+              K.fft_r2c_split_plain),
+             ("fft_c2r_merge", 1, ops.fft_kernel_c2r_merge,
+              K.fft_c2r_merge_plain))
+    worst, checked = 0.0, 0
+    for name, extra, fn, plain in cases:
+        for m in HERMITIAN_HALVES:
+            rows = HERMITIAN_ROWS + ((HERMITIAN_SHAPE[0],)
+                                     if m == HERMITIAN_SHAPE[1] else ())
+            for b in rows:
+                for offset in (0, 1):
+                    w = m + extra
+                    x = randn(gen, b * w + offset)[offset:].view(b, w)
+                    check(x.data_ptr() % 16 == 8 * offset,
+                          f"{name}: offset {offset} rows are aligned "
+                          f"{x.data_ptr() % 16}")
+                    _, rel = rel_err(fn(x, 2 * m), plain(x, 2 * m))
+                    check(rel <= KERNEL_RTOL, f"{name} b={b} N/2={m} "
+                          f"offset={offset}: rel err {rel:.3e}")
+                    worst = max(worst, rel)
+                    checked += 1
+                    del x
+                    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"phase 3: {checked} split/merge-kernel-vs-plain checks, max "
+          f"relative error {worst:.3e} (limit {KERNEL_RTOL})")
+    b, m = HERMITIAN_SHAPE
+    for name, extra, fn, plain in cases:
+        x = randn(gen, b, m + extra)
+        # Read m (split) or m+1 (merge) bins a row, write the other, and
+        # the split table once (it stays in L2); 16 float operations a
+        # bin in split_of / merge_of.
+        nbytes = 8 * b * (2 * m + 1) + 8 * (m + 1)
+        results[name] = _timed_row(
+            name, (b, m + extra), lambda: fn(x, 2 * m),
+            lambda: plain(x, 2 * m), lambda: x.clone(), None,
+            "x.clone() (the same bytes copied)", nbytes,
+            16.0 * b * (m + 1), _close)
+        del x
+        torch.cuda.empty_cache()
 
 
 def phase3_pass_lengths(gen: torch.Generator, name: str) -> None:
@@ -2364,9 +2430,11 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
     four_step = ["fft-c2c-axis1", "fft-c2c-t"]
     expected_kernels = {"c2c": ["fft-c2c"], "r2c": ["fft-r2c"],
                         "2d": ["fft-c2c-t", "fft-c2c-t"], "1d": four_step,
-                        "fdas": four_step + ["fft-c2c-mul", "fft-c2c"],
-                        "pulsar": ["dedisperse", *four_step, "fft-c2c-mul",
-                                   "fft-c2c", "harmonic-sum-plane"]}
+                        "fdas": four_step + ["fft-r2c-split", "fft-c2c-mul",
+                                             "fft-c2c"],
+                        "pulsar": ["dedisperse", *four_step, "fft-r2c-split",
+                                   "fft-c2c-mul", "fft-c2c",
+                                   "harmonic-sum-plane"]}
     execute_s: list[tuple[str, float]] = []
 
     def stream_of(key) -> str:
@@ -5553,6 +5621,7 @@ def main() -> int:
     phase2_card()
     measured = phase3_kernels(gen)
     phase3_real_kernels(gen, measured)
+    phase3_hermitian_kernels(gen, measured)
     phase3_nd_kernels(gen, measured)
     phase3_pulsar_kernels(gen, measured)
     phase3_pulsar_tiles(gen)

@@ -9,6 +9,15 @@
 //                       pass of a pow2 rfft2/rfftn plan graph
 //   repro_fft_c2r    <- irfft_pallas (def :606; body _c2r_body :323)
 //
+// and two kernels that replace no Pallas kernel, for the real lengths
+// whose half does not fit one pass (N/2 > 2^13): the reference packs, runs
+// its four-step C2C and does the Hermitian split or merge in jnp ops that
+// XLA fuses (repro/fft/plan.py, _r2c_fn and _c2r_fn).  In eager PyTorch
+// those ops are a dozen passes over the batch, so the port gives each step
+// a kernel of its own:
+//   repro_fft_r2c_split  (B, N/2) c64 Z -> (B, N/2+1) c64 X, the split
+//   repro_fft_c2r_merge  (B, N/2+1) c64 X -> (B, N/2) c64 Z, the merge
+//
 // R2C: N reals are read as N/2 complex points z[k] = x[2k] + i*x[2k+1]
 // (one float2 load each: the packing is free), a half-length Stockham FFT
 // runs, and the Hermitian split turns Z into the N/2+1 bins X[k] = Ze[k]
@@ -65,6 +74,24 @@
 // Rows past R are masked; a masked block still reaches both barriers.
 // Bin C/2 (Nyquist) is the plane's last row, split from Z[0] like bin 0.
 //
+// SPLIT and MERGE: no FFT, so bytes alone bound them: 8 * B * (N + 1)
+// bytes read and written, at 3.35 TB/s 1.19 ms at B = 476, N = 2^20.  Each
+// reads its input once and writes its output once; the split table (4 MB
+// at N = 2^20) is read from L2, where it stays across rows because the
+// batch is read and written with evict-first hints (__ldcs, __stcs).  Bin k
+// needs point N/2 - k, so a block takes a span of 1024 points k of one row
+// and their mirrors N/2 - k, loads both spans into shared memory, and each
+// thread turns pairs k, N/2 - k, which no other thread reads, into their
+// bins in place; then the block stores both spans.  Loads and stores move
+// 16 bytes a thread: a span at an address that is not 16-byte aligned (the
+// mirror spans, the odd rows of the N/2+1-point side, an input at an odd
+// element offset) moves its first and last point singly and the aligned
+// body as float4, and shared memory keeps the span's device-memory
+// alignment, so that the body's slots are aligned too.  256 threads and
+// 16 KB a block: eight blocks fill an SM, and a row of 2^19 points is 256
+// blocks, 121856 at B = 476.  The bin N/4 is its own mirror; the block that
+// ends at it computes it from device memory.
+//
 // The split and merge follow the reference kernel's operations in its
 // order; the plain torch versions (repro_torch/kernels/fft/fft_kernel.py)
 // run the torch engine's complex split and merge, which agree with them to
@@ -75,6 +102,8 @@
 // stream; each returns the cudaError_t of its launch (0 on success).
 
 #include <cuda_pipeline.h>
+
+#include <cstdint>
 
 #include "stockham_regs.cuh"
 
@@ -296,6 +325,133 @@ __global__ void __launch_bounds__(kPassThreads, pass_min_blocks(P, F))
                 rows - r0c);
 }
 
+// Threads of a split or merge block, and the points k of one row it takes
+// (with as many mirrors m - k).
+constexpr int kSpanThreads = 256;
+constexpr int kSpanPoints = 1024;
+
+// The shared-memory slot of point 0 of a span at p: 1 where p is not
+// 16-byte aligned, so that the span's aligned points take aligned slots.
+__device__ __forceinline__ int span_lead(const float2* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 3) & 1);
+}
+
+// Points src[0, count) into buf[lead + j]: a first point off 16-byte
+// alignment and an odd last point singly, the body as float4.
+__device__ __forceinline__ void load_span(float2* buf,
+                                          const float2* __restrict__ src,
+                                          int count) {
+  const int lead = span_lead(src);
+  const int head = min(lead, count);
+  const int pairs = (count - head) >> 1;
+  const float4* body = reinterpret_cast<const float4*>(src + head);
+  float4* slots = reinterpret_cast<float4*>(buf + lead + head);
+  for (int i = threadIdx.x; i < pairs; i += blockDim.x)
+    slots[i] = __ldcs(body + i);
+  if (threadIdx.x == 0) {
+    if (head) buf[lead] = __ldcs(src);
+    if ((count - head) & 1) buf[lead + count - 1] = __ldcs(src + count - 1);
+  }
+}
+
+// buf[lead + j] into dst[0, count), as load_span moves them; the body's
+// slots are read as float4 where they are aligned, else as two float2.
+__device__ __forceinline__ void store_span(float2* __restrict__ dst,
+                                           const float2* buf, int lead,
+                                           int count) {
+  const int head = min(span_lead(dst), count);
+  const int pairs = (count - head) >> 1;
+  float4* body = reinterpret_cast<float4*>(dst + head);
+  const float2* from = buf + lead + head;
+  if (((lead + head) & 1) == 0) {
+    const float4* slots = reinterpret_cast<const float4*>(from);
+    for (int i = threadIdx.x; i < pairs; i += blockDim.x)
+      __stcs(body + i, slots[i]);
+  } else {
+    for (int i = threadIdx.x; i < pairs; i += blockDim.x) {
+      const float2 a = from[2 * i], b = from[2 * i + 1];
+      __stcs(body + i, make_float4(a.x, a.y, b.x, b.y));
+    }
+  }
+  if (threadIdx.x == 0) {
+    if (head) __stcs(dst, buf[lead]);
+    if ((count - head) & 1) __stcs(dst + count - 1, buf[lead + count - 1]);
+  }
+}
+
+// The split (kSplit: (B, m) Z -> (B, m+1) X) or the merge ((B, m+1) X ->
+// (B, m) Z) of one block's span: row blockIdx.x / tiles, points k in [k0,
+// k0 + count) of [0, m/2) and their mirrors m - k, the span [lo, m - k0].
+// On the m-point side the first span's mirror stops at m - 1: the split
+// reads Z[m] as Z[0], and the merge has no Z[m] to write.
+template <bool kSplit>
+__device__ __forceinline__ void hermitian_span(
+    const float2* __restrict__ x, float2* __restrict__ y, int m, int tiles,
+    const float2* __restrict__ sw) {
+  __shared__ __align__(16) float2 front[kSpanPoints + 2];
+  __shared__ __align__(16) float2 back[kSpanPoints + 2];
+  const int half = m >> 1;
+  const long long row = blockIdx.x / tiles;
+  const int k0 = static_cast<int>(blockIdx.x - row * tiles) * kSpanPoints;
+  const int count = min(kSpanPoints, half - k0);
+  const int lo = m - k0 - count + 1;
+  const int wrap = k0 == 0;
+  const float2* src = x + row * (kSplit ? m : m + 1);
+  float2* dst = y + row * (kSplit ? m + 1 : m);
+  const int lf = span_lead(src + k0), lb = span_lead(src + lo);
+  load_span(front, src + k0, count);
+  load_span(back, src + lo, kSplit ? count - wrap : count);
+  __syncthreads();
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    const int k = k0 + j;
+    float2* f = front + lf + j;
+    float2* g = back + lb + count - 1 - j;  // point m - k
+    const float2 a = *f;
+    const float2 b = kSplit && k == 0 ? a : *g;
+    const float2 w = __ldg(sw + k), wm = __ldg(sw + m - k);
+    *f = kSplit ? split_of(a, b, w) : merge_of(a, b, w);
+    *g = kSplit ? split_of(b, a, wm) : merge_of(b, a, wm);
+  }
+  if (k0 + count == half && threadIdx.x == 0) {  // point m/2: its own mirror
+    const float2 v = __ldcs(src + half), w = __ldg(sw + half);
+    __stcs(dst + half, kSplit ? split_of(v, v, w) : merge_of(v, v, w));
+  }
+  __syncthreads();
+  store_span(dst + k0, front, lf, count);
+  store_span(dst + lo, back, lb, kSplit ? count : count - wrap);
+}
+
+// (B, m) c64 -> (B, m+1) c64: X[k] = split_of(Z[k], Z[m-k mod m], W[k]).
+__global__ void __launch_bounds__(kSpanThreads, 8)
+    fft_r2c_split_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                         int m, int tiles, const float2* __restrict__ sw) {
+  hermitian_span<true>(x, y, m, tiles, sw);
+}
+
+// (B, m+1) c64 -> (B, m) c64: Z[k] = merge_of(X[k], X[m-k], W[k]).
+__global__ void __launch_bounds__(kSpanThreads, 8)
+    fft_c2r_merge_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                         int m, int tiles, const float2* __restrict__ sw) {
+  hermitian_span<false>(x, y, m, tiles, sw);
+}
+
+// Launches a split or merge kernel over `batch` rows of the real length
+// n (a multiple of 4): one block a span of kSpanPoints points a row.
+template <typename Kernel>
+int launch_spans(Kernel kernel, const void* x, void* y, long long batch,
+                 int n, const void* sw, void* stream) {
+  if (n < 4 || n % 4 != 0 || batch < 1) return cudaErrorInvalidValue;
+  const int m = n / 2;
+  const long long tiles = (m / 2 + kSpanPoints - 1) / kSpanPoints;
+  const long long blocks = batch * tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kSpanThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), static_cast<float2*>(y), m,
+      static_cast<int>(tiles), static_cast<const float2*>(sw));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The register plan of a packed real transform of length n (pow2 >= 4):
 // the plan of its half length.
 cudaError_t half_plan(RegPlan* s, int n, int points, const int* table,
@@ -421,6 +577,20 @@ int repro_fft_r2c_t(const void* x, void* y, long long batch, int rows,
                            static_cast<const float2*>(tw),
                            static_cast<const float2*>(sw));
   });
+}
+
+// (B, N/2) c64 -> (B, N/2+1) c64: the Hermitian split of the packed
+// spectra of B rows of N reals, sw the split table of N (N/2+1 points).
+int repro_fft_r2c_split(const void* x, void* y, long long batch, int n,
+                        const void* sw, void* stream) {
+  return launch_spans(fft_r2c_split_kernel, x, y, batch, n, sw, stream);
+}
+
+// (B, N/2+1) c64 -> (B, N/2) c64: the Hermitian merge, the packed input of
+// the inverse half-length C2C, sw the split table of N.
+int repro_fft_c2r_merge(const void* x, void* y, long long batch, int n,
+                        const void* sw, void* stream) {
+  return launch_spans(fft_c2r_merge_kernel, x, y, batch, n, sw, stream);
 }
 
 // Blocks of `threads` threads and `smem` bytes that one SM holds at once

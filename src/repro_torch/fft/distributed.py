@@ -655,7 +655,8 @@ def _pencil_body(shards: Sequence[torch.Tensor], mesh: Mesh, n1: int,
     # ---- FFT over n1 with the twiddle exp(-2*pi*i*j*k/n), j global -------
     # one fft_c2c_axis1 launch: output [k, j] times table[p*c + j, k]
     for p, s in enumerate(v):
-        tw = _four_step_twiddle(n1, n2, s.device)[p * c:(p + 1) * c]
+        tw = _four_step_twiddle(n1, n2, s.device,
+                                inverse=False)[p * c:(p + 1) * c]
         v[p] = fft_column(s, twiddle=tw)
     # ---- transpose 2: back to n1-sharded --------------------------------
     v = mesh.all_to_all(v, split_dim=-2, concat_dim=-1)    # (.., n1/D, n2)

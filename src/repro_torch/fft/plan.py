@@ -5,7 +5,9 @@ The counterpart of ``repro.fft.plan``.  For 1-D transforms:
   pow2, fits one kernel   -> one fused Stockham pass (``fft_c2c`` kernel)
   pow2, long              -> four-step decomposition: two fused passes
                              (``fft_c2c_axis1`` with the inter-pass
-                             twiddle, then ``fft_c2c_t``)
+                             twiddle, then ``fft_c2c_t``; the inverse runs
+                             the same passes inverse, with the conjugate
+                             twiddle)
   non-pow2                -> Bluestein (two routed pow2 FFTs, cached
                              chirp/filter)
 
@@ -14,8 +16,10 @@ and, for real input (``kind="r2c"``, N/2+1 bins out, and its inverse
 
   pow2, N/2 fits a kernel -> one fused packed pass (``fft_r2c`` /
                              ``fft_c2r``: split or merge in the kernel)
-  pow2, long              -> pack, the N/2 C2C plan (four-step), then the
-                             split or merge in torch
+  pow2, long              -> pack (a view), the N/2 C2C plan (four-step),
+                             then the split (``fft_r2c_split``); or the
+                             merge (``fft_c2r_merge``), the N/2 inverse
+                             four-step, then unpack (a view)
   non-pow2 r2c            -> the full C2C plan, sliced to N/2+1 bins
                              (non-pow2 c2r raises)
 
@@ -63,8 +67,9 @@ from repro_torch.kernels.fft.ops import (MAX_KERNEL_N, fft_kernel_c2c,
                                          fft_kernel_c2c_axis1,
                                          fft_kernel_c2c_mul,
                                          fft_kernel_c2c_t, fft_kernel_c2r,
-                                         fft_kernel_r2c, fft_kernel_r2c_t,
-                                         transpose_kernel)
+                                         fft_kernel_c2r_merge,
+                                         fft_kernel_r2c, fft_kernel_r2c_split,
+                                         fft_kernel_r2c_t, transpose_kernel)
 from repro_torch.obs.trace import count_build, span, tracing
 from repro_torch.tune.config import KernelConfig
 from repro_torch.tune.context import plan_config as _tuned_plan_config
@@ -83,6 +88,8 @@ _kernel_fft_axis1: Callable = fft_kernel_c2c_axis1
 _kernel_rfft: Callable = fft_kernel_r2c
 _kernel_irfft: Callable = fft_kernel_c2r
 _kernel_rfft_t: Callable = fft_kernel_r2c_t
+_kernel_rfft_split: Callable = fft_kernel_r2c_split
+_kernel_irfft_merge: Callable = fft_kernel_c2r_merge
 _kernel_transpose: Callable = transpose_kernel
 _kernel_fft_mul: Callable = fft_kernel_c2c_mul
 
@@ -134,16 +141,13 @@ def pow2_fft(x: torch.Tensor, *, inverse: bool = False,
     """C2C FFT of a pow2 length, routed through the kernels.
 
     Single-pass lengths run ``fft_c2c``; longer lengths recurse through
-    the four-step decomposition so every pow2 pass lands on a kernel.
-    The inverse of a long length is the conjugate of the forward
-    transform of the conjugate, scaled by 1/N.
+    the four-step decomposition so every pow2 pass lands on a kernel, the
+    inverse on the passes' own inverse (1/N in all).
     """
     n = x.shape[-1]
     if n > MAX_SINGLE_PASS:
-        if inverse:
-            return _conj_inverse(lambda v: pow2_fft(v, config=config), x, n)
         n1, n2 = _resolve_split(n, config)
-        return four_step_fft(x, n1, n2, config=config)
+        return four_step_fft(x, n1, n2, inverse=inverse, config=config)
     if n <= MAX_KERNEL_N and _kernels_enabled():
         return _kernel_fft(x, inverse=inverse, **_kernel_overrides(config))
     return _stockham_pow2(x, inverse=inverse)
@@ -293,18 +297,22 @@ def _four_step_twiddle_table(n1: int, n2: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _four_step_twiddle(n1: int, n2: int, device: torch.device
-                       ) -> torch.Tensor:
-    """The inter-pass twiddle as a complex64 tensor, once per device; on
-    ``meta`` (a dry run) its shape alone."""
+def _four_step_twiddle(n1: int, n2: int, device: torch.device, *,
+                       inverse: bool) -> torch.Tensor:
+    """The inter-pass twiddle as a complex64 tensor (its conjugate for the
+    inverse), once per device and direction; on ``meta`` (a dry run) its
+    shape alone.  ``inverse`` has no default and is keyword-only, so every
+    caller gives the cache the same key for the same table."""
     count_build("four_step_twiddle")
     if device.type == "meta":
         return torch.empty((n2, n1), dtype=torch.complex64, device=device)
-    return torch.from_numpy(_four_step_twiddle_table(n1, n2)).to(
+    table = _four_step_twiddle_table(n1, n2)
+    return torch.from_numpy(np.conj(table) if inverse else table).to(
         device=device, dtype=torch.complex64)
 
 
-def four_step_fft(x: torch.Tensor, n1: int, n2: int,
+def four_step_fft(x: torch.Tensor, n1: int, n2: int, *,
+                  inverse: bool = False,
                   config: KernelConfig | None = None) -> torch.Tensor:
     """Long FFT as (n1 x n2) decomposition — Bailey's four-step algorithm,
     run as TWO fused kernel passes.
@@ -316,6 +324,9 @@ def four_step_fft(x: torch.Tensor, n1: int, n2: int,
               write back in the same layout -> T[k1, j2]
       pass 2: FFT the rows of T (length n2) -> Y[k1, k2]; write
               transposed -> out[k2, k1], which flattens to natural order.
+
+    The inverse runs both passes inverse (scaled by 1/n1 and 1/n2) with
+    the conjugate twiddle exp(+2*pi*i*j2*k1/n).
     """
     n = n1 * n2
     if x.shape[-1] != n:
@@ -324,9 +335,11 @@ def four_step_fft(x: torch.Tensor, n1: int, n2: int,
     with span("four_step"):
         batch = x.shape[:-1]
         v = x.reshape(*batch, n1, n2)
-        tw = _four_step_twiddle(n1, n2, x.device)    # (n2, n1): w^{j2*k1}
-        v = fft_column(v, twiddle=tw, config=config)  # (..., n1, n2)
-        v = fft_transposed(v, config=config)         # (..., n2, n1)
+        tw = _four_step_twiddle(n1, n2, x.device,
+                                inverse=inverse)      # (n2, n1)
+        v = fft_column(v, twiddle=tw, inverse=inverse,
+                       config=config)                 # (..., n1, n2)
+        v = fft_transposed(v, inverse=inverse, config=config)  # (.., n2, n1)
         return v.reshape(*batch, n)
 
 
@@ -340,8 +353,7 @@ def _c2c_fn(x, config: KernelConfig | None = None) -> torch.Tensor:
 
 def _r2c_fn(x, n: int, config: KernelConfig | None = None) -> torch.Tensor:
     """Routed R2C: the fused kernel when the packed length fits, else pack
-    -> routed pow2 C2C -> split (so long real transforms still run a
-    kernel for each four-step pass)."""
+    -> routed pow2 C2C -> split, each pass a kernel."""
     x = _as_real(x)
     m = n // 2
     if 4 <= n and m <= MAX_KERNEL_N and _kernels_enabled():
@@ -351,16 +363,19 @@ def _r2c_fn(x, n: int, config: KernelConfig | None = None) -> torch.Tensor:
     with span("r2c.pack"):
         z = _pack_real(x.to(torch.float32))
     z = pow2_fft(z, config=config)
-    with span("r2c.split"):
-        return _rfft_split(z, n)
+    if 4 <= n and _kernels_enabled():
+        return _kernel_rfft_split(z, n)
+    return _rfft_split(z, n)
 
 
 def _c2r_fn(x, n: int, config: KernelConfig | None = None) -> torch.Tensor:
     """Routed C2R inverse of :func:`_r2c_fn` (1/N normalised)."""
     x = _as_complex(x)
-    if 4 <= n and n // 2 <= MAX_KERNEL_N and _kernels_enabled():
-        return _kernel_irfft(x, **_kernel_overrides(config))
-    with span("c2r.merge"):
+    if 4 <= n and _kernels_enabled():
+        if n // 2 <= MAX_KERNEL_N:
+            return _kernel_irfft(x, **_kernel_overrides(config))
+        z = _kernel_irfft_merge(x, n)
+    else:
         z = _irfft_merge(x, n)
     z = pow2_fft(z, inverse=True, config=config)
     with span("c2r.unpack"):

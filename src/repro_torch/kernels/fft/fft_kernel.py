@@ -1,6 +1,6 @@
 """Fused mixed-radix Stockham FFT kernels: CUDA launches and plain twins.
 
-Eight CUDA kernels (``repro_torch/csrc/fft_c2c.cu``, ``fft_real.cu`` and
+Ten CUDA kernels (``repro_torch/csrc/fft_c2c.cu``, ``fft_real.cu`` and
 ``transpose.cu``; each file's header note says which TPU kernel each
 replaces, what bounds it and what its design does about that) and,
 beside each, a plain torch version that runs the same radix schedule, the
@@ -20,6 +20,10 @@ re/im planes — the counterpart of the reference's ``_mixed_radix_stages``.
                  row, written transposed
   fft_c2r        (B, N/2+1) -> (B, N) float32: packed C2R, 1/N (the
                  reference's ``_c2r_body``)
+  fft_r2c_split  (B, N/2) -> (B, N/2+1): the Hermitian split of the long
+                 R2C route, after its N/2-point four-step C2C
+  fft_c2r_merge  (B, N/2+1) -> (B, N/2): the Hermitian merge of the long
+                 C2R route, before its N/2-point inverse
   transpose      (B, R, C) -> (B, C, R) of 4-, 8- or 16-byte elements,
                  dtype kept
 
@@ -44,7 +48,8 @@ cluster (:func:`r2c_t_cluster`, :func:`c2c_cluster`).  ``fft_c2c_mul``
 runs the schedule in shared memory.
 
 The plain R2C/C2R versions run the Hermitian split and merge of the torch
-engine (``repro_torch.fft.stockham``); the kernels read its split table.
+engine (``repro_torch.fft.stockham``), and ``fft_r2c_split`` and
+``fft_c2r_merge`` are those two alone; the kernels read its split table.
 """
 from __future__ import annotations
 
@@ -69,11 +74,16 @@ KERNEL_RADICES = (2, 4, 8)
 #: Launches per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"fft_c2c": 0, "fft_c2c_t": 0, "fft_c2c_axis1": 0,
             "fft_c2c_mul": 0, "fft_r2c": 0, "fft_r2c_t": 0, "fft_c2r": 0,
-            "transpose": 0}
+            "transpose": 0, "fft_r2c_split": 0, "fft_c2r_merge": 0}
 
 #: Side of the square tile the transpose kernel moves through shared
 #: memory (``csrc/transpose.cu``).
 TRANSPOSE_TILE = 32
+
+#: Points k of one row that a block of ``fft_r2c_split`` or
+#: ``fft_c2r_merge`` takes, with their mirrors N/2 - k (``kSpanPoints`` in
+#: ``csrc/fft_real.cu``).
+SPAN_POINTS = 1024
 
 _ELEM_BYTES = 8          # complex64
 _BUFFERS = 2             # ping-pong Stockham buffers in shared memory
@@ -429,6 +439,13 @@ def blocks(count: int, per_block: int, outer: int = 1) -> int:
     return outer * (round_up(count, per_block) // per_block)
 
 
+def span_blocks(b: int, n: int) -> int:
+    """Blocks of a ``fft_r2c_split`` or ``fft_c2r_merge`` launch over ``b``
+    rows of the real length ``n``: the N/4 points k of a row in spans of
+    :data:`SPAN_POINTS`."""
+    return b * -(-(n // 4) // SPAN_POINTS)
+
+
 def transpose_blocks(b: int, r: int, c: int) -> int:
     """Thread blocks of a transpose launch: one per tile of each plane."""
     return blocks(r, TRANSPOSE_TILE, b) * blocks(c, TRANSPOSE_TILE)
@@ -628,6 +645,16 @@ def fft_c2r_plain(x: torch.Tensor, *,
     return torch.stack([zr, zi], dim=-1).reshape(b, 2 * m)
 
 
+def fft_r2c_split_plain(z: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain torch version of :func:`fft_r2c_split`."""
+    return _rfft_split(z, n)
+
+
+def fft_c2r_merge_plain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain torch version of :func:`fft_c2r_merge`."""
+    return _irfft_merge(x, n)
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -683,6 +710,9 @@ def _real_library() -> ctypes.CDLL:
     lib.repro_fft_real_resident_blocks.restype = _I
     lib.repro_fft_r2c_t_active_clusters.argtypes = [_I, _I, _I, _LL, _I]
     lib.repro_fft_r2c_t_active_clusters.restype = _I
+    for fn in (lib.repro_fft_r2c_split, lib.repro_fft_c2r_merge):
+        fn.argtypes = [_P, _P, _LL, _I, _P, _P]
+        fn.restype = _I
     return lib
 
 
@@ -1083,6 +1113,47 @@ def fft_c2r(x: torch.Tensor, *, radices: tuple[int, ...] = DEFAULT_RADICES,
                                 *args, stream)
     _raise_on(err, "fft_c2r", lib)
     return y
+
+
+def _hermitian(name: str, x: torch.Tensor, n: int, out: int,
+               plain) -> torch.Tensor:
+    """``fft_r2c_split`` or ``fft_c2r_merge`` (``name``) of the (B, *)
+    complex64 ``x`` of the real length ``n``: ``plain`` on the CPU, else
+    the kernel into a new (B, out) complex64 tensor."""
+    _check(x, 2, name)
+    _real_length(n)
+    if x.device.type == "cpu":
+        return plain(x, n)
+    b = x.shape[0]
+    dev = x.device
+    y = torch.empty((b, out), dtype=torch.complex64, device=dev)
+    if b == 0 or dev.type == "meta":
+        return y
+    sw = _split_factors(n, dev, torch.complex64)
+    lib = _real_library()
+    with _current(dev):
+        err = getattr(lib, f"repro_{name}")(x.data_ptr(), y.data_ptr(), b, n,
+                                            sw.data_ptr(), _stream(dev))
+    _raise_on(err, name, lib)
+    return y
+
+
+def fft_r2c_split(z: torch.Tensor, n: int) -> torch.Tensor:
+    """The Hermitian split of a (B, N/2) complex64 tensor, the N/2-point
+    spectra of B rows of N packed reals, -> (B, N/2+1) complex64 bins."""
+    if z.ndim != 2 or 2 * z.shape[-1] != n:
+        raise ValueError(f"fft_r2c_split of length {n} takes (B, {n // 2}), "
+                         f"got {tuple(z.shape)}")
+    return _hermitian("fft_r2c_split", z, n, n // 2 + 1, fft_r2c_split_plain)
+
+
+def fft_c2r_merge(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The Hermitian merge of a (B, N/2+1) complex64 half-spectrum of
+    length N -> the (B, N/2) packed input of its N/2-point inverse."""
+    if x.ndim != 2 or 2 * (x.shape[-1] - 1) != n:
+        raise ValueError(f"fft_c2r_merge of length {n} takes "
+                         f"(B, {n // 2 + 1}), got {tuple(x.shape)}")
+    return _hermitian("fft_c2r_merge", x, n, n // 2, fft_c2r_merge_plain)
 
 
 #: Kernel ids of ``repro_fft_real_resident_blocks`` (``csrc/fft_real.cu``).

@@ -5,10 +5,12 @@ same ledger names (``fft-c2c``, ``fft-c2c-t``, ``fft-c2c-axis1``,
 ``fft-c2c-mul``, ``fft-r2c``, ``fft-r2c-t``, ``fft-c2r``,
 ``transpose``), the same logical ``shape`` and the same ``bytes_moved``
 formulas, except that the reference counts its padded batch where the
-port counts the batch itself.  ``grid`` and ``tile`` describe the CUDA
-launch (thread blocks; transforms per block and transform length, or the
-transpose's square tile), not a VMEM tile, and there is no padding: the
-kernels mask a ragged batch or edge themselves.
+port counts the batch itself.  ``fft-r2c-split`` and ``fft-c2r-merge``,
+the Hermitian split and merge of the long real plans, are the port's
+own: the reference runs those steps as jnp ops.  ``grid`` and ``tile``
+describe the CUDA launch (thread blocks; transforms per block and
+transform length, or the transpose's square tile), not a VMEM tile, and
+there is no padding: the kernels mask a ragged batch or edge themselves.
 
 Complex input is cast to complex64 and real input to float32 (wider
 types included, as the reference's wrappers do) — except by the
@@ -299,3 +301,35 @@ def fft_kernel_c2r(x: torch.Tensor, *,
                   tile=(launch.per_block, n), bytes_moved=4 * b * (2 * (m + 1) + n),
                   shape=(b, n))
     return y.reshape(*lead, n)
+
+
+def fft_kernel_r2c_split(z: torch.Tensor, n: int) -> torch.Tensor:
+    """The Hermitian split of the long R2C route: (..., N/2) complex, the
+    N/2-point spectra of N packed reals, -> (..., N/2+1) complex64 bins,
+    pow2 N >= 4; one pass (``fft_r2c_split``)."""
+    z = _complex64(z)
+    m = z.shape[-1]
+    lead = z.shape[:-1]
+    b = _batch(z.shape, 1)
+    with span("kernel.fft-r2c-split", z, kind="r2c-split", n=n, rows=b):
+        y = fft_kernel.fft_r2c_split(z.reshape(b, m), n)
+    record_launch("fft-r2c-split", grid=(fft_kernel.span_blocks(b, n),),
+                  tile=(fft_kernel.SPAN_POINTS, n),
+                  bytes_moved=8 * b * (2 * m + 1), shape=(b, n))
+    return y.reshape(*lead, m + 1)
+
+
+def fft_kernel_c2r_merge(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The Hermitian merge of the long C2R route: (..., N/2+1) complex
+    half-spectra -> (..., N/2) complex64, the packed input of the
+    N/2-point inverse, pow2 N >= 4; one pass (``fft_c2r_merge``)."""
+    x = _complex64(x)
+    m = n // 2
+    lead = x.shape[:-1]
+    b = _batch(x.shape, 1)
+    with span("kernel.fft-c2r-merge", x, kind="c2r-merge", n=n, rows=b):
+        y = fft_kernel.fft_c2r_merge(x.reshape(b, x.shape[-1]), n)
+    record_launch("fft-c2r-merge", grid=(fft_kernel.span_blocks(b, n),),
+                  tile=(fft_kernel.SPAN_POINTS, n),
+                  bytes_moved=8 * b * (2 * m + 1), shape=(b, n))
+    return y.reshape(*lead, m)

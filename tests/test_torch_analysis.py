@@ -312,6 +312,10 @@ WRAPPERS = {
         (3, 64), torch.complex64),
     "transpose": (lambda x: ops.transpose_kernel(x), (3, 8, 32),
                   torch.complex64),
+    "fft-r2c-split": (lambda x: ops.fft_kernel_r2c_split(x, 64), (3, 32),
+                      torch.complex64),
+    "fft-c2r-merge": (lambda x: ops.fft_kernel_c2r_merge(x, 64), (3, 33),
+                      torch.complex64),
 }
 
 

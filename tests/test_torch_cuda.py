@@ -246,27 +246,77 @@ def test_real_input_at_an_odd_offset(gen):
     torch.cuda.synchronize()
 
 
+#: The long real plans: the four-step pair and the split or merge.
+_FOUR_STEP = {"fft_c2c_axis1": 1, "fft_c2c_t": 1}
+_LONG_REAL = {"r2c": {**_FOUR_STEP, "fft_r2c_split": 1},
+              "c2r": {**_FOUR_STEP, "fft_c2r_merge": 1}}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,expected", [
-    (1024, "fft_r2c"), (16384, "fft_r2c"),
-    (2**15, {"fft_c2c_axis1": 1, "fft_c2c_t": 1}),
+    (1024, "fft_r2c"), (16384, "fft_r2c"), (2**15, _LONG_REAL),
+    (2**20, _LONG_REAL),
 ])
 def test_real_plans_launch_the_kernels(gen, n, expected):
     from repro_torch.kernels.fft.ref import irfft_ref, rfft_ref
     x = _real(gen, 6, n)
     for kind in ("r2c", "c2r"):
         want = ({expected.replace("r2c", kind): 1}
-                if isinstance(expected, str) else expected)
+                if isinstance(expected, str) else expected[kind])
         inp = x if kind == "r2c" else torch.fft.rfft(x)
         K.reset_launches()
-        y = port_plan.plan_for_length(n, kind)(inp)
+        ledger = LaunchLedger()
+        with ledger.capture():
+            y = port_plan.plan_for_length(n, kind)(inp)
         torch.cuda.synchronize()
         assert {k: v for k, v in K.LAUNCHES.items() if v} == want
+        assert ledger.counts() == {k.replace("_", "-"): v
+                                   for k, v in want.items()}
         ref = rfft_ref(inp) if kind == "r2c" else irfft_ref(inp)
         assert _rel(y, ref) <= 2e-5
     back = port_plan.plan_for_length(n, "c2r")(
         port_plan.plan_for_length(n, "r2c")(x))
     assert _rel(back, x) <= 2e-5
+
+
+#: The split and merge kernels against their plain versions: 1e-6 of
+#: max |ref| (the same float32 formulas, in another order of operations).
+HERMITIAN_RTOL = 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("m", (2**14, 2**19))
+@pytest.mark.parametrize("b", (1, 3, 476))
+def test_split_and_merge_kernels_match_plain_on_the_card(gen, b, m, offset):
+    """Rows of m = N/2 points and of m + 1 bins, the input at an odd
+    element offset too (not 16-byte aligned: the spans' scalar edges)."""
+    n = 2 * m
+    for name, width, kernel, plain in (
+            ("fft-r2c-split", m, ops.fft_kernel_r2c_split,
+             K.fft_r2c_split_plain),
+            ("fft-c2r-merge", m + 1, ops.fft_kernel_c2r_merge,
+             K.fft_c2r_merge_plain)):
+        x = _rand(gen, b * width + offset)[offset:].view(b, width)
+        assert x.data_ptr() % 16 == 8 * offset
+        ledger = LaunchLedger()
+        with ledger.capture():
+            got = kernel(x, n)
+        assert ledger.counts() == {name: 1}
+        assert _rel(got, plain(x, n)) <= HERMITIAN_RTOL
+        del got
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2**14, 2**20))
+def test_long_inverse_runs_the_inverse_passes(gen, n):
+    x = _rand(gen, 3, n)
+    K.reset_launches()
+    y = port_plan.pow2_fft(x, inverse=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == _FOUR_STEP
+    assert _rel(y, torch.fft.ifft(x)) <= 2e-5
 
 
 @pytest.mark.cuda

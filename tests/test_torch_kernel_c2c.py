@@ -75,7 +75,8 @@ def test_plain_versions_never_count_launches():
     assert fft_kernel.LAUNCHES == {"fft_c2c": 0, "fft_c2c_t": 0,
                                    "fft_c2c_axis1": 0, "fft_c2c_mul": 0,
                                    "fft_r2c": 0, "fft_r2c_t": 0,
-                                   "fft_c2r": 0, "transpose": 0}
+                                   "fft_c2r": 0, "transpose": 0,
+                                   "fft_r2c_split": 0, "fft_c2r_merge": 0}
 
 
 #: Threads and shared bytes of each geometry case: 16 points a thread (32

@@ -24,24 +24,26 @@ R2C_TREE = [(1, "r2c.pack", "fft.plan"),
             (2, "kernel.fft-c2c-axis1", "four_step"),
             (2, "kernel.fft-c2c-t", "four_step"),
             (1, "four_step", "fft.plan"),
-            (1, "r2c.split", "fft.plan"),
+            (1, "kernel.fft-r2c-split", "fft.plan"),
             (0, "fft.plan", None)]
-C2R_TREE = [(1, "c2r.merge", "fft.plan"),
-            (1, "inverse.conj_in", "fft.plan"),
+C2R_TREE = [(1, "kernel.fft-c2r-merge", "fft.plan"),
             (2, "kernel.fft-c2c-axis1", "four_step"),
             (2, "kernel.fft-c2c-t", "four_step"),
             (1, "four_step", "fft.plan"),
-            (1, "inverse.conj_out", "fft.plan"),
-            (1, "inverse.scale", "fft.plan"),
             (1, "c2r.unpack", "fft.plan"),
             (0, "fft.plan", None)]
-#: An ATen op each stage must have run inside its span.
+#: An ATen op each stage must have run inside its span (the split and
+#: merge kernels' plain versions on the CPU among them).
 STAGE_OPS = {"r2c.pack": "aten::view_as_complex",
-             "r2c.split": "aten::flip", "c2r.merge": "aten::flip",
-             "inverse.conj_in": "aten::conj_physical",
-             "inverse.conj_out": "aten::conj_physical",
-             "inverse.scale": "aten::div",
+             "kernel.fft-r2c-split": "aten::flip",
+             "kernel.fft-c2r-merge": "aten::flip",
              "c2r.unpack": "aten::view_as_real"}
+#: (kind, n, rows) of each kernel span: the four-step's 128-point passes
+#: over 2 rows of 128, the split and merge over the 2 rows of length N.
+KERNEL_ATTRS = {"kernel.fft-c2c-axis1": ("c2c", 128, 2 * 128),
+                "kernel.fft-c2c-t": ("c2c", 128, 2 * 128),
+                "kernel.fft-r2c-split": ("r2c-split", N, 2),
+                "kernel.fft-c2r-merge": ("c2r-merge", N, 2)}
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +75,7 @@ def test_plan_span_tree(run):
     for s in spans:
         if s.name.startswith("kernel."):
             assert (s.attrs["kind"], s.attrs["n"], s.attrs["rows"]) == \
-                ("c2c", 128, 2 * 128)
+                KERNEL_ATTRS[s.name]
         else:                          # stages inherit the plan's attrs
             assert s.attrs["kind"] in ("r2c", "c2r") and s.attrs["n"] == N
         assert s.device_s == s.duration   # a CPU span's device time
@@ -82,14 +84,17 @@ def test_plan_span_tree(run):
 
 def test_kernel_spans_are_the_ledgers_launches(run):
     """One kernel span a recorded launch, in order, whose transforms are
-    the ones the ledger's bytes count (a complex point read and written)."""
+    the ones the ledger's bytes count: a complex point read and written a
+    C2C pass; N/2 points and N/2+1 bins a row of the split or merge."""
     kernels = [s for s in run["session"].spans
                if s.name.startswith("kernel.")]
     records = run["ledger"].records
     assert [s.name for s in kernels] == \
         ["kernel." + r.kernel for r in records]
     for s, r in zip(kernels, records):
-        assert r.bytes_moved == 16 * s.attrs["n"] * s.attrs["rows"]
+        n, rows = s.attrs["n"], s.attrs["rows"]
+        assert r.bytes_moved == (16 * n * rows if s.attrs["kind"] == "c2c"
+                                 else 8 * rows * (n + 1))
 
 
 def test_spans_share_the_profilers_clock(run):
@@ -135,6 +140,8 @@ def test_each_profiler_start_opens_a_session(run):
 def test_builds_count_a_table_made_again():
     tracer = trace.Tracer()
     with tracer.active():
-        port_plan._four_step_twiddle(3, 5, torch.device("cpu"))
-        port_plan._four_step_twiddle(3, 5, torch.device("cpu"))
+        port_plan._four_step_twiddle(3, 5, torch.device("cpu"),
+                                     inverse=False)
+        port_plan._four_step_twiddle(3, 5, torch.device("cpu"),
+                                     inverse=False)
     assert tracer.builds == {"four_step_twiddle": 1}
