@@ -271,20 +271,16 @@ def _bank_spectra(filters: np.ndarray, nfft: int) -> np.ndarray:
 # The engine
 # ---------------------------------------------------------------------------
 
-def overlap_save_conv(x, filters, *, nfft: int | None = None,
-                      cache_key=None) -> torch.Tensor:
-    """Full linear convolution of each row with a T-filter bank.
+def overlap_save_segments(x, filters, *, nfft: int | None = None,
+                          cache_key=None) -> tuple[torch.Tensor, ConvPlan]:
+    """The inverse planes of an overlap-save convolution, before the
+    valid runs are assembled: ((..., nseg, T, nfft) complex64, the plan).
 
-    ``x`` is (..., n) real or complex (numpy input goes to the card);
-    ``filters`` is a (T, taps) (or (taps,)) host-side array of
-    time-domain taps.  Returns the full convolution, shape
-    (..., T, n + taps - 1) — row r of the output block equals
-    ``numpy.convolve(x, filters[r])``.
-
-    The forward segment FFT carries the whole bank multiply as a fused
-    kernel epilogue (:func:`repro_torch.fft.plan.fft_mul`), the T product
-    planes share one batched inverse launch, and the filter spectra are
-    cached per (``cache_key``, nfft) when a key is given.
+    Point ``taps - 1 + j`` of segment ``s`` in template ``t``'s plane is
+    point ``s * step + j`` of the full convolution with filter ``t``
+    (``0 <= j < step``); the points before it are the wrapped prefix.
+    ``x``, ``filters``, ``nfft`` and ``cache_key`` are
+    :func:`overlap_save_conv`'s.
     """
     from repro_torch.fft import plan as _plan_mod  # lazy: import cycle
 
@@ -309,9 +305,73 @@ def overlap_save_conv(x, filters, *, nfft: int | None = None,
 
     # Forward FFT + fused bank multiply: one pass, T product planes.
     prod = _plan_mod.fft_mul(segs, bank)             # (..., nseg, T, nfft)
-    # One batched inverse launch over all T planes.
-    y = _plan_mod.pow2_fft(prod, inverse=True)
+    # One batched inverse launch over all T planes, in place (at a
+    # survey's 2^22 bins and 85 templates the planes hold 3 GB a series).
+    return _plan_mod.pow2_fft(prod, inverse=True, out=prod), plan
+
+
+def overlap_save_conv(x, filters, *, nfft: int | None = None,
+                      cache_key=None) -> torch.Tensor:
+    """Full linear convolution of each row with a T-filter bank.
+
+    ``x`` is (..., n) real or complex (numpy input goes to the card);
+    ``filters`` is a (T, taps) (or (taps,)) host-side array of
+    time-domain taps.  Returns the full convolution, shape
+    (..., T, n + taps - 1) — row r of the output block equals
+    ``numpy.convolve(x, filters[r])``.
+
+    The forward segment FFT carries the whole bank multiply as a fused
+    kernel epilogue (:func:`repro_torch.fft.plan.fft_mul`), the T product
+    planes share one batched inverse launch, and the filter spectra are
+    cached per (``cache_key``, nfft) when a key is given.
+    """
+    y, plan = overlap_save_segments(x, filters, nfft=nfft,
+                                    cache_key=cache_key)
     # Discard each segment's wrapped prefix, assemble the valid runs.
-    valid = y[..., taps - 1:].movedim(-3, -2)        # (..., T, nseg, step)
-    out = valid.reshape(*valid.shape[:-2], nseg * step)
+    valid = y[..., plan.taps - 1:].movedim(-3, -2)   # (..., T, nseg, step)
+    out = valid.reshape(*valid.shape[:-2], plan.n_segments * plan.step)
     return out[..., :plan.out_len]
+
+
+def segments_power(y: torch.Tensor, plan: ConvPlan, first: int,
+                   length: int, scale: torch.Tensor) -> torch.Tensor:
+    """|conv[..., first:first + length]|^2 / scale, (..., T, length)
+    float32, from :func:`overlap_save_segments`' planes ``y``, which it
+    consumes (their valid points are squared in place).
+
+    One pass from the segments to the result: each point's squares are
+    added straight into its place in the output, with no assembled
+    complex plane between.  The values are those of
+    ``(c.real ** 2 + c.imag ** 2) / scale`` on the assembled convolution
+    ``c``, bit for bit.  ``scale`` broadcasts against (..., 1, 1).
+    """
+    *lead, nseg, t, _ = y.shape
+    step = plan.step
+    if not 0 <= first <= first + length <= nseg * step:
+        raise ValueError(f"points [{first}, {first + length}) lie outside "
+                         f"the {nseg * step} the segments hold")
+    sq = torch.view_as_real(y)[..., plan.taps - 1:, :]
+    sq.square_()
+    sq = sq.movedim(-4, -3)                  # (..., T, nseg, step, 2)
+    out = torch.empty((*lead, t, length), dtype=torch.float32,
+                      device=y.device)
+    # Segment s covers outputs [s * step - first, (s + 1) * step - first):
+    # the whole segments in one strided add, the partial ends apart.
+    lo = -(-first // step)                   # first whole segment
+    hi = max((first + length) // step, lo)   # past the last whole one
+    if hi > lo:
+        rows = out.as_strided(
+            (*lead, t, hi - lo, step), (*out.stride()[:-1], step, 1),
+            out.storage_offset() + lo * step - first)
+        part = sq[..., lo:hi, :, :]
+        torch.add(part[..., 0], part[..., 1], out=rows)
+    for s in (lo - 1, hi):
+        a = max(s * step - first, 0)
+        b = min((s + 1) * step - first, length)
+        if s < 0 or s >= nseg or b <= a:
+            continue
+        j = a + first - s * step
+        part = sq[..., s, j:j + b - a, :]
+        torch.add(part[..., 0], part[..., 1], out=out[..., a:b])
+    out /= torch.clamp_min(scale, 1e-30)
+    return out

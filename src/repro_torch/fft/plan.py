@@ -137,20 +137,29 @@ def _resolve_split(n: int, config: KernelConfig | None) -> tuple[int, int]:
 
 
 def pow2_fft(x: torch.Tensor, *, inverse: bool = False,
-             config: KernelConfig | None = None) -> torch.Tensor:
+             config: KernelConfig | None = None,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """C2C FFT of a pow2 length, routed through the kernels.
 
     Single-pass lengths run ``fft_c2c``; longer lengths recurse through
     the four-step decomposition so every pow2 pass lands on a kernel, the
-    inverse on the passes' own inverse (1/N in all).
+    inverse on the passes' own inverse (1/N in all).  ``out``, a
+    contiguous complex64 tensor of ``x``'s shape (``x`` itself for the
+    transform in place), receives the result: the single-pass kernel
+    writes it directly, any other route copies its result into it.
     """
     n = x.shape[-1]
     if n > MAX_SINGLE_PASS:
         n1, n2 = _resolve_split(n, config)
-        return four_step_fft(x, n1, n2, inverse=inverse, config=config)
-    if n <= MAX_KERNEL_N and _kernels_enabled():
+        y = four_step_fft(x, n1, n2, inverse=inverse, config=config)
+    elif n <= MAX_KERNEL_N and _kernels_enabled():
+        if out is not None:
+            return _kernel_fft(x, inverse=inverse, out=out,
+                               **_kernel_overrides(config))
         return _kernel_fft(x, inverse=inverse, **_kernel_overrides(config))
-    return _stockham_pow2(x, inverse=inverse)
+    else:
+        y = _stockham_pow2(x, inverse=inverse)
+    return y if out is None else out.copy_(y)
 
 
 def fft_mul(x, bank, config: KernelConfig | None = None) -> torch.Tensor:

@@ -14,6 +14,10 @@ cached on the identity of that tuple (hashing a (128, 1024) table on
 every call would cost more than the launch), together with its range, so
 the guards read the cached extremes; the kernel keeps its staged table
 (per trial group and channel the delays' span) beside the cached tensor.
+:func:`prepare_table` makes both ahead of a table's first launch.
+
+Each launch runs in a span ``kernel.dedisperse`` (``obs.trace.span``)
+with attributes ``rows`` (filterbanks), ``nchan``, ``n`` and ``trials``.
 """
 from __future__ import annotations
 
@@ -26,11 +30,15 @@ import torch
 from repro_torch.fft.stockham import _as_tensor
 from repro_torch.kernels.dedisp import dedisp_kernel
 from repro_torch.obs.ledger import record_launch
+from repro_torch.obs.trace import span
 
 #: Device tables of tuple delay tables: (id(table), device) -> (table,
 #: tensor, min, max); the tuple is held so that its id stays unique.
 _DEVICE_TABLES: collections.OrderedDict = collections.OrderedDict()
-_MAX_TABLES = 32
+#: Tables kept: a survey pointing's grid of 2048 trials searched in blocks
+#: of 32 cycles through 64, and a cycle longer than the cache would miss
+#: (and copy a table to the card, waiting for it) at every block.
+_MAX_TABLES = 256
 
 
 def _as_array(delays) -> np.ndarray:
@@ -67,6 +75,14 @@ def _device_table(delays, arr: np.ndarray | None, device: torch.device):
         while len(_DEVICE_TABLES) > _MAX_TABLES:
             _DEVICE_TABLES.popitem(last=False)
     return table, lo, hi
+
+
+def prepare_table(delays: tuple, device: torch.device) -> None:
+    """Copy a tuple table to ``device`` (and on a card make its staged
+    form) ahead of its first launch, which then waits for nothing."""
+    table, _, _ = _device_table(delays, None, device)
+    if device.type == "cuda":
+        dedisp_kernel._staged(table)
 
 
 def dedisperse_kernel(fb, delays) -> torch.Tensor:
@@ -108,8 +124,9 @@ def dedisperse_kernel(fb, delays) -> torch.Tensor:
             f"delay {arr[trial, ch]} of trial {trial} outside "
             f"[0, ntime={n}); clip the DM grid to the block length")
     b = math.prod(lead)
-    out = dedisp_kernel.dedisperse(fb.reshape(b, nchan, n).contiguous(),
-                                   table)
+    fb = fb.reshape(b, nchan, n).contiguous()
+    with span("kernel.dedisperse", fb, rows=b, nchan=nchan, n=n, trials=ndm):
+        out = dedisp_kernel.dedisperse(fb, table)
     record_launch("dedisperse", grid=(dedisp_kernel.blocks(b, ndm, n),),
                   tile=(dedisp_kernel.TRIALS_PER_BLOCK,
                         dedisp_kernel.SAMPLES_PER_BLOCK),

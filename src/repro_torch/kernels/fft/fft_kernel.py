@@ -848,16 +848,25 @@ def _schedule_args(n: int, radices: tuple[int, ...], inverse: bool,
 
 def fft_c2c(x: torch.Tensor, *, inverse: bool = False,
             radices: tuple[int, ...] = DEFAULT_RADICES,
-            per_block: int) -> torch.Tensor:
+            per_block: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """Batched pow2 C2C FFT over the last axis of a (B, N) tensor in
     register passes (:func:`pass_launch`), ``per_block`` transforms per
-    thread block."""
+    thread block, into ``out`` where given (a contiguous (B, N) complex64
+    tensor on ``x``'s device; ``x`` itself in place: a transform's threads
+    load all its points before the first exchange and store after the
+    last, and no two transforms share a point)."""
     _check(x, 2, "fft_c2c")
     b, n = x.shape
     dev = x.device
+    if out is not None:
+        _check(out, 2, "fft_c2c's out")
+        if out.shape != x.shape or out.device != dev:
+            raise ValueError(f"fft_c2c's out must be {tuple(x.shape)} on "
+                             f"{dev}, got {tuple(out.shape)} on {out.device}")
     if dev.type == "cpu":
-        return fft_c2c_plain(x, inverse=inverse, radices=radices)
-    y = torch.empty_like(x)
+        y = fft_c2c_plain(x, inverse=inverse, radices=radices)
+        return y if out is None else out.copy_(y)
+    y = torch.empty_like(x) if out is None else out
     if b == 0 or dev.type == "meta":         # meta: the shape alone
         return y
     plan = _plan("fft_c2c", n, b, tuple(radices), per_block, inverse, dev)

@@ -69,29 +69,34 @@ def _batch(shape: torch.Size, keep: int) -> int:
 
 def fft_kernel_c2c(x: torch.Tensor, *, inverse: bool = False,
                    radices: tuple[int, ...] = DEFAULT_RADICES,
-                   tile_b: int | None = None) -> torch.Tensor:
+                   tile_b: int | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Batched pow2 C2C FFT (..., N) through the ``fft_c2c`` kernel.
 
     Longer-than-one-pass transforms go through ``repro_torch.fft.plan``.
     ``tile_b`` overrides the transforms per thread block (autotuner hook);
-    the kernel runs register passes (``fft_kernel.pass_launch``).
+    the kernel runs register passes (``fft_kernel.pass_launch``).  ``out``
+    (contiguous complex64, ``x``'s shape; ``x`` itself in place) receives
+    the result.
     """
     x = _complex64(x)
     n = x.shape[-1]
     _check_kernel_length(n)
     if n == 1:
         # The length-1 DFT is the identity both ways.
-        return x
+        return x if out is None else out.copy_(x)
     lead = x.shape[:-1]
     b = _batch(x.shape, 1)
     launch = fft_kernel.pass_launch(n, b, tuple(radices), tile_b)
     with span("kernel.fft-c2c", x, kind="c2c", n=n, rows=b):
-        y = fft_kernel.fft_c2c(x.reshape(b, n), inverse=inverse,
-                               radices=radices, per_block=launch.per_block)
+        y = fft_kernel.fft_c2c(
+            x.reshape(b, n), inverse=inverse, radices=radices,
+            per_block=launch.per_block,
+            out=None if out is None else out.view(b, n))
     record_launch("fft-c2c", grid=(launch.blocks,),
                   tile=(launch.per_block, n), bytes_moved=16 * b * n,
                   shape=(b, n))
-    return y.reshape(*lead, n)
+    return y.reshape(*lead, n) if out is None else out
 
 
 def fft_kernel_c2c_t(x: torch.Tensor, *, twiddle=None, inverse: bool = False,

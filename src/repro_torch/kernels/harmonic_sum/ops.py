@@ -15,6 +15,9 @@ block (the plane's depend on ``n_harmonics``; the ladder's are
   normalised and max-reduced in the kernel, returning only the (..., N)
   best detection statistic and its int32 rung.
 
+The plane's launch runs in a span ``kernel.harmonic-sum-plane``
+(``obs.trace.span``) with attributes ``rows``, ``n`` and ``harmonics``.
+
 Edge cases, as the reference's: ``n_harmonics=1`` is a single-rung
 ladder (the demo returns the input, the plane z_1 = P - 1 at rung 0); an
 empty trailing axis and complex input raise ``ValueError``.
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch.fft.stockham import _as_tensor
 from repro_torch.obs.ledger import record_launch
+from repro_torch.obs.trace import span
 
 # The package exports the function ``harmonic_sum_kernel`` under the name of
 # this module, as the reference's does; the module is reached by its path.
@@ -84,7 +88,9 @@ def harmonic_sum_plane(power, n_harmonics: int = 8
     """
     power = _checked_power(power, n_harmonics, "harmonic_sum_plane")
     p2, b, n = _rows(power)
-    stat, lev = K.harmonic_sum_plane(p2, n_harmonics)
+    with span("kernel.harmonic-sum-plane", p2, rows=b, n=n,
+              harmonics=n_harmonics):
+        stat, lev = K.harmonic_sum_plane(p2, n_harmonics)
     bins = K.plane_bins(n_harmonics)
     record_launch("harmonic-sum-plane", grid=(K.plane_blocks(b, n, bins),),
                   tile=(1, bins), bytes_moved=12 * b * n, shape=(b, n))

@@ -15,8 +15,9 @@ Execution path — every FFT pass runs a hand-written kernel on the card:
     │  overlap-save segments; the forward FFT carries the whole bank
     │  multiply as its epilogue (fft_c2c_mul); one batched inverse launch
     │  (fft_c2c) over the T product planes
-  matched-filter plane (batch, T, n/2+1) complex
-    │  |·|² / σ² normalisation
+  inverse segments (batch, nseg, T, nfft) complex
+    │  the valid runs' |·|² / σ² written in place in one pass (the
+    │  complex matched-filter plane is never assembled)
   power plane  ──  threshold + top-k  ──>  candidates
 
 The reference jits ``fdas_search`` with the bank as a static argument;
@@ -30,7 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.fft.convolve import conv_plan, overlap_save_conv
+from repro_torch.fft.convolve import (conv_plan, overlap_save_conv,
+                                     overlap_save_segments, segments_power)
 from repro_torch.fft.plan import plan_for_length
 from repro_torch.fft.stockham import _as_tensor
 from repro_torch.search.templates import TemplateBank
@@ -82,6 +84,27 @@ def power_plane(mf: torch.Tensor, sigma2: torch.Tensor) -> torch.Tensor:
     return p / torch.clamp_min(sigma2, 1e-30)
 
 
+def matched_filter_segments(spectrum, bank: TemplateBank, *,
+                            nfft: int | None = None):
+    """:func:`matched_filter_plane` before its valid runs are assembled:
+    the overlap-save inverse planes and their plan
+    (:func:`~repro_torch.fft.convolve.overlap_save_segments`), which
+    :func:`segments_power_plane` turns into the power plane."""
+    return overlap_save_segments(spectrum, bank.time_domain(), nfft=nfft,
+                                 cache_key=bank.key)
+
+
+def segments_power_plane(segments, bank: TemplateBank, nbins: int,
+                         sigma2: torch.Tensor) -> torch.Tensor:
+    """``power_plane(matched_filter_plane(...), sigma2)`` from
+    :func:`matched_filter_segments`' planes, which it consumes: one pass
+    from the segments' valid runs to the (..., T, nbins) power plane, the
+    complex plane never assembled (at a survey's 2^22 bins and 85
+    templates that plane is 2.85 GB a series).  Bit for bit the same."""
+    y, plan = segments
+    return segments_power(y, plan, bank.offset, nbins, sigma2)
+
+
 def extract_candidates(power: torch.Tensor, *, threshold: float = 8.0,
                        max_candidates: int = 16) -> Candidates:
     """Threshold + top-k over the (..., T, nbins) plane; entries below the
@@ -120,8 +143,9 @@ def fdas_search(x, bank: TemplateBank, *, threshold: float = 8.0,
     # Noise power per bin (the DC bin is zero after mean subtraction).
     sigma2 = (spectrum.real ** 2 + spectrum.imag ** 2).mean(
         dim=-1, keepdim=True)[..., None]
-    mf = matched_filter_plane(spectrum, bank, nfft=nfft)
-    power = power_plane(mf, sigma2)
+    power = segments_power_plane(
+        matched_filter_segments(spectrum, bank, nfft=nfft), bank,
+        spectrum.shape[-1], sigma2)
     cands = extract_candidates(power, threshold=threshold,
                                max_candidates=max_candidates)
     return FDASResult(power=power, candidates=cands, sigma2=sigma2)

@@ -72,6 +72,32 @@ def test_overlap_save_matches_reference(n, taps, t, nfft):
         [(r.kernel, r.shape) for r in ref_rec]
 
 
+@pytest.mark.parametrize("n,taps,t,nfft,first,length", [
+    (1000, 32, 5, 256, 16, 1000),    # whole segments and both ends
+    (1000, 32, 5, 256, 0, 1031),     # the full convolution
+    (300, 100, 3, 128, 50, 20),      # inside one segment
+    (300, 100, 3, 128, 50, 300),     # no whole segment, two partial
+    (4097, 100, 4, 2048, 50, 4097),  # the survey's taps and segment
+])
+def test_segments_power_is_the_assembled_planes_power(n, taps, t, nfft,
+                                                      first, length):
+    """The one-pass power of a window of the convolution equals |c|^2 /
+    scale of the assembled convolution c, bit for bit."""
+    x = torch.from_numpy(rand_complex(n, (2, 3, n)))
+    h = rand_complex(taps, (t, taps))
+    scale = torch.rand(2, 3, 1, 1, generator=torch.Generator().manual_seed(
+        n)) + 0.5
+    c = port_conv.overlap_save_conv(x, h, nfft=nfft)[..., first:first + length]
+    want = (c.real ** 2 + c.imag ** 2) / scale
+    y, plan = port_conv.overlap_save_segments(x, h, nfft=nfft)
+    got = port_conv.segments_power(y, plan, first, length, scale)
+    assert got.shape == (2, 3, t, length) and got.is_contiguous()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="outside"):
+        port_conv.segments_power(y, plan, 1, plan.n_segments * plan.step,
+                                 scale)
+
+
 def test_real_and_1d_inputs():
     x0 = np.random.default_rng(0).standard_normal(300).astype(np.float32)
     h = rand_complex(3, (2, 21))

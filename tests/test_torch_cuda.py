@@ -90,6 +90,20 @@ def _tiles(n: int) -> tuple:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("inverse", (False, True))
+@pytest.mark.parametrize("n", C2C_LENGTHS)
+def test_c2c_in_place_is_the_out_of_place_transform(gen, n, inverse):
+    """``out=x`` (the overlap-save inverse's) writes the very transform
+    the kernel writes to fresh memory."""
+    x = _rand(gen, 37, n)
+    want = ops.fft_kernel_c2c(x, inverse=inverse)
+    y = x.clone()
+    got = ops.fft_kernel_c2c(y, inverse=inverse, out=y)
+    assert got.data_ptr() == y.data_ptr() and torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", (False, True))
 @pytest.mark.parametrize("radices", ((4, 2), (8, 4, 2)))
 @pytest.mark.parametrize("n", C2C_LENGTHS)
 def test_c2c_register_passes_match_plain_at_every_length(gen, n, radices,

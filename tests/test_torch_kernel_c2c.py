@@ -68,6 +68,17 @@ def test_kernel_functions_validate_their_inputs():
         fft_kernel.transforms_per_block(8192, 4, override=2)
 
 
+def test_out_receives_the_transform_in_place():
+    x = torch.from_numpy(rand_complex(3, (BATCH, 64)))
+    want = port_ops.fft_kernel_c2c(x, inverse=True)
+    y = x.clone()
+    assert port_ops.fft_kernel_c2c(y, inverse=True, out=y) is y
+    assert torch.equal(y, want)
+    with pytest.raises(ValueError, match="out must be"):
+        fft_kernel.fft_c2c(x, per_block=1, out=torch.empty(
+            2, 64, dtype=torch.complex64))
+
+
 def test_plain_versions_never_count_launches():
     fft_kernel.reset_launches()
     x = torch.from_numpy(rand_complex(2, (3, 64)))
