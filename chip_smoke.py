@@ -9,9 +9,9 @@ CUDA toolkit (``nvcc``) and PyTorch built for CUDA:
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. build every CUDA kernel of the port from ``src/repro_torch/csrc``
-     (the six libraries ``fft_c2c``, ``fft_real``, ``transpose``,
-     ``dedisp``, ``harmonic_sum`` and ``spectrum``, one ``nvcc`` each, in
-     parallel) and check that no instance of the register-pass kernels
+     (the seven libraries ``fft_c2c``, ``fft_real``, ``transpose``,
+     ``dedisp``, ``harmonic_sum``, ``spectrum`` and ``sift``, one ``nvcc``
+     each, in parallel) and check that no instance of the register-pass kernels
      (``fft_c2c``, ``fft_c2c_t``, ``fft_c2c_axis1``, ``fft_r2c``,
      ``fft_c2r``, ``fft_r2c_t``) or of the staged ``dedisperse``,
      ``harmonic_sum_plane`` and ``harmonic_sum`` kernels spills registers
@@ -24,7 +24,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      real plans' Hermitian split and merge, at B = 1, 3 and 476, N/2 =
      2**14 and 2**19, rows 16-byte aligned and not; fft_r2c_t, transpose
      and fft_c2c_mul; dedisperse, harmonic_sum_plane, harmonic_sum and
-     power_spectrum_stats) against its plain torch version on the card,
+     power_spectrum_stats; sift_select, the sift's pool, exactly torch.topk
+     of the plane at or above its floor and the count over the threshold,
+     with ties, an all-equal plane, rows at an odd offset and buffers small
+     enough to force its refinements) against its plain torch version on
+     the card,
      at small, ragged shapes and at the shapes the main paths give it —
      fft_c2c, fft_r2c and fft_c2r at every pow2 length (2..8192,
      4..16384), both radix sets, forward and inverse, two tiles; fft_r2c_t
@@ -322,6 +326,7 @@ from repro_torch.kernels.harmonic_sum import (harmonic_sum_kernel,  # noqa: E402
 from repro_torch.kernels.harmonic_sum.ops import K as H  # noqa: E402
 from repro_torch.kernels.spectrum import power_spectrum_stats_kernel  # noqa: E402
 from repro_torch.kernels.spectrum import spectrum_kernel as S  # noqa: E402
+from repro_torch.kernels.sift import sift_kernel as T  # noqa: E402
 from repro_torch.kernels.fft.ref import fft_ref, irfft_ref, rfft_ref  # noqa: E402
 from repro_torch.analysis.roofline import (dvfs_plan,  # noqa: E402
                                            model_flops_for,
@@ -445,14 +450,20 @@ LEDGER_TO_KERNEL = {"fft-c2c": "fft_c2c", "fft-c2c-t": "fft_c2c_t",
                     "dedisperse": "dedisperse",
                     "harmonic-sum-plane": "harmonic_sum_plane",
                     "harmonic-sum": "harmonic_sum",
-                    "power-spectrum-stats": "power_spectrum_stats"}
+                    "power-spectrum-stats": "power_spectrum_stats",
+                    "sift-select": "sift_select"}
 #: The CUDA kernels' names; each is the prefix of its __global__ function
 #: (``<name>_kernel``, ``<name>_regs_kernel<P, F>`` for the register-pass
 #: kernels), which names it in profiler traces; no symbol is a substring
 #: of another's (phase 1 checks).
 KERNELS = ("fft_c2c", "fft_c2c_t", "fft_c2c_axis1", "fft_r2c", "fft_c2r",
            "fft_r2c_split", "fft_c2r_merge", "fft_r2c_t", "transpose", "fft_c2c_mul", "dedisperse",
-           "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats")
+           "harmonic_sum_plane", "harmonic_sum", "power_spectrum_stats",
+           "sift_select")
+#: Kernels run as several __global__ functions, named by the prefix they
+#: share (sift_first_kernel, sift_scan_kernel, sift_refine_kernel,
+#: sift_compact_kernel).
+SYMBOL_PREFIXES = {"sift_select": "sift_"}
 #: The staged kernels and their compiled instances, by library:
 #: dedisperse_kernel (one), harmonic_sum_plane_kernel<bins a thread> and
 #: harmonic_sum_kernel<bins a thread> (the ladder on the same body).
@@ -505,7 +516,7 @@ C2C_SWEEP = (("fft_c2c_t", (16, 4096, 4096)), ("fft_c2c_t", (16, 4097, 4096)),
              ("fft_c2c_axis1", (16, 4096, 4096)),
              ("fft_c2c_axis1", (FFTCase(2**20).n_fft, 1024, 1024)))
 #: The modules whose ``LAUNCHES`` count the kernels' launches.
-COUNTERS = (K, D, H, S)
+COUNTERS = (K, D, H, S, T)
 SOURCES = {
     "fft_c2c": "src/repro_torch/csrc/fft_c2c.cu",
     "fft_c2c_t": "src/repro_torch/csrc/fft_c2c.cu",
@@ -521,6 +532,7 @@ SOURCES = {
     "harmonic_sum_plane": "src/repro_torch/csrc/harmonic_sum.cu",
     "harmonic_sum": "src/repro_torch/csrc/harmonic_sum.cu",
     "power_spectrum_stats": "src/repro_torch/csrc/spectrum.cu",
+    "sift_select": "src/repro_torch/csrc/sift.cu",
 }
 REPLACES = {
     "fft_c2c": "src/repro/kernels/fft/fft_kernel.py:360",
@@ -540,6 +552,8 @@ REPLACES = {
     "harmonic_sum":
         "src/repro/kernels/harmonic_sum/harmonic_sum_kernel.py:108",
     "power_spectrum_stats": "src/repro/kernels/spectrum/spectrum_kernel.py:32",
+    # No Pallas kernel: the reference pools with one lax.top_k.
+    "sift_select": "none: lax.top_k (src/repro/search/sift.py:97)",
 }
 #: The split and merge kernels: rows and half lengths N/2 of their check
 #: (2**14 is the shortest half length on the long route), and the shape
@@ -584,7 +598,7 @@ ONE_KERNEL_STAGE = {"dedisperse": "dedisp",
 RIDGE_SEEDS = 64
 PULSAR_LEDGER = {"dedisperse": 1, "fft-c2c-axis1": 1, "fft-c2c-t": 1,
                  "fft-r2c-split": 1, "fft-c2c-mul": 1, "fft-c2c": 1,
-                 "harmonic-sum-plane": 1}
+                 "harmonic-sum-plane": 1, "sift-select": 1}
 #: The Sec. 5.3 demo at the reference's Table 4 shape (benchmarks/run.py).
 DEMO_SHAPE = demo.PipelineShape(batch=32, n=2**20, n_harmonics=32)
 #: Phase 9, the paper's experiment on the card: the main path's cases
@@ -882,8 +896,10 @@ def device_ms(fn, kernel: str, calls: int = 10) -> float:
 
 
 def _symbol(kernel: str) -> str:
-    """The __global__ function name of ``kernel``."""
-    return PASS_KERNELS.get(kernel, f"{kernel}_kernel")
+    """The __global__ function name of ``kernel`` (the prefix of its
+    functions' names where it runs as several)."""
+    return SYMBOL_PREFIXES.get(kernel) or PASS_KERNELS.get(
+        kernel, f"{kernel}_kernel")
 
 
 def phase1_build() -> None:
@@ -1801,6 +1817,125 @@ def phase3_pulsar_kernels(gen: torch.Generator,
     torch.cuda.empty_cache()
 
 
+#: sift_select at pulsar.accel's sub-block: 4 trials x 85 templates x
+#: (2**22 + 1) bins, the pool of 16384 and the threshold of 30.92.
+SIFT_CELLS = 4 * 85 * (2**22 + 1)
+SIFT_POOL = 16384
+SIFT_THRESHOLD = 30.92
+
+
+def _sift_check(stat, level, pool, floor=None, threshold=None,
+                small: bool = False) -> list[int]:
+    """sift_select's pool against torch.topk of the plane at or above the
+    floor, exactly, its indices and levels naming those cells, its padding
+    marked (index -1), and its count against the plain count; returns the
+    counters of row 0.  ``small``: a buffer of 4 pools a row
+    (``T.CAPACITY`` set to 1 for the call), which the refinements need."""
+    capacity = T.CAPACITY
+    T.CAPACITY = 1 if small else capacity
+    try:
+        got = T.select(stat, level, pool, floor, threshold)
+    finally:
+        T.CAPACITY = capacity
+    want = stat if floor is None else torch.where(
+        stat >= floor[:, None], stat, -torch.inf)
+    vals = torch.topk(want, min(pool, stat.shape[1])).values
+    real = got.vals > -torch.inf
+    named = torch.gather(stat, 1, got.idx.clamp(0, stat.shape[1] - 1))
+    lev = torch.gather(level, 1, got.idx.clamp(0, stat.shape[1] - 1))
+    ok = (torch.equal(got.vals, vals)
+          and torch.equal(named[real], got.vals[real])
+          and torch.equal(lev[real], got.level[real])
+          and bool((got.idx[~real] == -1).all())
+          and all(len(set(got.idx[r][real[r]].tolist())) == int(real[r].sum())
+                  for r in range(stat.shape[0])))
+    if threshold is not None:
+        ok = ok and torch.equal(got.over, T.count_over(stat, threshold))
+    check(ok, f"sift_select {tuple(stat.shape)} pool {pool} floor "
+          f"{floor is not None} small {small}: differs from torch.topk")
+    return got.counts[0].tolist()
+
+
+def phase3_sift_select(gen: torch.Generator,
+                       results: dict[str, dict]) -> None:
+    """sift_select exactly torch.topk of the plane at or above its floor,
+    and its count over the threshold exactly the plain count: noise at
+    B = 1 and 2, rows at an odd offset, ties at the pool's boundary that
+    overflow the buffer, an all-equal plane, a floor that lets too many
+    cells through (each refinement engaged, by its counter), a pool larger
+    than the row; then timed at pulsar.accel's sub-block, without a floor
+    (two reads) and with one (one read), beside torch.topk alone and the
+    plain version (torch.topk and the count); adds its row to
+    ``results``."""
+    cases = 0
+    for rows in (1, 2):
+        m = 2**21 + 3
+        buf = torch.randn(rows * m + 1, device="cuda", generator=gen)
+        for offset in (0, 1):
+            stat = buf[offset:offset + rows * m].view(rows, m)
+            level = torch.randint(0, 4, (rows, m), device="cuda",
+                                  dtype=torch.int32, generator=gen)
+            _sift_check(stat, level, 1000, threshold=3.0)
+            floor = torch.topk(stat, 600).values[:, -1].contiguous()
+            check(_sift_check(stat, level, 1000, floor, 3.0)[1:] == [0, 1],
+                  "sift_select: a floor with room in the buffer read the "
+                  "plane more than once")
+            cases += 2
+    stat = torch.round(torch.randn(2, 2**20, device="cuda", generator=gen))
+    level = torch.zeros(stat.shape, device="cuda", dtype=torch.int32)
+    pool = int((stat > 2.0).sum(-1).max()) + 7
+    check(_sift_check(stat, level, pool, None, 1.0, True)[1:] == [2, 4],
+          "sift_select: ties past the buffer did not take both refinements")
+    stat = torch.full((1, 2**20 + 5), 1.25, device="cuda")
+    level = torch.zeros(stat.shape, device="cuda", dtype=torch.int32)
+    check(_sift_check(stat, level, 500, stat[:, 0].contiguous(), 1.25,
+                      True) == [500, 2, 4],
+          "sift_select: an all-equal plane")
+    stat = 1 + torch.randn(2, 2**21, device="cuda", generator=gen) * 1e-3
+    level = torch.zeros(stat.shape, device="cuda", dtype=torch.int32)
+    counts = _sift_check(stat, level, 100, torch.full((2,), 0.5,
+                                                      device="cuda"), 1.002,
+                         True)
+    check(counts[1] >= 1, f"sift_select: an overflowing floor took no "
+          f"refinement ({counts})")
+    stat = torch.randn(2, 5000, device="cuda", generator=gen)
+    level = torch.zeros(stat.shape, device="cuda", dtype=torch.int32)
+    _sift_check(stat, level, 8000, None, 1.0, True)
+    cases += 4
+    del buf, stat, level
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"phase 3: {cases} sift_select checks, each exactly torch.topk "
+          f"and the plain count")
+
+    # At pulsar.accel's sub-block: the statistic's lowest rung under the
+    # null, P - 1 with P exponential; the floor of a second plane's pool.
+    m, pool, thr = SIFT_CELLS, SIFT_POOL, SIFT_THRESHOLD
+    stat = torch.empty(1, m, device="cuda").exponential_(generator=gen) - 1
+    level = torch.randint(0, 4, (1, m), device="cuda", dtype=torch.int32,
+                          generator=gen)
+    other = torch.empty(1, m, device="cuda").exponential_(generator=gen) - 1
+    floor = torch.topk(other, pool).values[:, -1].contiguous()
+    del other
+    torch.cuda.empty_cache()
+
+    def same(got, want):
+        return 0.0, bool(torch.equal(got.vals, want.vals)
+                         and torch.equal(got.over, want.over))
+    # One read of the plane bounds it (the second read, of a block's first
+    # sub-block, is counted in the time, not in the bound).
+    results["sift_select"] = _pulsar_row(
+        "sift_select", (1, m), lambda: T.select(stat, level, pool, None, thr),
+        lambda: T.select_plain(stat, level, pool, thr), same, 4 * m, 0,
+        lambda: torch.topk(stat, pool), f"torch.topk(stat, {pool}) alone",
+        adds=2 * m, device=True)
+    floored = median_ms(lambda: T.select(stat, level, pool, floor, thr))
+    counts = _sift_check(stat, level, pool, floor, thr)
+    print(f"  sift_select (1, {m}) with the floor of a full pool: "
+          f"{floored:.4f} ms, counters (kept, refinements, reads) {counts}")
+    del stat, level
+    torch.cuda.empty_cache()
+
 def phase3_pulsar_tiles(gen: torch.Generator) -> None:
     """The staged kernels' tiles: dedisperse over DEDISP_SWEEP on 2
     filterbanks of 1024 x 2**17 with the plan's table, harmonic_sum_plane
@@ -2434,7 +2569,7 @@ def phase6_serving(gen: torch.Generator) -> dict[str, int]:
                                              "fft-c2c"],
                         "pulsar": ["dedisperse", *four_step, "fft-r2c-split",
                                    "fft-c2c-mul", "fft-c2c",
-                                   "harmonic-sum-plane"]}
+                                   "harmonic-sum-plane", "sift-select"]}
     execute_s: list[tuple[str, float]] = []
 
     def stream_of(key) -> str:
@@ -5624,6 +5759,7 @@ def main() -> int:
     phase3_hermitian_kernels(gen, measured)
     phase3_nd_kernels(gen, measured)
     phase3_pulsar_kernels(gen, measured)
+    phase3_sift_select(gen, measured)
     phase3_pulsar_tiles(gen)
     phase3_rows_per_block(gen)
     phase3_host_gap(gen)

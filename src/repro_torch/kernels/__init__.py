@@ -22,6 +22,10 @@ Kernels (every TPU kernel of the reference has its counterpart):
                 kernel for the pipeline (``harmonic-sum-plane``)
   spectrum      fused |X|^2 + row mean/variance in one pass
                 (``power-spectrum-stats``)
+  sift          the sift's exact selection of a plane's strongest cells,
+                with the count over its threshold in the same read
+                (``sift-select``; no TPU kernel: the reference pools with
+                one ``lax.top_k``, and ``torch.topk`` is its oracle)
 
 Each ledger name records once per wrapper call (the port runs eagerly;
 the reference records once per ``jax.jit`` trace), with the reference's

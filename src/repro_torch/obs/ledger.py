@@ -8,8 +8,9 @@ two packages' ledgers can be compared record by record.  The names: the
 FFT family (``fft-c2c``, ``fft-c2c-t``, ``fft-c2c-axis1``, ``fft-c2c-mul``,
 ``fft-r2c``, ``fft-r2c-t``, ``fft-c2r``, ``transpose``) and the pulsar
 pipeline's ``dedisperse``, ``harmonic-sum-plane``, ``harmonic-sum`` and
-``power-spectrum-stats``; and two the reference has no kernel for, the
-long real plans' split and merge (``fft-r2c-split``, ``fft-c2r-merge``).
+``power-spectrum-stats``; and three the reference has no kernel for, the
+long real plans' split and merge (``fft-r2c-split``, ``fft-c2r-merge``)
+and the sift's select (``sift-select``).
 
 Recording semantics differ from the reference on purpose.  The reference
 records while ``jax.jit`` *traces* a wrapper, so a jitted executable

@@ -31,7 +31,8 @@ sub-block at a time, the sift's pools merged across blocks.  Each block
 records spans (``search.block`` and its stages ``search.dedisperse``,
 ``search.r2c``, ``search.matched_filter``, ``search.power``,
 ``search.harmonic_sum``, ``search.sift``; ``obs.trace.span``) and counts
-on the card the cells over the threshold.
+on the card the cells over the threshold, in the read of the sift's
+select kernel that pools them.
 
 The reference jits ``pulsar_search`` with the plan and bank static; the
 port runs eagerly, and the dedispersion kernel reads the plan's delay
@@ -162,21 +163,10 @@ class BlockResult(NamedTuple):
     level: torch.Tensor | None
     sigma2: torch.Tensor       # (batch, trials, 1, 1)
     over: torch.Tensor         # (batch,) int64: cells >= the threshold
-
-
-#: Cells :func:`_count_over` compares at once.
-_COUNT_CELLS = 1 << 27
-
-
-def _count_over(stat: torch.Tensor, threshold: float) -> torch.Tensor:
-    """(batch,) int64 cells of a (batch, d, T, N) volume at or above the
-    threshold, on the card.  A few templates at a time: a sum over a
-    boolean plane widens it to an int64 copy first (8 bytes a cell, 11 GB
-    for 4 trials of a survey's planes)."""
-    batch, d, t, n = stat.shape
-    step = max(1, _COUNT_CELLS // (batch * d * n))
-    return sum((stat[:, :, lo:lo + step] >= threshold).sum(dim=(1, 2, 3))
-               for lo in range(0, t, step))
+    # (batch, 3) int64 over the sub-blocks: cells the select kernel left to
+    # its top-k, its refinement reads, its reads of the planes (0 where the
+    # sub-blocks took one torch.topk; sift_kernel.Selected.counts)
+    sift: torch.Tensor | None = None
 
 
 def _joined(parts: list, dim: int = 1):
@@ -261,6 +251,7 @@ class PulsarSearch:
         bank = self.bank
         cells, kept, parts = None, [], ([], [], [])
         over = torch.zeros(batch, dtype=torch.int64, device=fb.device)
+        counts = torch.zeros((batch, 3), dtype=torch.int64, device=fb.device)
         with span("search.block", fb, trials=len(trials), nchan=nchan, n=n,
                   templates=bank.n_templates, harmonics=self.n_harmonics):
             with span("search.dedisperse"):
@@ -285,9 +276,16 @@ class PulsarSearch:
                 with span("search.harmonic_sum"):
                     stat, level = _kernel_hsum(power, self.n_harmonics)
                 with span("search.sift"):
-                    cells = merge_pools(cells, pool_cells(
-                        stat, level, self.pool, sub[0]), self.pool)
-                    over += _count_over(stat, self.threshold)
+                    # Below a full pool's weakest cell nothing can enter it.
+                    full = (cells is not None
+                            and cells.vals.shape[-1] == self.pool)
+                    pooled, n_over, n_sift = pool_cells(
+                        stat, level, self.pool, sub[0],
+                        floor=cells.vals[:, -1] if full else None,
+                        threshold=self.threshold)
+                    cells = merge_pools(cells, pooled, self.pool)
+                    over += n_over
+                    counts += n_sift
                 mine = [t for t in sub if t in keep]
                 kept += mine
                 planes = (power, stat, level)
@@ -302,7 +300,7 @@ class PulsarSearch:
                         part.append(plane[:, rows])
                 del power, stat, level, planes
         return BlockResult(trials, cells, kept, *map(_joined, parts),
-                           sigma2, over)
+                           sigma2, over, counts)
 
     def sift(self, cells: CandidatePool, n: int) -> SiftedCandidates:
         """The candidates of a grid of length-``n`` series from its merged

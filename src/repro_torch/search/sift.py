@@ -7,7 +7,9 @@ signal, neighbouring bins catch spectral leakage, and the harmonic
 ladder lights multiples of the spin frequency.  Sifting collapses each
 cloud to its strongest cell:
 
-  1. pool the top-``pool`` cells of the volume (one ``torch.topk``),
+  1. pool the top-``pool`` cells of the volume (one ``torch.topk``, or on
+     the card, where the volume outgrows the select kernel's buffer, the
+     kernel and a ``torch.topk`` over what it keeps),
   2. suppress any pooled cell that a *stronger* cell within ``dm_tol``
      DM trials dominates — either bin-adjacent (|Δbin| <= bin_tol) or
      harmonically related (bin_j ~ m * bin_i up to ``max_harmonic``),
@@ -31,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.sift import sift_select
 
 #: Pooled cells whose absorptions :func:`sift_pool` weighs at once.
 _SIFT_ROWS = 512
@@ -87,22 +90,29 @@ def sift_candidates(
     d, t, nb = stat.shape[-3:]
     lead = stat.shape[:-3]
     batch = math.prod(lead)
-    cells = pool_cells(stat.reshape(batch, d, t, nb),
-                       level.reshape(batch, d, t, nb), pool)
+    cells, _, _ = pool_cells(stat.reshape(batch, d, t, nb),
+                             level.reshape(batch, d, t, nb), pool)
     return sift_pool(cells, (t, nb), lead, threshold=threshold,
                      max_candidates=max_candidates, dm_tol=dm_tol,
                      bin_tol=bin_tol, max_harmonic=max_harmonic)
 
 
 def pool_cells(stat: torch.Tensor, level: torch.Tensor, pool: int,
-               first: int = 0) -> CandidatePool:
+               first: int = 0, *, floor: torch.Tensor | None = None,
+               threshold: float | None = None,
+               ) -> tuple[CandidatePool, torch.Tensor | None, torch.Tensor]:
     """The top-``pool`` cells of a (batch, d, T, N) sub-volume whose first
-    DM trial is trial ``first`` of the grid (one ``torch.topk``)."""
+    DM trial is trial ``first`` of the grid
+    (:func:`repro_torch.kernels.sift.sift_select`), with its (batch,)
+    count of cells at or above ``threshold`` (None without one) and its
+    (batch, 3) counters (``sift_kernel.Selected.counts``).  Below a (batch,)
+    ``floor`` (a full running pool's weakest value) the cells are not
+    promised: padding stands in for them."""
     batch, d, t, nb = stat.shape
-    s = stat.reshape(batch, d * t * nb)
-    vals, idx = torch.topk(s, min(pool, s.shape[-1]), dim=-1)
-    lev = torch.gather(level.reshape(batch, -1), -1, idx).to(torch.int32)
-    return CandidatePool(vals, idx + first * t * nb, lev)
+    sel = sift_select(stat.reshape(batch, -1), level.reshape(batch, -1),
+                      pool, floor=floor, threshold=threshold)
+    return (CandidatePool(sel.vals, sel.idx + first * t * nb, sel.level),
+            sel.over, sel.counts)
 
 
 def merge_pools(a: CandidatePool | None, b: CandidatePool,

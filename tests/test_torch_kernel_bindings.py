@@ -2,8 +2,8 @@
 
 ``fft_kernel`` declares the argument types of every C entry it calls
 (``_library``, ``_real_library``, ``_transpose_library``), as do
-``dedisp_kernel``, ``harmonic_sum_kernel`` and ``spectrum_kernel``
-(``_library``).  A declaration
+``dedisp_kernel``, ``harmonic_sum_kernel``, ``spectrum_kernel`` and
+``sift_kernel`` (``_library``).  A declaration
 that drifts from the C signature passes garbage to the card, and shows
 only there; here each declared entry is held against the ``extern "C"``
 definition in ``src/repro_torch/csrc``, argument by argument, with the
@@ -18,6 +18,7 @@ import pytest
 from repro_torch.kernels.dedisp import dedisp_kernel as D
 from repro_torch.kernels.fft import fft_kernel as K
 from repro_torch.kernels.harmonic_sum.ops import K as H
+from repro_torch.kernels.sift import sift_kernel as T
 from repro_torch.kernels.spectrum import spectrum_kernel as S
 
 CSRC = pathlib.Path(K.__file__).resolve().parents[2] / "csrc"
@@ -33,10 +34,11 @@ LIBRARIES = {
     "dedisp._library": ("dedisp", ("dedisp.cu",)),
     "harmonic_sum._library": ("harmonic_sum", ("harmonic_sum.cu",)),
     "spectrum._library": ("spectrum", ("spectrum.cu",)),
+    "sift._library": ("sift", ("sift.cu",)),
 }
 #: The module of each loader.
 MODULES = {"dedisp._library": D, "harmonic_sum._library": H,
-           "spectrum._library": S}
+           "spectrum._library": S, "sift._library": T}
 
 
 #: The definition of an exported entry: its name and parameter list.

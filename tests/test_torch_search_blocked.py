@@ -165,11 +165,12 @@ def test_a_block_counts_the_cells_over_its_threshold(searched):
 
 def test_the_count_over_the_threshold_in_template_chunks(searched,
                                                          monkeypatch):
-    """Counted a few templates at a time (4, 4 and a ragged last 1 of
-    the 9 here), the cells over the threshold are all counted once."""
-    from repro_torch.search import pipeline
+    """Counted four templates' cells at a time (a sub-block's 2 x 9
+    template rows in chunks of 4, 4, 4, 4 and a ragged 2 here), the cells
+    over the threshold are all counted once."""
+    from repro_torch.kernels.sift import sift_kernel
     fb, one, _, _ = searched
-    monkeypatch.setattr(pipeline, "_COUNT_CELLS", 4 * 2 * 4097)
+    monkeypatch.setattr(sift_kernel, "COUNT_CELLS", 4 * 4097)
     search = PulsarSearch(PLAN, BANK, n_harmonics=H, threshold=12.0,
                           **BLOCKS)
     res = search.block(fb[None], 2)

@@ -1,8 +1,9 @@
 """The blocked search's spans (``obs.trace.span``) on the CPU: one block
 under an active tracer records ``search.block`` with its attributes, its
 six stage spans in order (the matched filter, power, harmonic sum and
-sift once a sub-block) and the two kernel spans of the dedispersion and
-harmonic-sum wrappers, each around its launch alone, with theirs; the
+sift once a sub-block), the two kernel spans of the dedispersion and
+harmonic-sum wrappers, each around its launch alone, with theirs, and
+the sift's ``kernel.sift-select`` inside each ``search.sift``; the
 same block outside any tracer records nothing and opens the shared
 no-op, and its results are the traced block's."""
 import pytest
@@ -71,6 +72,22 @@ def test_kernel_spans_wrap_the_launches(run):
     assert counts["harmonic-sum-plane"] == len(hsum)
 
 
+def test_sift_select_span_inside_each_sift(run):
+    """One ``kernel.sift-select`` a sub-block, inside its ``search.sift``:
+    the first with no floor, the second with the first's full pool's
+    weakest cell; each sub-block's 2 x 5 x 2049 cells fit the select
+    kernel's buffer, so it takes one topk and records no launch."""
+    tracer, ledger, _, _ = run
+    select = [s for s in tracer.spans if s.name == "kernel.sift-select"]
+    assert [s.parent for s in select] == ["search.sift"] * 2
+    assert [{k: s.attrs[k] for k in ("rows", "cells", "pool", "floor")}
+            for s in select] == [
+        {"rows": 1, "cells": 2 * 5 * 2049, "pool": 64, "floor": floor}
+        for floor in (False, True)]
+    assert all(s.attrs["device"] == "cpu" for s in select)
+    assert "sift-select" not in ledger.counts()
+
+
 def test_untraced_block_records_nothing_and_computes_the_same(run):
     tracer, _, traced, untraced = run
     spans = len(tracer.spans)
@@ -82,3 +99,4 @@ def test_untraced_block_records_nothing_and_computes_the_same(run):
             assert torch.equal(a, b)
     assert traced.kept == untraced.kept == [5]
     assert torch.equal(traced.pool.vals, untraced.pool.vals)
+    assert traced.sift.tolist() == untraced.sift.tolist() == [[0, 0, 0]]
